@@ -1,41 +1,46 @@
-// Intra reconstruction of one plane kind (luma, or Cb+Cr) for Hopper.
+// Reconstruction of one plane kind (luma, or Cb+Cr) for Hopper.
 //
 // Replaces the TPU Pallas kernel ffmpeg_tpu/ops/recon_pallas.py
-// (recon_plane_pallas, body _build_kernel) for intra units: the same
-// control rows in, the same reconstructed plane out, bit for bit.  Its
-// oracle is the plain torch version in ffmpeg_tpu_torch/ops/recon.py
-// (recon_plane_plain), itself a port of the JAX frame program's intra
-// pass.
+// (recon_plane_pallas, body _build_kernel): the same control rows in,
+// the same reconstructed plane out, bit for bit.  Its oracle is the
+// plain torch version in ffmpeg_tpu_torch/ops/recon.py
+// (recon_plane_plain), itself a port of the JAX frame program's
+// _recon_plane.
 //
-// Design.  One cooperative launch per plane kind per frame.  The units
-// come in wavefront chunks of at most CHUNK_CAP mutually independent
-// units (chunk s = units [ioff[s], iend[s]) of the intra layout); every
-// sample a unit reads was written by a strictly earlier chunk.  Block
-// (b, ch) reconstructs unit ioff[s] + b of channel ch, 1024 threads, one
-// per sample of a 32x32 tile; a grid-wide barrier separates chunks.
-// The plane lives in device memory (a 720p int32 luma plane is 4 MB and
-// stays in the 50 MB L2); plane loads and stores go through L2 only
+// Design.  One cooperative launch per plane kind per frame.  Block
+// (b, ch) works on channel ch, 1024 threads, one per sample of a 32x32
+// tile.
+//  - Placement phase: the blocks of a channel stride over the pure
+//    inter units of the MC batch and write clip(tile + residual), the
+//    tiles coming from the inter-prediction kernel (csrc/inter_pred.cu).
+//    A grid-wide barrier follows.
+//  - Intra phase: the intra units come in wavefront chunks of at most
+//    CHUNK_CAP mutually independent units (chunk s = units [ioff[s],
+//    iend[s]) of the intra layout); every sample a unit reads was
+//    written by the placement or a strictly earlier chunk.  Block b
+//    reconstructs unit ioff[s] + b; a grid-wide barrier separates
+//    chunks.  CIIP units blend their intra prediction with their MC tile
+//    (found through ipos) as (pred * w + tile * (4 - w) + 2) >> 2.
+// The plane lives in device memory (a 1080p int32 luma plane is 10 MB
+// and stays in the 50 MB L2); plane loads and stores go through L2 only
 // (ld.global.cg / st.global.cg), so a block never reads a stale L1 line
-// of a sample another SM wrote in an earlier chunk.  A unit's reference
+// of a sample another SM wrote before a barrier.  A unit's reference
 // edges are built in shared memory; MIP's reduced prediction and the
 // CCLM model are computed once per unit in shared memory.  The
 // TPU-layout machinery of the Pallas kernel (one-hot MXU matmuls,
 // Toeplitz windows, 40x256 store windows, SMEM segmenting) has no
 // counterpart: indexed loads from shared memory replace it.
 //
-// What bounds it on this card: not bytes (each frame moves a few MB)
-// and not operations, but latency — the number of sequential chunks
-// times the latency of one unit (its barriers and dependent loads),
-// plus one grid barrier per chunk.  Only CHUNK_CAP x nch of the 132
-// SMs are busy.  Warp-level edge building, fewer barriers per unit and
-// wgmma/TMA for the residual transform are later work.
-//
-// Inter and CIIP units (the kernel's inter half) are refused by the
-// wrapper from the control rows before any launch.
+// What bounds it on this card: not bytes (each frame moves a few tens
+// of MB) and not operations, but latency — the number of sequential
+// chunks times the latency of one unit (its barriers and dependent
+// loads), plus one grid barrier per chunk.  Only CHUNK_CAP x nch of the
+// 132 SMs are busy.  Warp-level edge building, fewer barriers per unit
+// and wgmma/TMA for the residual transform are later work.
 //
 // Build (at first use, ffmpeg_tpu_torch/utils/build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared \
-//        -Xcompiler -fPIC -o _build/librecon_intra.so recon_intra.cu
+//        -Xcompiler -fPIC -o _build/librecon.so recon.cu
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -45,6 +50,7 @@ namespace cg = cooperative_groups;
 #define CHUNK_CAP 32
 #define MAXS 32               // largest unit dimension
 #define LMAX (5 * MAXS + 16)  // edge vector length at MAXS
+#define TILE 32               // MC tile edge (MC_TILE)
 
 // control rows, in the order of INTRA_KEYS (models/vvc/inputs.py)
 enum {
@@ -68,6 +74,10 @@ struct Params {
   const int* ioff;   // (n_chunks,)
   const int* iend;
   int n_chunks;
+  const int* ictrl;  // (NUM_INTER_KEYS, n_mc) MC batch; x0, y0, w, h first
+  int n_mc, n_inter;
+  const int* tiles;  // (n_mc, nch, TILE, TILE) MC prediction tiles
+  const int* ipos;   // (ucap,) row of a CIIP unit in the MC batch
   const int* res;    // (nch, Hp, Wp) residual
   int* plane;        // (nch, Hp, Wp) output, pre-filled with mid grey
   int Hp, Wp;
@@ -78,6 +88,7 @@ struct Params {
   const int* mip;    // (30, 64, 8) MIP matrix bank
   const int* div;    // (16,) CCLM division significands
   int maxs, is_chroma, bd;
+  int nch;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -401,7 +412,7 @@ __device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
       break;
     }
     default:
-      break;  // MC_INTER: refused before launch
+      break;  // MC_INTER units are placed, never chunked
   }
   if (pdpc > 0 && mc < MC_ANG_V) {  // PDPC for planar/DC/V/H
     const int scale = (logw + logh - 2) >> 2;
@@ -417,8 +428,8 @@ __device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
   return pred;
 }
 
-__device__ void recon_unit(const Params& p, Shared& s, int u, int* plane,
-                           const int* res) {
+__device__ void recon_unit(const Params& p, Shared& s, int u, int ch,
+                           int* plane, const int* res) {
   const int maxs = p.maxs;
   const int L = 5 * maxs + 16, OFF = 2 * maxs + 8;
   const int maxv = (1 << p.bd) - 1, mid = 1 << (p.bd - 1);
@@ -456,50 +467,83 @@ __device__ void recon_unit(const Params& p, Shared& s, int u, int* plane,
 
   const int y = threadIdx.x >> 5, x = threadIdx.x & 31;
   if (y < c[k_h] && x < c[k_w]) {
-    const int pred = predict(p, s, y, x, L, OFF, maxv);
+    int pred = predict(p, s, y, x, L, OFF, maxv);
+    const int cw = c[k_ciipw];
+    if (cw > 0) {  // CIIP blend (put_ciip, vvc_inter_template.c:60-76)
+      const int at = (clampi(__ldg(p.ipos + u), 0, p.n_mc - 1) * p.nch + ch)
+                     * TILE * TILE + y * TILE + x;
+      pred = (pred * cw + __ldg(p.tiles + at) * (4 - cw) + 2) >> 2;
+    }
     const int at = (c[k_y0] + y) * p.Wp + c[k_x0] + x;
     __stcg(plane + at, clampi(pred + __ldg(res + at), 0, maxv));
   }
 }
 
-__global__ void __launch_bounds__(1024, 1) recon_intra_kernel(Params p) {
+// placement of the pure inter units: clip(tile + residual) over each
+// unit's (h, w); the blocks of a channel stride over the units
+__device__ void place_inter(const Params& p, int ch, int* plane,
+                            const int* res) {
+  const int maxv = (1 << p.bd) - 1;
+  const int y = threadIdx.x >> 5, x = threadIdx.x & 31;
+  for (int u = blockIdx.x; u < p.n_inter; u += gridDim.x) {
+    const int x0 = __ldg(p.ictrl + 0 * p.n_mc + u);
+    const int y0 = __ldg(p.ictrl + 1 * p.n_mc + u);
+    const int w = __ldg(p.ictrl + 2 * p.n_mc + u);
+    const int h = __ldg(p.ictrl + 3 * p.n_mc + u);
+    if (y < h && x < w) {
+      const int tile = __ldg(p.tiles + ((size_t)u * p.nch + ch) * TILE * TILE
+                             + y * TILE + x);
+      const int at = (y0 + y) * p.Wp + x0 + x;
+      __stcg(plane + at, clampi(tile + __ldg(res + at), 0, maxv));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(1024, 1) recon_kernel(Params p) {
   __shared__ Shared s;
   cg::grid_group grid = cg::this_grid();
   const int ch = blockIdx.y;
   const size_t hw = (size_t)p.Hp * p.Wp;
   int* plane = p.plane + ch * hw;
   const int* res = p.res + ch * hw;
+  if (p.n_inter > 0) {
+    place_inter(p, ch, plane, res);
+    grid.sync();  // the placed samples are visible to chunk 0
+  }
   for (int k = 0; k < p.n_chunks; ++k) {
     const int u = __ldg(p.ioff + k) + blockIdx.x;
     if (u < __ldg(p.iend + k)) {  // uniform over the block
       if (threadIdx.x < NUM_KEYS)
         s.c[threadIdx.x] = __ldg(p.ctrl + threadIdx.x * p.ucap + u);
       __syncthreads();
-      if (s.c[k_w] > 0) recon_unit(p, s, u, plane, res);
+      if (s.c[k_w] > 0) recon_unit(p, s, u, ch, plane, res);
       __syncthreads();
     }
     grid.sync();  // chunk k's samples are visible to chunk k+1
   }
 }
 
-extern "C" int recon_intra_launch(
+extern "C" int recon_launch(
     const int* ctrl, int num_keys, int ucap, const int* ioff, const int* iend,
-    int n_chunks, const int* res, int* plane, int nch, int Hp, int Wp,
-    const int* dsy, int Hd, int Wd, const int* sel, const int* lfilt,
-    const int* mip, const int* div, int maxs, int is_chroma, int bit_depth,
-    void* stream) {
-  if (num_keys != NUM_KEYS || maxs < 1 || maxs > MAXS || nch < 1)
+    int n_chunks, const int* ictrl, int num_inter_keys, int n_mc, int n_inter,
+    const int* tiles, const int* ipos, const int* res, int* plane, int nch,
+    int Hp, int Wp, const int* dsy, int Hd, int Wd, const int* sel,
+    const int* lfilt, const int* mip, const int* div, int maxs, int is_chroma,
+    int bit_depth, void* stream) {
+  if (num_keys != NUM_KEYS || num_inter_keys < 4 || maxs < 1 || maxs > MAXS
+      || nch < 1 || n_inter < 0 || n_inter > n_mc || (n_mc > 0 && !tiles))
     return (int)cudaErrorInvalidValue;
-  Params p{ctrl, ucap, ioff, iend, n_chunks, res, plane, Hp, Wp, dsy, Hd,
-           Wd, sel, lfilt, mip, div, maxs, is_chroma, bit_depth};
+  Params p{ctrl, ucap, ioff, iend, n_chunks, ictrl, n_mc, n_inter, tiles,
+           ipos, res, plane, Hp, Wp, dsy, Hd, Wd, sel, lfilt, mip, div, maxs,
+           is_chroma, bit_depth, nch};
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)recon_intra_kernel, dim3(CHUNK_CAP, nch), dim3(1024), args, 0,
+      (void*)recon_kernel, dim3(CHUNK_CAP, nch), dim3(1024), args, 0,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* recon_intra_error_string(int e) {
+extern "C" const char* recon_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }

@@ -1,12 +1,10 @@
 """Numpy host-input tree -> the port's tensors.
 
-`inputs_from_numpy` takes a frame's host-input dict as either builder
-returns it (this package's `inputs.build_host_inputs`, or the JAX
-package's `build_host_inputs(..., pallas=False)`, whose capacities are
-ratcheted above the live counts) and moves it to `device` as int32
-tensors.  Counts the host loops need stay Python ints; the intra
-control rows travel as one (len(INTRA_KEYS), n) matrix whose rows are
-exposed under their names, with a host copy kept for the refusal check
+`inputs_from_numpy` takes a frame's host-input dict as
+`inputs.build_host_inputs` returns it and moves it to `device` as
+int32 tensors.  Counts the host loops need stay Python ints.  Each
+layout's control rows travel as one (len(KEYS), n) matrix whose rows
+are exposed under their names, with a host copy kept for the checks
 and the chunk bounds.
 """
 from __future__ import annotations
@@ -14,23 +12,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .inputs import INTRA_KEYS
+from .inputs import INTER_KEYS, INTRA_KEYS
 
 
 def _t(a, device) -> torch.Tensor:
   return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
 
-def _intra(intra: dict, n_chunks: int, device) -> dict:
-  mat_host = np.stack([np.asarray(intra[k], np.int32) for k in INTRA_KEYS])
+def _rows(layout: dict, keys, device) -> dict:
+  mat_host = np.stack([np.asarray(layout[k], np.int32) for k in keys])
   mat = _t(mat_host, device)
-  out = {k: mat[i] for i, k in enumerate(INTRA_KEYS)}
+  out = {k: mat[i] for i, k in enumerate(keys)}
   out["mat"] = mat
   out["mat_host"] = mat_host
+  return out
+
+
+def _intra(intra: dict, n_chunks: int, device) -> dict:
+  out = _rows(intra, INTRA_KEYS, device)
+  ipos = np.asarray(intra["ipos"], np.int32)
+  out["ipos_host"], out["ipos"] = ipos, _t(ipos, device)
   ioff = np.asarray(intra["ioff"], np.int32)[:n_chunks]
   iend = np.asarray(intra["iend"], np.int32)[:n_chunks]
   out["ioff_host"], out["iend_host"] = ioff, iend
   out["ioff"], out["iend"] = _t(ioff, device), _t(iend, device)
+  return out
+
+
+def _inter(inter: dict, n_inter: int, device) -> dict:
+  """The MC batch: n_mc rows, the first n_inter of them pure inter."""
+  out = _rows(inter, INTER_KEYS, device)
+  out["n_inter"] = n_inter
+  out["n_mc"] = out["mat"].shape[1]
+  out["gwt"] = _t(inter["gwt"], device)
+  out["gslot"] = _t(inter["gslot"], device)
   return out
 
 
@@ -46,7 +61,9 @@ def inputs_from_numpy(inp: dict, device) -> dict:
   for tag, ct in inp["ctrl"].items():
     n_chunks = int(ct["n_chunks"])
     out["ctrl"][tag] = {"n_chunks": n_chunks,
-                        "intra": _intra(ct["intra"], n_chunks, device)}
+                        "intra": _intra(ct["intra"], n_chunks, device),
+                        "inter": _inter(ct["inter"], int(ct["n_inter"]),
+                                        device)}
   if "cclm_vc" in inp:
     out["cclm_vc"] = int(inp["cclm_vc"])
   for key in ("deblock", "sao"):

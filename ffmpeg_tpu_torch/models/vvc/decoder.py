@@ -26,6 +26,7 @@ import torch
 
 from ...utils import trace
 from .host import HostDecoder
+from .inputs import _padded_plane_shapes
 from .pipeline import prepare_frame, submit_frame
 
 log = logging.getLogger("ffmpeg_tpu_torch.vvc.decoder")
@@ -125,7 +126,7 @@ def resolve_device(device) -> torch.device:
 
 
 class VVCDecoder:
-    """Streaming decoder for annex-B VVC (all-intra streams).
+    """Streaming decoder for annex-B VVC (I, P and B slices).
 
     Host CABAC parsing runs on a thread pool (the native call releases
     the GIL): entropy decode of every access unit is independent once
@@ -177,10 +178,19 @@ class VVCDecoder:
         for _ in hosts:
             self._hosts.put(HostDecoder(self._colstore))
 
+    def _gray_planes(self, fs):
+        """A mid-gray reference for a missing one (missing-ref recovery,
+        vvc_refs.c:316-347: generate_missing_ref)."""
+        sy, sc = _padded_plane_shapes(fs.width, fs.height, fs.ctb_log2)
+        gray = 1 << (fs.bit_depth - 1)
+        shapes = [sy] if fs.chroma_format_idc == 0 else [sy, sc, sc]
+        return [torch.full(s, gray, dtype=torch.int32, device=self.device)
+                for s in shapes]
+
     def _parse_au(self, au: bytes, epoch: int):
         """Worker-thread frame stage: native CABAC parse (releases the
         GIL) + the numpy host inputs (pipeline.prepare_frame, which
-        refuses streams outside this slice)."""
+        refuses streams outside the port's slices)."""
         hd = self._hosts.get()
         try:
             with trace.span("host_parse"):
@@ -297,7 +307,7 @@ class VVCDecoder:
             try:
                 parsed = fut.result()
             except NotImplementedError:
-                raise  # outside this slice: never contained, never guessed
+                raise  # outside the port: never contained, never guessed
             except Exception as e:
                 # per-frame error containment (vvc_thread.c:605-617 /
                 # vvcdec.c:795-798: a failed frame is dropped, the
@@ -311,13 +321,23 @@ class VVCDecoder:
             if parsed is None:
                 continue
             fs, host_inp = parsed
+            if fs.slice_type != 2:
+                needed = set(fs.ref_pocs[0]) | set(fs.ref_pocs[1])
+                missing = needed - set(self._dpb)
+                if missing and not contain:
+                    raise RuntimeError(f"missing reference frames {missing}")
+                for poc in missing:
+                    log.warning("poc %d: missing reference %d, "
+                                "synthesizing gray", fs.poc, poc)
+                    self._dpb[poc] = self._gray_planes(fs)
             if is_idr:
                 if not first:
                     yield from bump(all_of_them=True)
                 self._dpb.clear()
             first = False
             reorder_depth = fs.max_num_reorder
-            packed, planes = submit_frame(host_inp, fs, self.device)
+            packed, planes = submit_frame(host_inp, fs, self.device,
+                                          self._dpb)
             self._dpb[fs.poc] = planes
             # RPS-driven DPB lifetime (spec 8.3.2 / vvc_refs.c:196-294)
             listed = set(fs.ref_pocs[0]) | set(fs.ref_pocs[1])

@@ -1,13 +1,14 @@
 """Host half of a frame decode: FrameSyntax -> numpy input tree.
 
 Numpy port of the JAX frame program's host-input assembly
-(build_host_inputs, _layout_ctrl, _bucket_inputs, _deblock_grids).
-The tree has the same structure and the same per-unit and per-TU rows,
-so `convert.inputs_from_numpy` takes either builder's output.  Arrays
-are sized to this frame's exact counts: eager torch has no compiled
-program whose shapes would need to stay fixed across frames.
+(build_host_inputs, _layout_ctrl, _pallas_ctrl's inter index,
+_gpm_weight_blocks, _bucket_inputs, _deblock_grids).  The tree has the
+same structure and the same per-unit and per-TU rows as the JAX
+builder's non-Pallas tree.  Arrays are sized to this frame's exact
+counts: eager torch has no compiled program whose shapes would need to
+stay fixed across frames.
 
-Streams outside the all-intra slice are refused here, loudly
+Streams outside the port's slices are refused here, loudly
 (`check_supported`), naming the ROADMAP item that will add them.
 """
 from __future__ import annotations
@@ -16,18 +17,31 @@ import ctypes
 
 import numpy as np
 
+from ...ops.tables import VVC_TABLES
 from ...ops.transform import BUCKET_ROWS, LEVEL_SCALE, dequant_scale_shift
 from .host import CHUNK_CAP, FrameSyntax, _get_lib
-from .recon import CTRL_KEYS, MC_INTER, _round_up
+from .recon import CTRL_KEYS, _round_up
 
-# TU size classes per plane kind (w, h): the all-intra slice's residual
+# TU size classes per plane kind (w, h): the port's residual
 # buckets (ISP and 64-point classes come with their ROADMAP items)
 LUMA_SIZES = [(w, h) for w in (4, 8, 16, 32) for h in (4, 8, 16, 32)]
 CHROMA_SIZES = [(w, h) for w in (2, 4, 8, 16, 32) for h in (2, 4, 8, 16, 32)]
 
-# control rows the intra pass reads (the JAX frame program's INTRA_KEYS:
-# the CIIP motion rows travel too, so a CIIP unit can be refused from
-# the rows themselves)
+# control rows of the MC batch (the JAX frame program's INTER_KEYS
+# without the DMVR rows, which ROADMAP 'Still to port' #7 adds)
+INTER_KEYS = ("x0", "y0", "w", "h", "pf", "m0x", "m0y", "m1x", "m1y",
+              "r0slot", "r1slot", "wden", "w0", "w1", "wo0", "wo1",
+              "hpel", "hyp0lx", "hyp1lx",
+              "gpm_part", "gpm_tx", "gpm_ty", "gpm_lw", "gpm_lh",
+              "w0b", "w1b", "wo0b", "wo1b",
+              "prof", "pdhx0", "pdhy0", "pdvx0", "pdvy0",
+              "pdhx1", "pdhy1", "pdvx1", "pdvy1", "bdof")
+
+# MC prediction tiles are S x S: every MC unit is at most 32 x 32
+MC_TILE = 32
+
+# control rows the intra pass reads (the JAX frame program's INTRA_KEYS,
+# with the CIIP motion and blend rows)
 INTRA_KEYS = ("x0", "y0", "w", "h", "logw", "logh", "mode_class", "angle",
               "inv_angle", "filter_flag", "smooth", "left_size", "top_size",
               "unfilter_last_one", "do_pdpc", "nscale", "avail_l", "avail_t",
@@ -42,12 +56,11 @@ INTRA_KEYS = ("x0", "y0", "w", "h", "logw", "logh", "mode_class", "angle",
 
 
 def check_supported(fs: FrameSyntax) -> None:
-  """Raise NotImplementedError for every stream feature this slice does
+  """Raise NotImplementedError for every stream feature the port does
   not decode (never decode such a frame wrongly or fall back)."""
   refusals = [
-      (fs.slice_type != 2,
-       "P/B slices (and CIIP inside them): ROADMAP 'Still to port' #6, "
-       "inter prediction"),
+      (fs.cus is not None and "dmvr" in fs.cus and np.any(fs.cus["dmvr"]),
+       "DMVR: ROADMAP 'Still to port' #7"),
       (fs.chroma_format_idc not in (0, 1),
        f"chroma_format_idc {fs.chroma_format_idc}: only 4:2:0 and 4:0:0"),
       (bool(fs.has_isp), "ISP: ROADMAP 'Still to port' #2"),
@@ -57,18 +70,16 @@ def check_supported(fs: FrameSyntax) -> None:
        "port' #5"),
       (fs.lmcs is not None, "LMCS: ROADMAP 'Still to port' #3"),
       (fs.alf is not None, "ALF/CC-ALF: ROADMAP 'Still to port' #4"),
-      (bool(fs.wrap_off), "reference wraparound: ROADMAP 'Still to "
-       "port' #6, inter prediction"),
   ]
   for bad, what in refusals:
     if bad:
       raise NotImplementedError(f"poc {fs.poc}: {what}")
   for ctrl in (fs.ctrl_y, fs.ctrl_c):
     if ctrl is not None and ctrl.size and (
-        (ctrl[CTRL_KEYS.index("mode_class")] == MC_INTER).any()
-        or (ctrl[CTRL_KEYS.index("ciipw")] > 0).any()):
+        (ctrl[CTRL_KEYS.index("w")] > MC_TILE).any()
+        or (ctrl[CTRL_KEYS.index("h")] > MC_TILE).any()):
       raise NotImplementedError(
-          f"poc {fs.poc}: inter/CIIP units: ROADMAP 'Still to port' #1")
+          f"poc {fs.poc}: 64-wide units: ROADMAP 'Still to port' #2")
 
 
 def _padded_plane_shapes(W, H, ctb_log2):
@@ -248,20 +259,86 @@ def _deblock_grids(fs: FrameSyntax, Hp_y, Wp_y, Hp_c, Wp_c, ctb_log2):
   return {k: v.astype(np.int8) for k, v in d.items()}
 
 
-def _layout_ctrl(mat):
-  """The intra layout of one (kNumKeys, n_units) control matrix:
+_GPM_W_CACHE: dict = {}
 
-    dict of (n_iu + CHUNK_CAP,) arrays, units contiguous in chunk
-    order, plus ioff/iend (n_chunks,): chunk s's units live at
-    [ioff[s], iend[s]), at most CHUNK_CAP of them.  The CHUNK_CAP
-    tail of zero (w=0) rows keeps a full CHUNK_CAP window from any
-    ioff in bounds.  The host guarantees every sample dependency of a
-    unit lives in a strictly earlier chunk.
 
-  Returns (intra, n_chunks).  Inter units (chunk < 0) are refused
-  before this (check_supported)."""
+def _gpm_weight_plane(part: int, W: int, H: int):
+  """Per-CU GPM luma blend weights, sliced from the normative tables
+  (pred_gpm_blk, vvc_inter.c:466-496; tables vvc_data.c:1998-3486)."""
+  key = (part, W, H)
+  if key not in _GPM_W_CACHE:
+    T = VVC_TABLES
+    aidx = int(T["gpm_angle_idx"][part])
+    wi = int(T["gpm_angle_to_weights_idx"][aidx])
+    mt = int(T["gpm_angle_to_mirror"][aidx])
+    hh, ww = H.bit_length() - 4, W.bit_length() - 4
+    ox = int(T["gpm_weights_offset_x"][part][hh][ww])
+    oy = int(T["gpm_weights_offset_y"][part][hh][ww])
+    GW = 112
+    wt = T["gpm_weights"].reshape(6, GW, GW).astype(np.int32)
+    y = np.arange(H)[:, None]
+    x = np.arange(W)[None, :]
+    if mt == 0:
+      w = wt[wi][oy + y, ox + x]
+    elif mt == 1:
+      w = wt[wi][oy + y, GW - 1 - ox - x]
+    else:
+      w = wt[wi][GW - 1 - oy - y, ox + x]
+    _GPM_W_CACHE[key] = np.ascontiguousarray(w)
+  return _GPM_W_CACHE[key]
+
+
+def _gpm_weight_blocks(inter, ss, S=MC_TILE):
+  """(n_gpm or 1, S, S) per-GPM-unit weight tiles + the per-MC-row
+  index into them (0 for units that are not GPM)."""
+  part = inter["gpm_part"]
+  sel = np.flatnonzero(part > 0)
+  gwt = np.zeros((max(len(sel), 1), S, S), np.int32)
+  gslot = np.zeros(len(part), np.int32)
+  for j, r in enumerate(sel):
+    wfull = _gpm_weight_plane(int(part[r]) - 1, 1 << int(inter["gpm_lw"][r]),
+                              1 << int(inter["gpm_lh"][r]))
+    tx = int(inter["gpm_tx"][r]) << ss   # luma coords
+    ty = int(inter["gpm_ty"][r]) << ss
+    h_u = min(S, int(inter["h"][r]))
+    w_u = min(S, int(inter["w"][r]))
+    ys = ty + (np.arange(h_u) << ss)
+    xs = tx + (np.arange(w_u) << ss)
+    gwt[j, :h_u, :w_u] = wfull[ys[:, None], xs[None, :]]
+    gslot[r] = j
+  return gwt, gslot
+
+
+def _layout_ctrl(mat, n_l0: int, ss: int):
+  """The two layouts of one (kNumKeys, n_units) control matrix:
+
+    inter: the MC batch, dict of (n_mc,) INTER_KEYS rows: the n_inter
+      pure inter units (chunk < 0; no intra-frame sample deps), then
+      the CIIP units, whose MC tile the intra pass blends.  Plus the
+      GPM weight tiles `gwt` and the per-row index `gslot`.
+    intra: dict of (n_iu + CHUNK_CAP,) arrays, units contiguous in
+      chunk order, plus ioff/iend (n_chunks,): chunk s's units live at
+      [ioff[s], iend[s]), at most CHUNK_CAP of them.  The CHUNK_CAP
+      tail of zero (w=0) rows keeps a full CHUNK_CAP window from any
+      ioff in bounds.  The host guarantees every sample dependency of a
+      unit lives in a strictly earlier chunk.  `ipos` is each unit's
+      row in the MC batch (its CIIP tile; 0 for other units).
+
+  Reference slots: r0slot/r1slot become ref_idx + n_l0 * list, an index
+  into the frame's [L0 refs..., L1 refs...] (GPM hypotheses can sit on
+  either list).  Returns (inter, n_inter, intra, n_chunks)."""
   keys = {k: mat[j] for j, k in enumerate(CTRL_KEYS)}
+  keys["r0slot"] = keys["r0slot"] + n_l0 * keys["hyp0lx"]
+  keys["r1slot"] = keys["r1slot"] + n_l0 * keys["hyp1lx"]
   chunk = keys["chunk"]
+  pure_idx = np.flatnonzero(chunk < 0)
+  mc_idx = np.concatenate([pure_idx, np.flatnonzero(keys["ciipw"] > 0)])
+  inter = {k: np.ascontiguousarray(keys[k][mc_idx], np.int32)
+           for k in INTER_KEYS}
+  inter["gwt"], inter["gslot"] = _gpm_weight_blocks(inter, ss)
+  ipos = np.zeros(mat.shape[1], np.int32)
+  ipos[mc_idx] = np.arange(len(mc_idx), dtype=np.int32)
+
   intra_idx = np.flatnonzero(chunk >= 0)
   n_iu = len(intra_idx)
   if n_iu:
@@ -278,27 +355,30 @@ def _layout_ctrl(mat):
     offs = np.zeros(1, np.int64)
   src = intra_idx[order]
   intra = {}
-  for k in INTRA_KEYS:
+  for k in (*INTRA_KEYS, "ipos"):
     a = np.zeros(n_iu + CHUNK_CAP, np.int32)
-    a[:n_iu] = keys[k][src]
+    a[:n_iu] = (ipos if k == "ipos" else keys[k])[src]
     intra[k] = a
   intra["ioff"] = offs[:-1].astype(np.int32)
   intra["iend"] = offs[1:].astype(np.int32)
-  return intra, np.int32(n_chunks)
+  return inter, np.int32(len(pure_idx)), intra, np.int32(n_chunks)
 
 
 def build_host_inputs(fs: FrameSyntax):
-  """Numpy input tree of one intra frame (safe on a parse worker)."""
+  """Numpy input tree of one frame (safe on a parse worker)."""
   check_supported(fs)
   W, H = fs.width, fs.height
   inp = {"planes": []}
   mono = fs.chroma_format_idc == 0
+  n_l0 = max(1, len(fs.ref_pocs[0]))
   ctrl = {}
   for tag, mat in (("y", fs.ctrl_y), ("c", fs.ctrl_c)):
     if mat is None:
       mat = np.zeros((len(CTRL_KEYS), 0), np.int32)
-    intra, n_chunks = _layout_ctrl(mat)
-    ctrl[tag] = {"intra": intra, "n_chunks": n_chunks}
+    inter, n_inter, intra, n_chunks = _layout_ctrl(mat, n_l0,
+                                                   0 if tag == "y" else 1)
+    ctrl[tag] = {"inter": inter, "n_inter": n_inter, "intra": intra,
+                 "n_chunks": n_chunks}
   inp["ctrl"] = ctrl
   if (fs.ctrl_c is not None and fs.ctrl_c.size and
       (fs.ctrl_c[CTRL_KEYS.index("cclm")] > 0).any()):

@@ -1,11 +1,14 @@
-"""Frame program of an intra frame: host inputs -> decoded planes.
+"""Frame program of one frame: host inputs + reference planes -> decoded
+planes.
 
 Torch port of the JAX frame program (pipeline.frame_program, non-Pallas
-form) for intra frames, stage by stage on one device:
+form), stage by stage on one device:
 
   buckets ──dequant+ITX──> residual planes
-  intra layout ──recon kernel──> luma, then Cb+Cr (CCLM reads the
-                                 reconstructed luma before deblocking)
+  MC batch + DPB refs ──inter kernel──> prediction tiles (P/B frames)
+  tiles + intra layout ──recon kernel──> luma, then Cb+Cr (CCLM reads
+                                         the reconstructed luma before
+                                         deblocking)
   edge grids ──> deblock V, then H (transposed) ──> SAO ──> packed
                                                            planar bytes
 
@@ -18,12 +21,13 @@ import torch
 
 from ...ops import intra as I
 from ...ops.deblock import deblock_vertical_chroma, deblock_vertical_luma
-from ...ops.recon import recon_intra
+from ...ops.inter import inter_pred, inter_pred_plain_kind
+from ...ops.recon import recon_plane, recon_plane_plain_kind
 from ...ops.sao import sao_plane
 from ...ops.transform import residual_plane
 from ...utils import trace
 from .convert import inputs_from_numpy
-from .host import FrameSyntax
+from .host import ColStore, FrameSyntax, HostDecoder
 from .inputs import (CHROMA_SIZES, LUMA_SIZES, _padded_plane_shapes,
                      build_host_inputs)
 
@@ -34,13 +38,30 @@ def _sync_for(device):
   return None
 
 
-def frame_program(inp, *, W, H, ctb_log2, bit_depth, mono=False,
+# each kernel of the frame program: (wrapper, its plain version, which
+# takes the same arguments and returns the same result)
+KERNELS = {"inter_pred": (inter_pred, inter_pred_plain_kind),
+           "recon": (recon_plane, recon_plane_plain_kind)}
+
+
+def _launch(name, label, kw):
+  return KERNELS[name][0](**kw)
+
+
+def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
                   tile_bds=((), ()), crop=(0, 0, 0, 0), dbo=(0, 0, 0),
-                  dto=(0, 0, 0), device="cuda"):
+                  dto=(0, 0, 0), wrap=0, device="cuda", call=None):
   """inp: converted input tree (convert.inputs_from_numpy).
+  refs: per component, the reference planes [L0..., L1...]
+  (resolve_refs).
   tile_bds: interior tile boundaries in luma samples (CCLM stencils).
+  wrap: the luma reference wraparound offset (0 = off).
   crop: conformance-window offsets (l, r, t, b) in luma samples.
   dbo/dto: effective deblock beta/tc offsets per component.
+  call(kernel name, plane kind, kwargs) -> result runs each kernel call
+  of KERNELS, in order: inter_pred of luma then chroma (P/B frames),
+  recon of luma then chroma.  The default runs the wrapper; a check
+  passes its own to hold each call against the plain version.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits)}."""
   bd = bit_depth
@@ -54,23 +75,32 @@ def frame_program(inp, *, W, H, ctb_log2, bit_depth, mono=False,
                           bd, LUMA_SIZES if c == 0 else CHROMA_SIZES, c > 0,
                           device)
            for c in range(n_comp)]
+  call = call or _launch
+  # plane kinds: (label, chroma shift, control, reference channels)
+  kinds = [("luma", 0, inp["ctrl"]["y"], refs[:1])]
+  if not mono:
+    kinds.append(("chroma", 1, inp["ctrl"]["c"], refs[1:]))
+  with trace.span("inter", sync):
+    tiles = {label: call("inter_pred", label, dict(
+        refs=chans, inter=ct["inter"], H=H >> ss, W=W >> ss,
+        is_chroma=bool(ss), bit_depth=bd, wrap=wrap >> ss))
+             if ct["inter"]["n_mc"] else None
+             for label, ss, ct, chans in kinds}
   with trace.span("recon", sync):
-    ct = inp["ctrl"]["y"]
-    planes = [recon_intra(res[0][None], ct["intra"], ct["n_chunks"],
-                          maxs=min(32, maxs_y), is_chroma=False,
-                          bit_depth=bd)[0]]
-    if not mono:
+    planes = []
+    for label, ss, ct, _ in kinds:
       cclm = None
-      if "cclm_vc" in inp:
+      if ss and "cclm_vc" in inp:
         # chroma CCLM reads the reconstructed luma: the whole-plane
         # collocated downsample + the plane itself
         cclm = (planes[0], I.cclm_dsy_plane(planes[0], inp["cclm_vc"],
                                             tile_bds[0], tile_bds[1]))
-      ct = inp["ctrl"]["c"]
-      pc = recon_intra(torch.stack(res[1:]), ct["intra"], ct["n_chunks"],
-                       maxs=min(32, maxs_y >> 1), is_chroma=True,
-                       bit_depth=bd, cclm=cclm)
-      planes += [pc[0], pc[1]]
+      out = call("recon", label, dict(
+          res=torch.stack(res[1:]) if ss else res[0][None],
+          intra=ct["intra"], n_chunks=ct["n_chunks"], inter=ct["inter"],
+          tiles=tiles[label], maxs=min(32, maxs_y >> ss), is_chroma=bool(ss),
+          bit_depth=bd, cclm=cclm))
+      planes += list(out)
 
   if "deblock" in inp:
     with trace.span("deblock", sync):
@@ -125,7 +155,42 @@ def frame_geometry(fs: FrameSyntax) -> dict:
                         tuple(v for v in fs.tile_bd[1]
                               if 0 < v < fs.height)),
               crop=tuple(fs.crop), dbo=tuple(fs.beta_offset),
-              dto=tuple(fs.tc_offset))
+              dto=tuple(fs.tc_offset), wrap=int(fs.wrap_off))
+
+
+_ZEROS: dict = {}
+
+
+def _zero_plane(shape, device):
+  key = (tuple(shape), str(device))
+  if key not in _ZEROS:
+    _ZEROS[key] = torch.zeros(shape, dtype=torch.int32, device=device)
+  return _ZEROS[key]
+
+
+def resolve_refs(fs: FrameSyntax, dpb: dict, device) -> list:
+  """Per component, the frame's reference planes [L0..., L1...] (at
+  least one per list, so a unit's unused hypothesis always has a plane
+  to read): the DPB's device planes of the listed POCs, a shared zero
+  plane for list entries that do not exist (`resolve_refs` of the JAX
+  frame program).  Empty for intra frames, which read no reference."""
+  if fs.slice_type == 2:
+    return []
+  shapes = _padded_plane_shapes(fs.width, fs.height, fs.ctb_log2)
+  n_comp = 1 if fs.chroma_format_idc == 0 else 3
+  out = []
+  for c_idx in range(n_comp):
+    shape = shapes[0 if c_idx == 0 else 1]
+    planes = []
+    for lx in (0, 1):
+      pocs = fs.ref_pocs[lx]
+      for k in range(max(1, len(pocs))):
+        if k < len(pocs) and pocs[k] in dpb:
+          planes.append(dpb[pocs[k]][c_idx])
+        else:
+          planes.append(_zero_plane(shape, device))
+    out.append(planes)
+  return out
 
 
 def prepare_frame(fs: FrameSyntax):
@@ -134,10 +199,30 @@ def prepare_frame(fs: FrameSyntax):
     return build_host_inputs(fs)
 
 
-def submit_frame(host_inp, fs: FrameSyntax, device):
+def submit_frame(host_inp, fs: FrameSyntax, device, dpb: dict, call=None):
   """Main-thread half: move the inputs to `device` and run the frame
-  program.  Returns (packed, planes), both on `device`."""
+  program against the DPB's planes (poc -> per-component planes).
+  call: as in frame_program.  Returns (packed, planes), both on
+  `device`."""
   with trace.span("h2d", _sync_for(device)):
     inp = inputs_from_numpy(host_inp, device)
-  out = frame_program(inp, device=device, **frame_geometry(fs))
+  out = frame_program(inp, resolve_refs(fs, dpb, device), device=device,
+                      call=call, **frame_geometry(fs))
   return out["packed"], out["planes"]
+
+
+def walk_frames(aus, device, call):
+  """Every frame of a stream's access units (VVCDecoder._split_aus) in
+  decode order through the frame program, on one thread, each frame
+  kept as a reference for the later ones: yields (fs, host inputs)
+  after each frame's program was queued.  call: as in frame_program.
+  The card checks walk streams with it, to hold each kernel call of the
+  real program against its plain version."""
+  host, dpb = HostDecoder(ColStore()), {}
+  for _, epoch, au in aus:
+    fs = host.decode_au(au, epoch)
+    if fs is None:
+      continue
+    h = build_host_inputs(fs)
+    _, dpb[fs.poc] = submit_frame(h, fs, device, dpb, call=call)
+    yield fs, h

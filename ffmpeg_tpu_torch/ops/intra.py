@@ -14,7 +14,7 @@ vectors and predictions (N, maxs, maxs) blocks whose valid region
   top[:, OFF + j]  = reference row sample at x0 + j
   left[:, OFF + j] = reference column sample at y0 + j
 with OFF = 2*maxs + 8 and L = 5*maxs + 16.  These are the plain
-versions that the recon kernel (csrc/recon_intra.cu) is held against.
+versions that the recon kernel (csrc/recon.cu) is held against.
 """
 from __future__ import annotations
 

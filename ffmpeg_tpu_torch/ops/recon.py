@@ -1,18 +1,22 @@
-"""Intra reconstruction of one plane kind: the recon kernel and its
-plain version.
+"""Reconstruction of one plane kind: the recon kernel and its plain
+version.
 
-The decoder's one sequential stage.  Units (transform blocks of at most
-maxs x maxs) arrive in the intra layout of `inputs._layout_ctrl`:
-wavefront chunks of at most CHUNK_CAP mutually independent units, chunk
-s at [ioff[s], iend[s]).  Every sample a unit reads was reconstructed
-by a strictly earlier chunk.
+The decoder's one sequential stage.  First the pure inter units of the
+MC batch (`inputs._layout_ctrl`) are placed: their prediction tiles
+(`ops.inter.inter_pred`) plus the residual.  Then the intra units
+(transform blocks of at most maxs x maxs) run in wavefront chunks of at
+most CHUNK_CAP mutually independent units, chunk s at [ioff[s],
+iend[s]) of the intra layout.  Every sample a unit reads was
+reconstructed by the inter placement or a strictly earlier chunk.
+CIIP units are intra units whose prediction is blended with their MC
+tile, found through `ipos`.
 
-`recon_intra` is the entry point.  A CUDA tensor launches the kernel
-(csrc/recon_intra.cu, one cooperative launch per plane kind per frame);
-a CPU tensor runs `recon_plane_plain`, the batched torch port of the
-JAX frame program's intra pass (`_recon_plane`'s intra_chunk loop and
-`_intra_unit`/`_cclm_unit`), which is also the kernel's oracle.
-Inter and CIIP units are refused from the control rows.
+`recon_plane` is the entry point.  A CUDA tensor launches the kernel
+(csrc/recon.cu, one cooperative launch per plane kind per frame); a CPU
+tensor runs `recon_plane_plain`, the batched torch port of the JAX
+frame program's `_recon_plane` (the inter pass, then the intra_chunk
+loop with `_intra_unit`/`_cclm_unit` and the CIIP blend), which is also
+the kernel's oracle.
 """
 from __future__ import annotations
 
@@ -23,25 +27,25 @@ import numpy as np
 import torch
 
 from ..models.vvc.host import CHUNK_CAP
-from ..models.vvc.inputs import INTRA_KEYS
-from ..models.vvc.recon import MC_CCLM, MC_INTER, MC_MIP
+from ..models.vvc.inputs import INTER_KEYS, INTRA_KEYS, MC_TILE
+from ..models.vvc.recon import MC_CCLM, MC_MIP
 from . import intra as I
 
 _K = {k: i for i, k in enumerate(INTRA_KEYS)}
 
 # launches of the CUDA kernel, and runs of the plain version: plain
 # integer counters a caller may reset to 0 and read back
-LAUNCHES = {"recon_intra": 0}
-PLAIN_RUNS = {"recon_intra": 0}
+LAUNCHES = {"recon": 0}
+PLAIN_RUNS = {"recon": 0}
 
 
-def _refuse_inter(intra: dict, n_units: int) -> None:
-  rows = intra["mat_host"]
-  if ((rows[_K["mode_class"], :n_units] == MC_INTER).any()
-      or (rows[_K["ciipw"], :n_units] > 0).any()):
-    raise NotImplementedError(
-        "inter/CIIP units in the intra pass: ROADMAP 'Still to port' #1 "
-        "(the recon kernel's inter/CIIP half)")
+def _check_ipos(intra: dict, n_units: int, n_mc: int) -> None:
+  """Every CIIP unit's tile index lies in the MC batch."""
+  ciip = intra["mat_host"][_K["ciipw"], :n_units] > 0
+  ipos = intra["ipos_host"][:n_units][ciip]
+  if ipos.size and (ipos.min() < 0 or ipos.max() >= n_mc):
+    raise ValueError(f"recon: CIIP tile index out of range [0, {n_mc}): "
+                     f"{ipos.min()}..{ipos.max()}")
 
 
 def _slice_block(plane, y0, x0, maxs):
@@ -81,11 +85,12 @@ def _cclm_units(c, top, left, cclm, OFF, maxs, bit_depth, maxv):
 
 
 def _intra_units(plane, res_plane, c, present, *, maxs, is_chroma, bit_depth,
-                 cclm):
+                 cclm, tiles):
   """Prediction + residual for the N units of one chunk window.
   `present` holds the host's view of which paths the chunk's live
-  units take (mode classes, smoothing, projections, PDPC); paths no
-  live unit takes are skipped — their results would be discarded."""
+  units take (mode classes, smoothing, projections, PDPC, CIIP); paths
+  no live unit takes are skipped — their results would be discarded.
+  tiles: this channel's (n_mc, S, S) MC tiles, read by CIIP units."""
   maxv = (1 << bit_depth) - 1
   mid = 1 << (bit_depth - 1)
   _, OFF = I.edge_len(maxs)
@@ -137,6 +142,13 @@ def _intra_units(plane, res_plane, c, present, *, maxs, is_chroma, bit_depth,
     pred = torch.where(((pdpc > 0) & (mc < I.MC_ANG_V))[:, None, None],
                        I.pdpc_hvdc(pred, top, left, OFF, maxs, logw, logh, mc,
                                    maxv), pred)
+  if present["ciip"]:
+    # CIIP blend (put_ciip, vvc_inter_template.c:60-76) with the unit's
+    # MC tile
+    ipos = c["ipos"].clamp(0, tiles.shape[0] - 1).long()
+    mcb = tiles[ipos, :maxs, :maxs]
+    cw = c["ciipw"][:, None, None]
+    pred = torch.where(cw > 0, (pred * cw + mcb * (4 - cw) + 2) >> 2, pred)
   res = _slice_block(res_plane, c["y0"], c["x0"], maxs)
   return (pred + res).clamp(0, maxv)
 
@@ -149,51 +161,76 @@ def _present(rows: np.ndarray) -> dict:
           "proj_v": bool((rows[_K["proj_v"]] > 0).any()),
           "proj_h": bool((rows[_K["proj_h"]] > 0).any()),
           "pdpc_hvdc": bool(((rows[_K["do_pdpc"]] > 0)
-                             & (mc < I.MC_ANG_V)).any())}
+                             & (mc < I.MC_ANG_V)).any()),
+          "ciip": bool((rows[_K["ciipw"]] > 0).any())}
+
+
+def _scatter(plane, Wp, blks, c, valid, maxs):
+  """Write N disjoint (maxs, maxs) blocks into the flat plane (its last
+  element is a spare that takes every masked-off position)."""
+  HW = plane.numel() - 1
+  d = torch.arange(maxs, dtype=torch.int32, device=plane.device)
+  mask = ((d[None, :, None] < c["h"][:, None, None])
+          & (d[None, None, :] < c["w"][:, None, None])
+          & valid[:, None, None])
+  flat = ((c["y0"][:, None, None] + d[None, :, None]) * Wp
+          + c["x0"][:, None, None] + d[None, None, :])
+  flat = torch.where(mask, flat, HW)
+  plane[flat.reshape(-1).long()] = blks.reshape(-1)
 
 
 def recon_plane_plain(res_plane, intra: dict, n_chunks: int, *, maxs: int,
-                      is_chroma: bool, bit_depth: int, cclm=None):
-  """Plain torch intra pass of one plane: (Hp, Wp) residual -> (Hp, Wp)
-  reconstruction.  Chunk s slices a full CHUNK_CAP window from ioff[s]
-  and writes only the units in [ioff[s], iend[s]) with w > 0; the
-  window's tail belongs to chunk s+1 and is reconstructed there.
-  cclm: (reconstructed luma plane, cclm_dsy_plane of it) or None."""
-  PLAIN_RUNS["recon_intra"] += 1
+                      is_chroma: bool, bit_depth: int, cclm=None, inter=None,
+                      tiles=None):
+  """Plain torch reconstruction of one plane: (Hp, Wp) residual ->
+  (Hp, Wp) reconstruction, from a mid-grey plane.
+  The inter pass places the n_inter pure inter units of `inter` (the
+  converted MC batch): clip(tile + residual) over each unit's (h, w).
+  Then chunk s slices a full CHUNK_CAP window from ioff[s] and writes
+  only the units in [ioff[s], iend[s]) with w > 0; the window's tail
+  belongs to chunk s+1 and is reconstructed there.
+  cclm: (reconstructed luma plane, cclm_dsy_plane of it) or None.
+  tiles: this channel's (n_mc, S, S) MC tiles (ops.inter.inter_pred),
+  or None for a frame without MC units."""
+  PLAIN_RUNS["recon"] += 1
   Hp, Wp = res_plane.shape
   dev = res_plane.device
-  mid = 1 << (bit_depth - 1)
-  plane = torch.full((Hp * Wp + 1,), mid, dtype=torch.int32, device=dev)
-  d = torch.arange(maxs, dtype=torch.int32, device=dev)
+  maxv = (1 << bit_depth) - 1
+  plane = torch.full((Hp * Wp + 1,), 1 << (bit_depth - 1), dtype=torch.int32,
+                     device=dev)
+  n_inter = inter["n_inter"] if inter is not None else 0
+  if n_inter:
+    S = MC_TILE
+    c = {k: inter[k][:n_inter] for k in ("x0", "y0", "w", "h")}
+    d = torch.arange(S, dtype=torch.int32, device=dev)
+    inside = ((d[None, :, None] < c["h"][:, None, None])
+              & (d[None, None, :] < c["w"][:, None, None]))
+    at = ((c["y0"][:, None, None] + d[None, :, None]) * Wp
+          + c["x0"][:, None, None] + d[None, None, :])
+    res = res_plane.reshape(-1)[torch.where(inside, at, 0).long()]
+    blks = (tiles[:n_inter] + res).clamp(0, maxv)
+    _scatter(plane, Wp, blks, c, torch.ones_like(c["w"], dtype=torch.bool), S)
   lanes = torch.arange(CHUNK_CAP, dtype=torch.int32, device=dev)
   ioff, iend = intra["ioff_host"], intra["iend_host"]
   rows = intra["mat_host"]
   for s in range(n_chunks):
     off, end = int(ioff[s]), int(iend[s])
-    c = {k: intra[k][off:off + CHUNK_CAP] for k in INTRA_KEYS}
+    c = {k: intra[k][off:off + CHUNK_CAP] for k in (*INTRA_KEYS, "ipos")}
     view = plane[:Hp * Wp].view(Hp, Wp)
     blks = _intra_units(view, res_plane, c, _present(rows[:, off:end]),
                         maxs=maxs, is_chroma=is_chroma, bit_depth=bit_depth,
-                        cclm=cclm)
-    valid = (off + lanes < end) & (c["w"] > 0)
-    mask = ((d[None, :, None] < c["h"][:, None, None])
-            & (d[None, None, :] < c["w"][:, None, None])
-            & valid[:, None, None])
-    flat = ((c["y0"][:, None, None] + d[None, :, None]) * Wp
-            + c["x0"][:, None, None] + d[None, None, :])
-    # masked-off positions all land on the spare last element
-    flat = torch.where(mask, flat, Hp * Wp)
-    plane[flat.reshape(-1).long()] = blks.reshape(-1)
+                        cclm=cclm, tiles=tiles)
+    _scatter(plane, Wp, blks, c, (off + lanes < end) & (c["w"] > 0), maxs)
   return plane[:Hp * Wp].view(Hp, Wp).clone()
 
 
 # ----------------------------------------------------------------------
-# CUDA kernel (csrc/recon_intra.cu), built with nvcc at first use and
-# bound with ctypes
+# CUDA kernel (csrc/recon.cu), built with nvcc at first use and bound
+# with ctypes
 # ----------------------------------------------------------------------
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "recon_intra.cu")
+    __file__))), "csrc", "recon.cu")
 _lib = None
 
 
@@ -202,49 +239,57 @@ def _get_kernel():
   if _lib is None:
     from ..utils.build import build_cuda
 
-    lib = ctypes.CDLL(build_cuda("recon_intra", [_SRC]))
+    lib = ctypes.CDLL(build_cuda("recon", [_SRC]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recon_intra_launch.restype = ctypes.c_int
-    lib.recon_intra_launch.argtypes = [
+    lib.recon_launch.restype = ctypes.c_int
+    lib.recon_launch.argtypes = [
         p, i, i,            # ctrl (NK, ucap), NK, ucap
         p, p, i,            # ioff, iend, n_chunks
+        p, i, i, i,         # MC batch ctrl (NKI, n_mc), NKI, n_mc, n_inter
+        p, p,               # MC tiles (n_mc, nch, S, S), ipos (ucap,)
         p, p, i, i, i,      # res, plane (nch, Hp, Wp), nch, Hp, Wp
         p, i, i, p,         # dsy (Hd, Wd), sel_luma (4, ucap)
         p, p, p,            # luma filter, MIP bank, CCLM div table
         i, i, i,            # maxs, is_chroma, bit_depth
         p]                  # stream
-    lib.recon_intra_error_string.restype = ctypes.c_char_p
-    lib.recon_intra_error_string.argtypes = [ctypes.c_int]
+    lib.recon_error_string.restype = ctypes.c_char_p
+    lib.recon_error_string.argtypes = [ctypes.c_int]
     _lib = lib
   return _lib
 
 
 def _check(t, name, shape=None):
   if t.device.type != "cuda":
-    raise ValueError(f"recon_intra: {name} must be a CUDA tensor")
+    raise ValueError(f"recon: {name} must be a CUDA tensor")
   if t.dtype != torch.int32:
-    raise ValueError(f"recon_intra: {name} must be int32, got {t.dtype}")
+    raise ValueError(f"recon: {name} must be int32, got {t.dtype}")
   if not t.is_contiguous():
-    raise ValueError(f"recon_intra: {name} must be contiguous")
+    raise ValueError(f"recon: {name} must be contiguous")
   if shape is not None and tuple(t.shape) != tuple(shape):
-    raise ValueError(f"recon_intra: {name} has shape {tuple(t.shape)}, "
+    raise ValueError(f"recon: {name} has shape {tuple(t.shape)}, "
                      f"expected {tuple(shape)}")
 
 
-def _recon_cuda(res, intra, n_chunks, *, maxs, is_chroma, bit_depth, cclm):
+def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
+                bit_depth, cclm):
   nch, Hp, Wp = res.shape
   mat = intra["mat"]
   ucap = mat.shape[1]
   dev = res.device
   _check(res, "res")
   _check(mat, "ctrl", (len(INTRA_KEYS), ucap))
+  _check(intra["ipos"], "ipos", (ucap,))
   _check(intra["ioff"], "ioff", (n_chunks,))
   _check(intra["iend"], "iend", (n_chunks,))
   if maxs not in (16, 32):
-    raise ValueError(f"recon_intra: maxs {maxs} not in (16, 32)")
+    raise ValueError(f"recon: maxs {maxs} not in (16, 32)")
+  n_mc, n_inter = inter["n_mc"], inter["n_inter"]
+  _check(inter["mat"], "MC batch ctrl", (len(INTER_KEYS), n_mc))
+  if n_mc:
+    _check(tiles, "tiles", (n_mc, nch, MC_TILE, MC_TILE))
   plane = torch.full((nch, Hp, Wp), 1 << (bit_depth - 1), dtype=torch.int32,
                      device=dev)
-  if n_chunks == 0:
+  if n_chunks == 0 and n_inter == 0:
     return plane
   dsy_ptr, Hd, Wd, sel_ptr = None, 0, 0, None
   if cclm is not None:
@@ -263,39 +308,54 @@ def _recon_cuda(res, intra, n_chunks, *, maxs, is_chroma, bit_depth, cclm):
   bank = I._const("mip_bank", I.MIP_BANK, dev)
   div = I._const("cclm_div", I.CCLM_DIV_SIG, dev)
   lib = _get_kernel()
-  rc = lib.recon_intra_launch(
+  rc = lib.recon_launch(
       mat.data_ptr(), len(INTRA_KEYS), ucap,
       intra["ioff"].data_ptr(), intra["iend"].data_ptr(), n_chunks,
+      inter["mat"].data_ptr(), len(INTER_KEYS), n_mc, n_inter,
+      tiles.data_ptr() if n_mc else None, intra["ipos"].data_ptr(),
       res.data_ptr(), plane.data_ptr(), nch, Hp, Wp,
       dsy_ptr, Hd, Wd, sel_ptr,
       ftab.data_ptr(), bank.data_ptr(), div.data_ptr(),
       maxs, int(is_chroma), bit_depth,
       torch.cuda.current_stream(dev).cuda_stream)
   if rc != 0:
-    raise RuntimeError("recon_intra kernel launch failed: "
-                       f"{lib.recon_intra_error_string(rc).decode()}")
-  LAUNCHES["recon_intra"] += 1
+    raise RuntimeError("recon kernel launch failed: "
+                       f"{lib.recon_error_string(rc).decode()}")
+  LAUNCHES["recon"] += 1
   return plane
 
 
-def recon_intra(res, intra: dict, n_chunks: int, *, maxs: int,
-                is_chroma: bool, bit_depth: int, cclm=None):
-  """Intra reconstruction of one plane kind.
+def recon_plane(res, intra: dict, n_chunks: int, inter: dict, tiles, *,
+                maxs: int, is_chroma: bool, bit_depth: int, cclm=None):
+  """Reconstruction of one plane kind.
 
   res: (nch, Hp, Wp) int32 residual planes (nch=1 luma, 2 for Cb+Cr,
-  which share the chroma control rows).  intra: the converted intra
-  layout (convert.inputs_from_numpy).  cclm: (luma plane, dsy plane)
-  for chroma frames with CCLM units.  Returns (nch, Hp, Wp) int32.
+  which share the chroma control rows).  intra, inter: the converted
+  intra layout and MC batch (convert.inputs_from_numpy).  tiles: the
+  MC batch's (n_mc, nch, S, S) prediction tiles (ops.inter.inter_pred),
+  or None when n_mc is 0.  cclm: (luma plane, dsy plane) for chroma
+  frames with CCLM units.  Returns (nch, Hp, Wp) int32.
   A CUDA tensor launches the kernel; a CPU tensor runs the plain
   version; nothing falls back from one to the other."""
   n_units = int(intra["iend_host"][-1]) if n_chunks else 0
-  _refuse_inter(intra, n_units)
+  _check_ipos(intra, n_units, inter["n_mc"])
   if res.device.type == "cuda":
-    return _recon_cuda(res, intra, n_chunks, maxs=maxs, is_chroma=is_chroma,
-                       bit_depth=bit_depth, cclm=cclm)
+    return _recon_cuda(res, intra, n_chunks, inter, tiles, maxs=maxs,
+                       is_chroma=is_chroma, bit_depth=bit_depth, cclm=cclm)
   if res.device.type != "cpu":
-    raise ValueError(f"recon_intra: unsupported device {res.device}")
-  return torch.stack([recon_plane_plain(res[ch], intra, n_chunks, maxs=maxs,
-                                        is_chroma=is_chroma,
-                                        bit_depth=bit_depth, cclm=cclm)
-                      for ch in range(res.shape[0])])
+    raise ValueError(f"recon: unsupported device {res.device}")
+  return recon_plane_plain_kind(res, intra, n_chunks, inter, tiles, maxs=maxs,
+                                is_chroma=is_chroma, bit_depth=bit_depth,
+                                cclm=cclm)
+
+
+def recon_plane_plain_kind(res, intra: dict, n_chunks: int, inter: dict,
+                           tiles, *, maxs: int, is_chroma: bool,
+                           bit_depth: int, cclm=None):
+  """recon_plane's plain version, with its arguments and result: every
+  channel of the plane kind through recon_plane_plain."""
+  return torch.stack([recon_plane_plain(
+      res[ch], intra, n_chunks, maxs=maxs, is_chroma=is_chroma,
+      bit_depth=bit_depth, cclm=cclm, inter=inter,
+      tiles=tiles[:, ch] if tiles is not None else None)
+      for ch in range(res.shape[0])])

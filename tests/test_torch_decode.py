@@ -1,9 +1,10 @@
-"""End to end: the PyTorch port decodes intra streams to the JAX
-package's frame MD5s, and refuses what this slice does not cover.
+"""End to end: the PyTorch port decodes intra and P/B streams to the JAX
+package's frame MD5s, and refuses what its slices do not cover.
 
-The JAX MD5s of the small intra cases live in
-ffmpeg_tpu_torch/testdata/intra_cases.md5.json (a JAX decode per case
-costs a minute of XLA compile on the CPU); regenerate it with
+The JAX MD5s of the small cases live in
+ffmpeg_tpu_torch/testdata/intra_cases.md5.json and inter_cases.md5.json
+(a JAX decode per case costs a minute of XLA compile on the CPU);
+regenerate both with
 
   python tests/test_torch_decode.py
 
@@ -25,6 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 TESTDATA = os.path.join(ROOT, "ffmpeg_tpu_torch", "testdata")
 CASES_JSON = os.path.join(TESTDATA, "intra_cases.md5.json")
+INTER_JSON = os.path.join(TESTDATA, "inter_cases.md5.json")
 
 torch.set_num_threads(2)
 
@@ -63,10 +65,87 @@ INTRA_CASES = {
                  conf_window=(0, 2, 0, 4), deblock=True, sao=True),
 }
 
+# P/B cases of tests/test_conformance.py (same ids and configs); they
+# cover every inter tool of the slice
+INTER_CASES = {
+    "inter-p": dict(width=128, height=96, seed=106, qp=28, inter=True,
+                    n_frames=4),
+    "inter-p-deblock": dict(width=96, height=64, seed=107, qp=35, inter=True,
+                            deblock=True, n_frames=4, max_mv=300),
+    "inter-b": dict(width=96, height=64, seed=108, qp=30, inter=True,
+                    b_slices=True, deblock=True, n_frames=4, max_mv=200),
+    "10bit-sao-full": dict(width=96, height=64, seed=109, qp=32, bit_depth=10,
+                           sao=True, deblock=True, inter=True, b_slices=True,
+                           n_frames=3),
+    "ra-pyramid": dict(width=96, height=64, seed=1101, qp=30, inter=True,
+                       b_slices=True, ra=True, n_frames=9),
+    "ra-full": dict(width=96, height=96, seed=1102, qp=28, inter=True,
+                    b_slices=True, ra=True, n_frames=9, deblock=True,
+                    sao=True, max_mv=200),
+    "tmvp-ra": dict(width=96, height=96, seed=1203, qp=30, inter=True,
+                    b_slices=True, ra=True, tmvp=True, n_frames=9, sao=True),
+    "mmvd": dict(width=96, height=64, seed=1701, qp=28, inter=True,
+                 n_frames=3, mmvd=True),
+    "amvr": dict(width=96, height=64, seed=1703, qp=28, inter=True,
+                 b_slices=True, n_frames=3, amvr=True, max_mv=120),
+    "bcw": dict(width=96, height=96, seed=1704, qp=28, inter=True,
+                b_slices=True, n_frames=3, bcw=True, min_qt_size=16),
+    "ciip-deblock": dict(width=96, height=96, seed=1802, qp=28, inter=True,
+                         b_slices=True, n_frames=3, ciip=True, deblock=True,
+                         sao=True),
+    "wp-b": dict(width=96, height=96, seed=2002, qp=28, inter=True,
+                 b_slices=True, n_frames=3, weighted_pred=True, deblock=True,
+                 sao=True),
+    "sbtmvp-filters": dict(width=96, height=96, seed=2105, qp=28, inter=True,
+                           b_slices=True, n_frames=4, sbtmvp=True,
+                           deblock=True, sao=True, max_mv=220),
+    "affine": dict(width=96, height=64, seed=2201, qp=28, inter=True,
+                   n_frames=3, affine=True),
+    "prof": dict(width=96, height=96, seed=2302, qp=28, inter=True,
+                 b_slices=True, n_frames=4, affine=True, prof=True,
+                 deblock=True, sao=True),
+    "bdof-affine-ra": dict(width=96, height=96, seed=2405, qp=28, inter=True,
+                           b_slices=True, ra=True, n_frames=9, bdof=True,
+                           affine=True, prof=True, sbtmvp=True, deblock=True,
+                           sao=True, max_mv=90),
+    "gpm-filters": dict(width=96, height=96, seed=1902, qp=28, inter=True,
+                        b_slices=True, n_frames=3, gpm=True, deblock=True,
+                        sao=True),
+    "tiles-inter": dict(width=96, height=96, seed=3003, qp=28,
+                        tile_cols=(2, 1), tile_rows=(2, 1), inter=True,
+                        b_slices=True, n_frames=4, deblock=True, sao=True,
+                        tmvp=True),
+    "wpp-inter": dict(width=96, height=96, seed=3103, qp=28, wpp=True,
+                      inter=True, b_slices=True, n_frames=4, deblock=True,
+                      sao=True, tmvp=True),
+    "cra-rasl": dict(width=96, height=64, seed=3601, qp=30, inter=True,
+                     b_slices=True, n_frames=8, cra=True, deblock=True,
+                     sao=True),
+    "gdr": dict(width=96, height=64, seed=3602, qp=30, inter=True, n_frames=7,
+                gdr=True, deblock=True),
+    "ltr-ra": dict(width=96, height=64, seed=3502, qp=28, inter=True,
+                   b_slices=True, ra=True, n_frames=9, ltr=True, deblock=True,
+                   sao=True),
+    "crop-ra": dict(width=96, height=96, seed=3302, qp=28,
+                    conf_window=(0, 4, 0, 2), inter=True, b_slices=True,
+                    ra=True, n_frames=5, tmvp=True, deblock=True, sao=True),
+    "mono-inter": dict(width=96, height=64, seed=3903, qp=32,
+                       chroma_format_idc=0, inter=True, b_slices=True,
+                       n_frames=4, deblock=True, max_mv=48),
+    "12bit-inter": dict(width=96, height=64, seed=3912, qp=34, bit_depth=12,
+                        inter=True, b_slices=True, n_frames=3, deblock=True,
+                        sao=True, max_mv=48),
+    "wraparound-ra": dict(width=96, height=64, seed=4102, qp=32,
+                          wraparound=True, inter=True, b_slices=True, ra=True,
+                          tmvp=True, n_frames=5, max_mv=400, deblock=True,
+                          sao=True),
+}
+
 # one stream per refused feature: (config, what the refusal names)
 REFUSED = {
-    "inter-p": (dict(width=64, height=64, seed=106, qp=28, inter=True,
-                     n_frames=2), "P/B slices"),
+    "dmvr": (dict(width=96, height=64, seed=2501, qp=28, inter=True,
+                  b_slices=True, ra=True, n_frames=9, dmvr=True, max_mv=90),
+             "DMVR"),
     "isp": (dict(width=96, height=96, seed=3501, qp=30, isp=True,
                  split_prob=0.8), "ISP"),
     "tb64": (dict(width=128, height=128, seed=3701, qp=30, ctu_log2=6,
@@ -81,23 +160,41 @@ REFUSED = {
 }
 
 
+# a lost access unit: the inter-p stream without its second AU, so the P
+# frames that list it decode against a synthesized mid-gray reference
+# (errors="contain" in both packages)
+MISSING_REF = dict(base="inter-p", drop_au=1)
+
+
 def _stream(kw) -> bytes:
   from ffmpeg_tpu.encoder.encoder import EncoderConfig, encode_stream
 
   return encode_stream(EncoderConfig(**kw))[0]
 
 
-def _port_md5s(data, device="cpu"):
+def _missing_ref_stream():
+  """(the cut stream, its number of access units)."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+
+  aus = VVCDecoder(device="cpu")._split_aus(
+      _stream(INTER_CASES[MISSING_REF["base"]]))
+  drop = MISSING_REF["drop_au"]
+  return b"".join(au for i, (_, _, au) in enumerate(aus) if i != drop), \
+      len(aus) - 1
+
+
+def _port_md5s(data, device="cpu", errors="raise"):
   from ffmpeg_tpu_torch.models.vvc.decoder import DecoderConfig, VVCDecoder
 
-  dec = VVCDecoder(device=device, config=DecoderConfig(errors="raise"))
+  dec = VVCDecoder(device=device, config=DecoderConfig(errors=errors))
   return [f.md5() for f in dec.decode(data)]
 
 
-def _jax_md5s(data):
-  from ffmpeg_tpu.models.vvc.decoder import VVCDecoder
+def _jax_md5s(data, errors="contain"):
+  from ffmpeg_tpu.models.vvc.decoder import DecoderConfig, VVCDecoder
 
-  return [f.md5() for f in VVCDecoder().decode(data)]
+  dec = VVCDecoder(config=DecoderConfig(errors=errors))
+  return [f.md5() for f in dec.decode(data)]
 
 
 def _fixture_md5s(name):
@@ -116,6 +213,14 @@ def test_intra_case_matches_jax(case):
     want = json.load(f)[case]
   assert want["config"] == json.loads(json.dumps(INTRA_CASES[case]))
   assert _port_md5s(_stream(INTRA_CASES[case])) == want["md5"]
+
+
+@pytest.mark.parametrize("case", sorted(INTER_CASES))
+def test_inter_case_matches_jax(case):
+  with open(INTER_JSON) as f:
+    want = json.load(f)[case]
+  assert want["config"] == json.loads(json.dumps(INTER_CASES[case]))
+  assert _port_md5s(_stream(INTER_CASES[case])) == want["md5"]
 
 
 def test_fixture_10bit_matches_jax():
@@ -146,23 +251,72 @@ def test_refused_stream_raises(case):
   assert what in str(e.value)
 
 
-def test_inter_units_refused_by_recon():
-  """The recon entry refuses inter/CIIP rows itself (the kernel has no
-  inter half yet)."""
-  from ffmpeg_tpu_torch.models.vvc.convert import _intra
-  from ffmpeg_tpu_torch.models.vvc.inputs import INTRA_KEYS
-  from ffmpeg_tpu_torch.ops.recon import recon_intra
+def test_ciip_tile_index_checked_by_recon():
+  """A CIIP row whose MC tile index lies outside the MC batch raises in
+  the recon entry, before any device work."""
+  from ffmpeg_tpu_torch.models.vvc.convert import _inter, _intra
+  from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
+  from ffmpeg_tpu_torch.ops.recon import recon_plane
 
-  for key, val in (("mode_class", 6), ("ciipw", 2)):
-    rows = {k: np.zeros(33, np.int32) for k in INTRA_KEYS}
-    rows["w"][0] = rows["h"][0] = 8
-    rows[key][0] = val
-    rows["ioff"] = np.array([0], np.int32)
-    rows["iend"] = np.array([1], np.int32)
-    intra = _intra(rows, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="inter/CIIP"):
-      recon_intra(torch.zeros((1, 64, 64), dtype=torch.int32), intra, 1,
-                  maxs=32, is_chroma=False, bit_depth=8)
+  rows = {k: np.zeros(33, np.int32) for k in (*INTRA_KEYS, "ipos")}
+  rows["w"][0] = rows["h"][0] = 8
+  rows["ciipw"][0] = 2
+  rows["ipos"][0] = 1
+  rows["ioff"] = np.array([0], np.int32)
+  rows["iend"] = np.array([1], np.int32)
+  intra = _intra(rows, 1, "cpu")
+  batch = {k: np.zeros(1, np.int32) for k in INTER_KEYS}
+  batch["gwt"], batch["gslot"] = np.zeros((1, 32, 32)), np.zeros(1)
+  inter = _inter(batch, 0, "cpu")
+  tiles = torch.zeros((1, 1, 32, 32), dtype=torch.int32)
+  with pytest.raises(ValueError, match="CIIP tile index"):
+    recon_plane(torch.zeros((1, 64, 64), dtype=torch.int32), intra, 1, inter,
+                tiles, maxs=32, is_chroma=False, bit_depth=8)
+
+
+def test_frame_program_kernel_calls():
+  """walk_frames runs the frame program's kernel calls through its hook,
+  in order: an I frame's recon of luma and chroma; a P frame's
+  inter_pred of luma and chroma first."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+
+  seen = []
+
+  def record(name, label, kw):
+    seen.append((name, label))
+    return KERNELS[name][0](**kw)
+
+  aus = VVCDecoder(device="cpu")._split_aus(_stream(INTER_CASES["inter-p"]))
+  frames = []
+  for fs, _ in walk_frames(aus, "cpu", record):
+    frames.append((fs.slice_type, list(seen)))
+    seen.clear()
+  recons = [("recon", "luma"), ("recon", "chroma")]
+  assert frames[0] == (2, recons)
+  assert len(frames) == len(aus)
+  for slice_type, calls in frames[1:]:
+    assert slice_type == 1
+    assert calls == [("inter_pred", "luma"), ("inter_pred", "chroma"),
+                     *recons]
+
+
+@pytest.mark.parametrize("errors", ["raise", "contain"])
+def test_missing_reference(errors):
+  """A P frame whose reference was lost: errors="raise" raises, the
+  default "contain" decodes it against a synthesized mid-gray plane, to
+  the JAX package's frames."""
+  cut, n_aus = _missing_ref_stream()
+  if errors == "raise":
+    with pytest.raises(RuntimeError, match="missing reference"):
+      _port_md5s(cut, errors=errors)
+    return
+  with open(INTER_JSON) as f:
+    want = json.load(f)["missing-ref"]
+  assert want["config"] == MISSING_REF
+  got = _port_md5s(cut, errors=errors)
+  assert len(got) == n_aus
+  assert got == want["md5"]
 
 
 def test_default_device_is_cuda():
@@ -201,46 +355,58 @@ def cuda():
   return torch.device("cuda")
 
 
+def _kernels_vs_plain(data, device, n_frames=None):
+  """Walk a stream's frames through the frame program on the card,
+  holding every kernel call against its plain version on the same card
+  tensors.  Returns the names of the kernels called."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+  from ffmpeg_tpu_torch.ops import inter as P
+  from ffmpeg_tpu_torch.ops import recon as R
+
+  launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES}
+  called = set()
+
+  def check(name, label, kw):
+    kernel, plain = KERNELS[name]
+    before = launches[name][name]
+    got = kernel(**kw)
+    assert launches[name][name] == before + 1
+    assert torch.equal(got, plain(**kw)), f"{name} {label}"
+    called.add(name)
+    return got
+
+  aus = VVCDecoder(device=device)._split_aus(data)[:n_frames]
+  for _ in walk_frames(aus, device, check):
+    pass
+  return called
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720"])
 def test_recon_kernel_matches_plain_on_card(cuda, name):
-  from ffmpeg_tpu_torch.models.vvc.convert import inputs_from_numpy
-  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
-  from ffmpeg_tpu_torch.models.vvc.host import HostDecoder
-  from ffmpeg_tpu_torch.models.vvc.inputs import (CHROMA_SIZES, LUMA_SIZES,
-                                                  _padded_plane_shapes,
-                                                  build_host_inputs)
-  from ffmpeg_tpu_torch.ops import intra as I
-  from ffmpeg_tpu_torch.ops import recon as R
-  from ffmpeg_tpu_torch.ops.transform import residual_plane
+  assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {"recon"}
 
-  au = VVCDecoder(device=cuda)._split_aus(_read(name))[0][2]
-  fs = HostDecoder().decode_au(au, 0)
-  inp = inputs_from_numpy(build_host_inputs(fs), cuda)
-  (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(fs.width, fs.height,
-                                                    fs.ctb_log2)
-  res = [residual_plane(inp["planes"][c]["buckets"],
-                        Hp_y if c == 0 else Hp_c, Wp_y if c == 0 else Wp_c,
-                        fs.bit_depth, LUMA_SIZES if c == 0 else CHROMA_SIZES,
-                        c > 0, cuda) for c in range(3)]
-  kw = dict(bit_depth=fs.bit_depth)
-  ct = inp["ctrl"]["y"]
-  maxs = min(32, 1 << fs.ctb_log2)
-  launches = R.LAUNCHES["recon_intra"]
-  y = R.recon_intra(res[0][None], ct["intra"], ct["n_chunks"], maxs=maxs,
-                    is_chroma=False, **kw)
-  assert R.LAUNCHES["recon_intra"] == launches + 1
-  y_plain = R.recon_plane_plain(res[0], ct["intra"], ct["n_chunks"],
-                                maxs=maxs, is_chroma=False, **kw)
-  assert torch.equal(y[0], y_plain)
-  cclm = (y[0], I.cclm_dsy_plane(y[0], inp["cclm_vc"]))
-  ct = inp["ctrl"]["c"]
-  c = R.recon_intra(torch.stack(res[1:]), ct["intra"], ct["n_chunks"],
-                    maxs=maxs >> 1, is_chroma=True, cclm=cclm, **kw)
-  for ch in range(2):
-    assert torch.equal(c[ch], R.recon_plane_plain(
-        res[1 + ch], ct["intra"], ct["n_chunks"], maxs=maxs >> 1,
-        is_chroma=True, cclm=cclm, **kw))
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ciip-deblock", "gpm-filters", "wp-b",
+                                  "bdof-affine-ra", "wraparound-ra",
+                                  "12bit-inter", "mono-inter"])
+def test_kernels_match_plain_on_card_inter(cuda, case):
+  """Both kernels against their plain versions on every frame of a P/B
+  case, with the frame's real references."""
+  assert _kernels_vs_plain(_stream(INTER_CASES[case]), cuda) == {
+      "inter_pred", "recon"}
+
+
+def _counts_zeroed():
+  from ffmpeg_tpu_torch.ops import inter as P
+  from ffmpeg_tpu_torch.ops import recon as R
+
+  for d in (P.LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES, R.PLAIN_RUNS):
+    for k in d:
+      d[k] = 0
+  return P, R
 
 
 @pytest.mark.gpu
@@ -248,25 +414,33 @@ def test_recon_kernel_matches_plain_on_card(cuda, name):
 def test_intra_case_decodes_on_card(cuda, case):
   """The kernel path on every intra case: CTU 64 (32-wide chroma
   units), 10/12-bit, 4:0:0, tiles, WPP, cropping."""
-  from ffmpeg_tpu_torch.ops import recon as R
-
   with open(CASES_JSON) as f:
     want = json.load(f)[case]["md5"]
-  R.PLAIN_RUNS["recon_intra"] = 0
+  _, R = _counts_zeroed()
   assert _port_md5s(_stream(INTRA_CASES[case]), device=cuda) == want
-  assert R.PLAIN_RUNS["recon_intra"] == 0
+  assert R.PLAIN_RUNS["recon"] == 0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["ai256x128_10b", "ai720"])
-def test_fixture_decodes_on_card(cuda, name):
-  from ffmpeg_tpu_torch.ops import recon as R
+@pytest.mark.parametrize("case", sorted(INTER_CASES))
+def test_inter_case_decodes_on_card(cuda, case):
+  """Every P/B case through both kernels to the JAX MD5s."""
+  with open(INTER_JSON) as f:
+    want = json.load(f)[case]["md5"]
+  P, R = _counts_zeroed()
+  assert _port_md5s(_stream(INTER_CASES[case]), device=cuda) == want
+  assert P.LAUNCHES["inter_pred"] > 0 and R.LAUNCHES["recon"] > 0
+  assert P.PLAIN_RUNS["inter_pred"] == 0 and R.PLAIN_RUNS["recon"] == 0
 
-  R.LAUNCHES["recon_intra"] = 0
-  R.PLAIN_RUNS["recon_intra"] = 0
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ai256x128_10b", "ai720", "ra1080"])
+def test_fixture_decodes_on_card(cuda, name):
+  P, R = _counts_zeroed()
   assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
-  assert R.LAUNCHES["recon_intra"] > 0
-  assert R.PLAIN_RUNS["recon_intra"] == 0
+  assert R.LAUNCHES["recon"] > 0
+  assert (P.LAUNCHES["inter_pred"] > 0) == name.startswith("ra")
+  assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
 
 
 # ---- the JAX side live (slow) ----------------------------------------------
@@ -283,24 +457,57 @@ def test_ai720_fixture_regenerates():
 
 
 @pytest.mark.slow
+def test_ra1080_fixture_regenerates():
+  """The committed 1080p random-access fixture is the generator's output
+  for its config, and its MD5s are the JAX package's decode (~3 min)."""
+  with open(os.path.join(TESTDATA, "ra1080.md5.json")) as f:
+    fixture = json.load(f)
+  data = _stream(fixture["config"])
+  assert data == _read("ra1080")
+  assert _jax_md5s(data) == fixture["md5"]
+
+
+@pytest.mark.slow
 @pytest.mark.parametrize("case", sorted(INTRA_CASES))
 def test_intra_case_jax_live(case):
   data = _stream(INTRA_CASES[case])
   assert _port_md5s(data) == _jax_md5s(data)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("case", sorted(INTER_CASES))
+def test_inter_case_jax_live(case):
+  data = _stream(INTER_CASES[case])
+  assert _port_md5s(data) == _jax_md5s(data)
+
+
+@pytest.mark.slow
+def test_missing_reference_jax_live():
+  cut, _ = _missing_ref_stream()
+  assert _port_md5s(cut, errors="contain") == _jax_md5s(cut)
+
+
+def _missing_ref_entry():
+  return {"config": MISSING_REF, "md5": _jax_md5s(_missing_ref_stream()[0])}
+
+
 def main():
-  """Regenerate intra_cases.md5.json with the JAX package's decoder."""
+  """Regenerate intra_cases.md5.json and inter_cases.md5.json (with the
+  missing-ref entry) with the JAX package's decoder."""
   import jax
 
   jax.config.update("jax_platforms", "cpu")
-  out = {}
-  for case, kw in sorted(INTRA_CASES.items()):
-    out[case] = {"config": kw, "md5": _jax_md5s(_stream(kw))}
-    print(case, out[case]["md5"], flush=True)
-  with open(CASES_JSON, "w") as f:
-    json.dump(out, f, indent=1)
-    f.write("\n")
+  for cases, path in ((INTRA_CASES, CASES_JSON), (INTER_CASES, INTER_JSON)):
+    out = {}
+    for case, kw in sorted(cases.items()):
+      out[case] = {"config": kw, "md5": _jax_md5s(_stream(kw))}
+      print(case, out[case]["md5"], flush=True)
+    if cases is INTER_CASES:
+      out["missing-ref"] = _missing_ref_entry()
+      print("missing-ref", out["missing-ref"]["md5"], flush=True)
+    with open(path, "w") as f:
+      json.dump(out, f, indent=1)
+      f.write("\n")
 
 
 if __name__ == "__main__":

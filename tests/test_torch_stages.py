@@ -1,7 +1,8 @@
 """Each stage of the PyTorch port against its JAX function, bit for bit
 (tolerance 0: every stage is integer arithmetic), on the same inputs:
-host inputs, residual planes, intra predictors, the plain intra
-reconstruction, deblock and SAO.  Inputs are parsed from generated
+host inputs, residual planes, intra predictors, the plain
+reconstruction of an intra frame, deblock and SAO (the inter stages are
+in test_torch_inter.py).  Inputs are parsed from generated
 streams (ffmpeg_tpu.encoder) or drawn from a numpy seed; JAX runs on
 the CPU, the port on the CPU (its plain versions)."""
 import functools
@@ -75,7 +76,7 @@ def test_host_inputs(key):
     jc, tc = j["ctrl"][tag], t["ctrl"][tag]
     nch = int(tc["n_chunks"])
     assert int(jc["n_chunks"]) == nch and int(jc["n_inter"]) == 0
-    assert "n_inter" not in tc  # the port refuses inter units upstream
+    assert int(tc["n_inter"]) == 0 and len(tc["inter"]["x0"]) == 0
     n_iu = int(tc["intra"]["iend"][-1]) if nch else 0
     for k in TI.INTRA_KEYS:
       np.testing.assert_array_equal(_np(jc["intra"][k])[:n_iu + CHUNK_CAP],
@@ -98,7 +99,8 @@ def test_residual_planes(key):
   fs, j, t = _frame(key)
   (Hp_y, Wp_y), (Hp_c, Wp_c) = TI._padded_plane_shapes(fs.width, fs.height,
                                                        fs.ctb_log2)
-  tj = inputs_from_numpy(j, "cpu")
+  # the JAX tree's residual buckets (its control layout is the JAX one)
+  tj = inputs_from_numpy({"planes": j["planes"], "ctrl": {}}, "cpu")
   tt = inputs_from_numpy(t, "cpu")
   for c in range(len(j["planes"])):
     Hp, Wp = (Hp_y, Wp_y) if c == 0 else (Hp_c, Wp_c)
@@ -292,27 +294,28 @@ def _jax_planes():
 
 @pytest.mark.parametrize("tag", ["y", "c"])
 def test_recon_plain(tag):
-  """The plain intra pass (the kernel's oracle) vs JAX _recon_plane;
-  chroma with CCLM from the same reconstructed luma."""
-  fs, j, res, want = _jax_planes()
-  inp = inputs_from_numpy(j, "cpu")
+  """The plain reconstruction (the kernel's oracle) vs JAX _recon_plane
+  on an intra frame; chroma with CCLM from the same reconstructed luma."""
+  fs, _, t = _frame("tools")
+  _, _, res, want = _jax_planes()
+  inp = inputs_from_numpy(t, "cpu")
   ct = inp["ctrl"][tag]
-  TR.PLAIN_RUNS["recon_intra"] = 0
+  TR.PLAIN_RUNS["recon"] = 0
   if tag == "y":
-    got = TR.recon_intra(_t(res[0])[None], ct["intra"], ct["n_chunks"],
-                         maxs=min(32, 1 << fs.ctb_log2), is_chroma=False,
-                         bit_depth=fs.bit_depth)
+    got = TR.recon_plane(_t(res[0])[None], ct["intra"], ct["n_chunks"],
+                         ct["inter"], None, maxs=min(32, 1 << fs.ctb_log2),
+                         is_chroma=False, bit_depth=fs.bit_depth)
     np.testing.assert_array_equal(got[0].numpy(), want[0])
   else:
     luma = _t(want[0])
     cclm = (luma, TIn.cclm_dsy_plane(luma, inp["cclm_vc"]))
-    got = TR.recon_intra(torch.stack([_t(res[1]), _t(res[2])]), ct["intra"],
-                         ct["n_chunks"],
+    got = TR.recon_plane(torch.stack([_t(res[1]), _t(res[2])]), ct["intra"],
+                         ct["n_chunks"], ct["inter"], None,
                          maxs=min(32, (1 << fs.ctb_log2) >> 1), is_chroma=True,
                          bit_depth=fs.bit_depth, cclm=cclm)
     np.testing.assert_array_equal(got[0].numpy(), want[1])
     np.testing.assert_array_equal(got[1].numpy(), want[2])
-  assert TR.PLAIN_RUNS["recon_intra"] == got.shape[0]
+  assert TR.PLAIN_RUNS["recon"] == got.shape[0]
 
 
 def test_cclm_model():

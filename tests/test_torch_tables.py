@@ -160,11 +160,43 @@ def test_kernel_control_rows_match_layout():
   INTRA_KEYS (the kernel cannot be compiled here)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTRA_KEYS
 
-  with open(os.path.join(PORT, "csrc", "recon_intra.cu")) as f:
+  assert _kernel_enum("recon.cu") == INTRA_KEYS
+
+
+def _kernel_enum(name):
+  with open(os.path.join(PORT, "csrc", name)) as f:
     src = f.read()
   body = re.search(r"enum \{\s*(k_x0.*?)NUM_KEYS", src, re.S).group(1)
-  names = [n.strip()[2:] for n in body.split(",") if n.strip()]
-  assert tuple(names) == INTRA_KEYS
+  return tuple(n.strip()[2:] for n in body.split(",") if n.strip())
+
+
+def test_inter_kernel_control_rows_match_layout():
+  """The inter-prediction kernel's enum follows INTER_KEYS, which are the
+  JAX frame program's INTER_KEYS without the DMVR rows."""
+  from ffmpeg_tpu.models.vvc import pipeline as JP
+  from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS
+
+  assert _kernel_enum("inter_pred.cu") == INTER_KEYS
+  dmvr = ("dmvr", "om0x", "om0y", "om1x", "om1y")
+  assert INTER_KEYS == tuple(k for k in JP.INTER_KEYS if k not in dmvr)
+
+
+def test_interp_tables():
+  from ffmpeg_tpu.models.vvc import pipeline as JP
+  from ffmpeg_tpu_torch.ops import inter as T
+
+  np.testing.assert_array_equal(JP.INTERP_LUMA, T.INTERP_LUMA)
+  np.testing.assert_array_equal(JP.INTERP_CHROMA, T.INTERP_CHROMA)
+
+
+@pytest.mark.parametrize("part", [0, 5, 17, 31, 44, 63])
+def test_gpm_weight_plane(part):
+  from ffmpeg_tpu.models.vvc import pipeline as JP
+  from ffmpeg_tpu_torch.models.vvc import inputs as TI
+
+  for w, h in ((8, 8), (8, 32), (16, 64), (64, 16), (32, 32), (64, 64)):
+    np.testing.assert_array_equal(JP._gpm_weight_plane(part, w, h),
+                                  TI._gpm_weight_plane(part, w, h))
 
 
 def test_split_annexb_raw():
