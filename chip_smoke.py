@@ -29,7 +29,14 @@ Phases, one JSON line each:
               of the path launched, the plain versions never ran
   5. timing   ra1080 and ai720 fps with frames left on the card and with
               the fetch, ra1080 per-stage ms, kernel vs plain ms (CUDA
-              events) on the ra1080 B frame
+              events, the launches queued behind a short sleep of the card
+              so that the host's Python between them is not timed) on the
+              ra1080 B frame; the recon kernel's time split
+              into its placement and wavefront launches, its critical path
+              (dependency levels) and us per level on that frame and on
+              ai720's frame 0, every timed recon launch held against the
+              plain version (the race check), and the SM clocks before
+              and after
   6. profile  torch.profiler over a ra1080 decode: device busy share and
               device time by kernel
 
@@ -155,7 +162,7 @@ def _walk_calls(name, pick=None):
 
   aus = VVCDecoder(device="cuda")._split_aus(_read(name))
   for fs, h in walk_frames(aus, "cuda", record):
-    records.append(_unit_counts(fs, h))
+    records.append({**_unit_counts(fs, h), **_schedule(frame_calls)})
     if kept is None and (pick is None or pick(fs, h)):
       kept = (fs, list(frame_calls))
       if pick is None:
@@ -224,8 +231,8 @@ def _bytes_moved(name, kw):
   intra = kw["intra"]
   nch = kw["res"].shape[0]
   b = kw["res"].numel() * 4 * 2                   # residual in, plane out
-  b += intra["mat"].numel() * 4 + intra["ioff"].numel() * 8
-  b += intra["ipos"].numel() * 4 + inter["mat_host"][:4].nbytes
+  b += intra["mat"].numel() * 4 + intra["ipos"].numel() * 4
+  b += inter["mat_host"][:4].nbytes
   if kw["tiles"] is not None:                     # placed and CIIP samples
     b += nch * int((w * h).sum()) * 4
   if kw.get("cclm") is not None:
@@ -278,6 +285,29 @@ def _ops(name, kw):
   return nch * (int((w * h).sum()) * 36 + n * L * 8 + 3 * placed)
 
 
+def _levels(calls):
+  """The recon calls' critical paths: the largest dependency level of
+  each plane kind (ops/recon.py dependency_levels)."""
+  from ffmpeg_tpu_torch.ops.recon import dependency_levels
+
+  out = {}
+  for name, label, kw in calls:
+    if name == "recon":
+      n = int(kw["intra"]["iend_host"][-1]) if kw["n_chunks"] else 0
+      out[label] = int(dependency_levels(kw["intra"], n,
+                                         is_chroma=kw["is_chroma"]).max()
+                       ) if n else 0
+  return out
+
+
+def _schedule(calls):
+  """A frame's recon schedule per plane kind: the host's chunks (CHUNK_CAP
+  units at most) and the wavefront's dependency levels."""
+  return {"chunks": {label: kw["n_chunks"] for name, label, kw in calls
+                     if name == "recon"},
+          "levels": _levels(calls)}
+
+
 def _check_calls(fixture, calls, out, torch):
   for name, label, kw in calls:
     got = _kernel(name, kw)
@@ -305,9 +335,7 @@ def phase_kernels(torch):
   out["frame"] = {"fixture": MAIN, **units,
                   "mc_units": {label: kw["inter"]["n_mc"]
                                for n, label, kw in main_calls
-                               if n == "inter_pred"},
-                  "chunks": {label: kw["n_chunks"]
-                             for n, label, kw in main_calls if n == "recon"}}
+                               if n == "inter_pred"}}
   calls = {MAIN: main_calls}
   for name in FIXTURES[1:]:
     calls[name] = _walk_calls(name)[1]
@@ -316,10 +344,11 @@ def phase_kernels(torch):
   worst = {k: max(c["max_abs_err"] for c in out["cases"] if c["kernel"] == k)
            for k in KERNELS}
   out["max_abs_err"] = max(worst.values())
+  out["levels"] = {MAIN: units["levels"], "ai720": _levels(calls["ai720"])}
   out["tile_bytes_peak_frame"] = max(r["tile_bytes"] for r in records)
   out["records"] = records
   emit(out)
-  return worst, calls
+  return worst, calls, out["levels"]
 
 
 def _decode_md5s(name, torch):
@@ -360,10 +389,18 @@ def phase_decode(torch):
   return launches
 
 
+def _hold_card(torch):
+  """Keep the card busy for about 50 ms, so that the launches queued
+  behind it run back to back and their events time the card, not the
+  host's Python (or allocations) between launches."""
+  torch.cuda.synchronize()
+  torch.cuda._sleep(100_000_000)  # cycles, about 50 ms at 1980 MHz
+
+
 def _events_ms(fn, torch, reps):
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
-  torch.cuda.synchronize()
+  _hold_card(torch)
   start.record()
   for _ in range(reps):
     fn()
@@ -403,28 +440,91 @@ def _fps(name, torch, traced=False):
   return out
 
 
-def phase_timing(torch, card, calls):
+def _sm_clocks():
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+       "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+  return smi.stdout.strip()
+
+
+def _recon_runs(kw, want, torch, reps):
+  """reps launches of the recon kernel on one call's inputs, queued
+  behind _hold_card and timed with CUDA events: per launch the whole
+  wrapper's card time (plane fill, map zeroing, both launches), and
+  apart its placement and
+  wavefront launches (the wrapper's mark hook records an event before
+  each).  Every output is then held against `want`, the plain version's:
+  the wavefront's order differs from launch to launch, so a missing wait
+  shows as a mismatch.  Returns (ms per launch, placement ms, wavefront
+  ms, launches that differ)."""
+  from ffmpeg_tpu_torch.ops.recon import _recon_cuda
+
+  ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for _ in range(reps)]
+  outs = []
+  _hold_card(torch)
+  for e in ev:
+    e[0].record()
+    outs.append(_recon_cuda(**kw, mark=lambda st, e=e: e[1 + st].record()))
+    e[3].record()
+  torch.cuda.synchronize()
+  total = ev[0][0].elapsed_time(ev[-1][3]) / reps
+  place = sum(e[1].elapsed_time(e[2]) for e in ev) / reps
+  wave = sum(e[2].elapsed_time(e[3]) for e in ev) / reps
+  return total, place, wave, sum(not torch.equal(o, want) for o in outs)
+
+
+def _time_recon(kw, levels, torch, reps, rounds):
+  """One recon call: ms per launch (mean of `rounds` rounds of `reps`
+  launches), placement and wavefront ms, us per dependency level of the
+  wavefront, and the launches that differ from the plain version."""
+  want = _plain("recon", kw)
+  runs = [_recon_runs(kw, want, torch, reps) for _ in range(rounds)]
+  wave = sum(r[2] for r in runs) / rounds
+  return {"ms": sum(r[0] for r in runs) / rounds,
+          "placement_ms": sum(r[1] for r in runs) / rounds,
+          "wavefront_ms": wave, "levels": levels,
+          "us_per_level": wave * 1e3 / max(levels, 1),
+          "launches_checked": reps * rounds,
+          "launches_unequal": sum(r[3] for r in runs)}
+
+
+def phase_timing(torch, card, calls, levels):
   """fps of ra1080 (with traced stages) and ai720; then each kernel
   against its plain version on the ra1080 B frame's calls, in turns
-  (plain, kernel, kernel, plain), and the recon kernel alone on ai720's
-  frame 0."""
-  out = {"phase": "timing", "card": card,
+  (plain, kernel, kernel, plain; recon's kernel launches each checked
+  against the plain version), and the recon kernel alone on ai720's
+  frame 0, checked the same way.  The SM clocks are read before and
+  after."""
+  out = {"phase": "timing", "card": card, "sm_clocks_before": _sm_clocks(),
          MAIN: _fps(MAIN, torch, traced=True),
          "ai720": _fps("ai720", torch)}
-  kern, plain = {}, {}
+  kern, plain, recon = {}, {}, {MAIN: {}, "ai720": {}}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
-    k1 = _events_ms(lambda: _kernel(name, kw), torch, 20)
-    k2 = _events_ms(lambda: _kernel(name, kw), torch, 20)
+    if name == "recon":
+      recon[MAIN][label] = _time_recon(kw, levels[MAIN][label], torch, 20, 2)
+      kern[f"{name}/{label}"] = recon[MAIN][label]["ms"]
+    else:
+      k1 = _events_ms(lambda: _kernel(name, kw), torch, 20)
+      k2 = _events_ms(lambda: _kernel(name, kw), torch, 20)
+      kern[f"{name}/{label}"] = (k1 + k2) / 2
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
-    kern[f"{name}/{label}"] = (k1 + k2) / 2
     plain[f"{name}/{label}"] = (p1 + p2) / 2
-  out["kernel_ms"], out["plain_ms"] = kern, plain
-  out["ai720_frame0_kernel_ms"] = {
-      f"{name}/{label}": _events_ms(lambda: _kernel(name, kw), torch, 20)
-      for name, label, kw in calls["ai720"]}
+  for name, label, kw in calls["ai720"]:
+    recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
+                                        20, 1)
+  out["kernel_ms"], out["plain_ms"], out["recon"] = kern, plain, recon
+  out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
+                                   for label, r in recon["ai720"].items()}
+  out["sm_clocks_after"] = _sm_clocks()
   emit(out)
-  return kern, plain
+  bad = {f"{f} {label}": r["launches_unequal"]
+         for f, rr in recon.items() for label, r in rr.items()
+         if r["launches_unequal"]}
+  if bad:
+    fail("timing", f"recon launches unequal to the plain version: {bad}")
+  return kern, plain, recon
 
 
 def phase_profile(torch, card):
@@ -484,9 +584,9 @@ def main() -> int:
     fail("device", f"torch missing: {e}")
   card = phase_device(torch)
   phase_build()
-  worst, calls = phase_kernels(torch)
+  worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain = phase_timing(torch, card, calls)
+  kern, plain, recon = phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   rows = []
   for name in KERNELS:
@@ -507,6 +607,10 @@ def main() -> int:
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": None})
+    if name == "recon":
+      rows[-1]["split_ms"] = {
+          label: {k: r[k] for k in ("placement_ms", "wavefront_ms")}
+          for label, r in recon[MAIN].items()}
   emit({"kernels": rows})
   emit({"ok": True, "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),

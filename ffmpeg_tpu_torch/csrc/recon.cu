@@ -7,50 +7,86 @@
 // (recon_plane_plain), itself a port of the JAX frame program's
 // _recon_plane.
 //
-// Design.  One cooperative launch per plane kind per frame.  Block
-// (b, ch) works on channel ch, 1024 threads, one per sample of a 32x32
-// tile.
-//  - Placement phase: the blocks of a channel stride over the pure
-//    inter units of the MC batch and write clip(tile + residual), the
-//    tiles coming from the inter-prediction kernel (csrc/inter_pred.cu).
-//    A grid-wide barrier follows.
-//  - Intra phase: the intra units come in wavefront chunks of at most
-//    CHUNK_CAP mutually independent units (chunk s = units [ioff[s],
-//    iend[s]) of the intra layout); every sample a unit reads was
-//    written by the placement or a strictly earlier chunk.  Block b
-//    reconstructs unit ioff[s] + b; a grid-wide barrier separates
-//    chunks.  CIIP units blend their intra prediction with their MC tile
-//    (found through ipos) as (pred * w + tile * (4 - w) + 2) >> 2.
-// The plane lives in device memory (a 1080p int32 luma plane is 10 MB
-// and stays in the 50 MB L2); plane loads and stores go through L2 only
-// (ld.global.cg / st.global.cg), so a block never reads a stale L1 line
-// of a sample another SM wrote before a barrier.  A unit's reference
-// edges are built in shared memory; MIP's reduced prediction and the
-// CCLM model are computed once per unit in shared memory.  The
-// TPU-layout machinery of the Pallas kernel (one-hot MXU matmuls,
-// Toeplitz windows, 40x256 store windows, SMEM segmenting) has no
-// counterpart: indexed loads from shared memory replace it.
+// Design: two plain (non-cooperative) launches per plane kind per frame,
+// each sized to the card (blocks per SM x SMs), with no grid barrier.
 //
-// What bounds it on this card: not bytes (each frame moves a few tens
-// of MB) and not operations, but latency — the number of sequential
-// chunks times the latency of one unit (its barriers and dependent
-// loads), plus one grid barrier per chunk.  Only CHUNK_CAP x nch of the
-// 132 SMs are busy.  Warp-level edge building, fewer barriers per unit
-// and wgmma/TMA for the residual transform are later work.
+//  1. place_kernel.  One warp per work item, the warps striding over the
+//     items: first each (pure inter unit, channel) of the MC batch, whose
+//     samples clip(tile + residual) over the unit's (h, w) the warp's
+//     lanes write row by row (the tiles come from csrc/inter_pred.cu);
+//     then each intra unit, whose CELL x CELL cells the warp marks
+//     pending (1) in every channel's readiness map.  The wrapper zeroes
+//     the maps, so every cell no intra unit writes is ready from the
+//     start.  Stream order makes the placed samples and the marks visible
+//     to launch 2.
+//
+//  2. wave_kernel, a dataflow wavefront.  Each warp loops: it takes the
+//     next ticket t from a global atomic counter; t is (unit t / nch,
+//     channel t % nch) in the intra layout's order, which is chunk order
+//     and so topological: every sample a unit reads was written by the
+//     placement or by a unit of a strictly earlier chunk.  The warp
+//     prefetches what depends on no other unit (the control row, the
+//     residual block, CCLM's collocated luma block and its four boundary
+//     luma picks, or CIIP's MC tile),
+//     then waits for exactly the cells it reads (wait_rects: the top run
+//     on rows y0-1-mrl .. y0-1, the left run, the corner when
+//     cand_up_left is set; twin of ops/recon.py _wait_rects and of
+//     decode.cc's chunk stencil), reconstructs the unit and publishes its
+//     cells as ready (0) in its channel's map.  Cb and Cr have their own
+//     maps, so a Cr unit never waits on Cb cells.
+//
+// Memory order.  Publishing: every lane stores its samples with
+// st.global.cg; the warp runs __syncwarp, so that every lane's stores
+// precede every lane's fence; each lane runs fence.acq_rel.gpu and then
+// writes its share of the flags with relaxed gpu-scope stores (the PTX
+// release pattern: a fence followed by a strong store; the fence is
+// cumulative over the stores the __syncwarp ordered before it).  Waiting:
+// the lanes poll the
+// cells with relaxed gpu-scope loads, vote with __all_sync, back off with
+// __nanosleep, and once all are ready each lane runs fence.acq_rel.gpu
+// (the acquire pattern) and the warp __syncwarp; the edge loads that
+// follow are ld.global.cg, so no stale L1 line is read.
+//
+// Why it cannot deadlock.  A warp waits only for units with smaller
+// tickets of its channel (their chunks are earlier).  A ticket is taken
+// only by a warp that is running, and that warp holds it until the unit
+// is published.  So the lowest ticket not yet published never waits: its
+// writers are all published.  Progress never needs the whole grid to be
+// resident, and no warp waits for another warp of its block.
+//
+// One warp per unit.  The unit's edge vectors (L = 5*maxs+16), its
+// residual block and an auxiliary block (CCLM's luma, CIIP's tile, or
+// MIP's reduced prediction and upsampling rows) live in the warp's slice
+// of shared memory; each lane builds L/32 edge entries and predicts
+// w*h/32 samples; __syncwarp replaces __syncthreads; the DC sums and
+// MIP's boundary sums are warp reductions, CCLM's model is computed by
+// every lane in registers.
+//
+// What bounds it on this card: not bytes (a frame moves a few tens of
+// MB) and not operations, but latency — the critical path of the
+// dependency levels (ops/recon.py dependency_levels) times the latency of
+// one unit (ticket, poll, dependent edge loads, prediction, stores and
+// fence, flag store).  The TPU-layout machinery of the Pallas kernel
+// (one-hot MXU matmuls, Toeplitz windows, 40x256 store windows, SMEM
+// segmenting) has no counterpart: indexed loads from shared memory
+// replace it.
 //
 // Build (at first use, ffmpeg_tpu_torch/utils/build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared \
 //        -Xcompiler -fPIC -o _build/librecon.so recon.cu
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
-
-#define CHUNK_CAP 32
 #define MAXS 32               // largest unit dimension
 #define LMAX (5 * MAXS + 16)  // edge vector length at MAXS
 #define TILE 32               // MC tile edge (MC_TILE)
+#define CELL 2                // readiness cell edge (ops/recon.py CELL)
+#define WAVE_WARPS 4          // warps per wavefront block
+#define PLACE_THREADS 256
+#define FULL 0xffffffffu
+// a wait longer than this means a writer that never comes (a layout that
+// broke its topological order): trap rather than hang the card
+#define WAIT_LIMIT_NS 2000000000ull
 
 // control rows, in the order of INTRA_KEYS (models/vvc/inputs.py)
 enum {
@@ -69,11 +105,8 @@ enum { MC_PLANAR, MC_DC, MC_VERT, MC_HORZ, MC_ANG_V, MC_ANG_H, MC_INTER,
        MC_MIP, MC_CCLM };
 
 struct Params {
-  const int* ctrl;   // (NUM_KEYS, ucap)
-  int ucap;
-  const int* ioff;   // (n_chunks,)
-  const int* iend;
-  int n_chunks;
+  const int* ctrl;   // (NUM_KEYS, ucap) intra layout
+  int ucap, n_units;
   const int* ictrl;  // (NUM_INTER_KEYS, n_mc) MC batch; x0, y0, w, h first
   int n_mc, n_inter;
   const int* tiles;  // (n_mc, nch, TILE, TILE) MC prediction tiles
@@ -83,13 +116,29 @@ struct Params {
   int Hp, Wp;
   const int* dsy;    // (Hd, Wd) downsampled luma, or null (no CCLM)
   int Hd, Wd;
-  const int* sel;    // (4, ucap) CCLM boundary luma picks, or null
+  const int* luma;   // (Hl, Wl) reconstructed luma plane, or null
+  int Hl, Wl;
   const int* lfilt;  // (2, 32, 4) luma interpolation filter
   const int* mip;    // (30, 64, 8) MIP matrix bank
   const int* div;    // (16,) CCLM division significands
   int maxs, is_chroma, bd;
   int nch;
+  int* ready;        // (nch, Hc, Wc) readiness maps: 0 ready, 1 pending
+  int* ticket;       // next wavefront ticket
+  int Hc, Wc;        // map shape: Hp / CELL, Wp / CELL
 };
+
+// the warp's slice of shared memory
+struct WarpSmem {
+  int c[64];             // control row
+  int e[4][LMAX];        // edge vectors: left, top, two scratch
+  int res[MAXS * MAXS];  // residual block, row stride w
+  int aux[MAXS * MAXS];  // CCLM luma block | CIIP tile block (stride w) |
+                         // MIP upsampling rows [0, 8*MAXS) + reduced
+                         // prediction [8*MAXS, 8*MAXS + 64)
+};
+
+#define MIP_PREDV (8 * MAXS)
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -108,42 +157,95 @@ __device__ __forceinline__ int ilog2(int v) {  // v a power of two > 0
   return v > 0 ? 31 - __clz(v) : 0;
 }
 
-__device__ __forceinline__ int cclm_log2(int v) {  // saturates at 11
+// the JAX reference's CCLM log2 saturates at 11
+__device__ __forceinline__ int cclm_log2(int v) {
   int acc = 0;
   for (int k = 1; k < 12; ++k) acc += v >= (1 << k);
   return acc;
 }
 
-struct Shared {
-  int c[NUM_KEYS];
-  int eL[LMAX], eT[LMAX];  // left / top reference edges
-  int tL[LMAX], tT[LMAX];  // scratch for the in-place edge passes
-  int predv[64];           // MIP reduced prediction
-  int tmp[8 * MAXS];       // MIP horizontal upsampling
-  int v[8];                // MIP input vector
-  int misc[8];             // dc | mip ow, temp0 | cclm a, k, b
-};
+// ---- readiness flags ----------------------------------------------------
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" :: "l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct Rect { int y0, y1, x0, x1; };  // half-open cell ranges
+
+// The cells a unit reads before it builds its edges: the top run [x0, x0
+// + avail_t) on rows y0-1-r .. y0-1, the left run [y0, y0 + avail_l) on
+// columns x0-1-r .. x0-1, and the corner when cand_up_left is set.  Twin
+// of ops/recon.py _wait_rects (and decode.cc's chunk stencil): change the
+// three together.  Returns the number of rects.
+__device__ int wait_rects(const int* c, int r, Rect* out) {
+  const int x0 = c[k_x0], y0 = c[k_y0];
+  const int avl = c[k_avail_l], avt = c[k_avail_t];
+  const int yt = max(0, (y0 - 1 - r) / CELL), xl = max(0, (x0 - 1 - r) / CELL);
+  int n = 0;
+  if (avt > 0)
+    out[n++] = {yt, (y0 - 1) / CELL + 1, x0 / CELL, (x0 + avt - 1) / CELL + 1};
+  if (avl > 0)
+    out[n++] = {y0 / CELL, (y0 + avl - 1) / CELL + 1, xl, (x0 - 1) / CELL + 1};
+  if (c[k_cand_up_left] > 0 && x0 > 0 && y0 > 0)
+    out[n++] = {yt, (y0 - 1) / CELL + 1, xl, (x0 - 1) / CELL + 1};
+  return n;
+}
+
+// the warp waits until every cell of the unit's stencil is ready
+__device__ void wait_ready(const Params& p, const int* c, const int* map,
+                           int lane) {
+  const int r = p.is_chroma ? 0 : c[k_mrl];
+  Rect rc[3];
+  const int nr = wait_rects(c, r, rc);
+  int cnt[3], total = 0;
+  for (int q = 0; q < nr; ++q) {
+    cnt[q] = (rc[q].y1 - rc[q].y0) * (rc[q].x1 - rc[q].x0);
+    total += cnt[q];
+  }
+  const unsigned long long t0 = now_ns();
+  for (int ns = 32;; ns = min(2 * ns, 256)) {
+    bool ok = true;
+    for (int k = lane; k < total; k += 32) {  // loads in flight together
+      int q = 0, kk = k;
+      while (kk >= cnt[q]) kk -= cnt[q++];
+      const int wq = rc[q].x1 - rc[q].x0;
+      const int cy = rc[q].y0 + kk / wq, cx = rc[q].x0 + kk % wq;
+      ok &= ld_relaxed(map + cy * p.Wc + cx) == 0;
+    }
+    if (__all_sync(FULL, ok)) break;
+    __nanosleep(ns);
+    if (now_ns() - t0 > WAIT_LIMIT_NS) __trap();
+  }
+  fence_acq_rel();  // acquire: the writers' samples before the edge loads
+  __syncwarp();
+}
 
 // ---- per-unit preparation ---------------------------------------------
 
-__device__ void build_edges(const Params& p, Shared& s, const int* plane,
-                            int L, int OFF, int mid) {
-  const int* c = s.c;
+__device__ void build_edges(const Params& p, const int* c, int* eL, int* eT,
+                            const int* plane, int L, int OFF, int mid,
+                            int lane) {
   const int x0 = c[k_x0], y0 = c[k_y0];
   const int r = p.is_chroma ? 0 : c[k_mrl];
   const int avl = c[k_avail_l], avt = c[k_avail_t], cul = c[k_cand_up_left];
   const int H = p.Hp, W = p.Wp;
-  const int i = threadIdx.x;
-  if (i >= L) return;
-  const int j = i - OFF;
-  const int neg = max(min(j, -1), -1 - r);
-  const int joff = j >= 0 ? min(j, avt - 1) : neg;
   const int top_iy = clampi(y0 - 1 - r, 0, H - 1);
-  const int top_raw = __ldcg(plane + top_iy * W + clampi(x0 + joff, 0, W - 1));
-  const int joff_l = j >= 0 ? min(j, avl - 1) : neg;
   const int left_ix = clampi(x0 - 1 - r, 0, W - 1);
-  const int left_raw =
-      __ldcg(plane + clampi(y0 + joff_l, 0, H - 1) * W + left_ix);
   const int top0 = __ldcg(plane + top_iy * W + clampi(x0, 0, W - 1));
   const int left0 = __ldcg(plane + clampi(y0, 0, H - 1) * W + left_ix);
   const int fallback = avl > 0 ? left0 : (avt > 0 ? top0 : mid);
@@ -153,137 +255,175 @@ __device__ void build_edges(const Params& p, Shared& s, const int* plane,
   const int left_m1 =
       cul > 0 ? __ldcg(plane + clampi(y0 - 1, 0, H - 1) * W + left_ix)
               : fallback;
-  s.eT[i] = j >= 0 ? (avt > 0 ? top_raw : top_m1)
+#pragma unroll
+  for (int i = lane; i < LMAX; i += 32) {  // every load in flight at once
+    if (i >= L) break;
+    const int j = i - OFF;
+    const int neg = max(min(j, -1), -1 - r);
+    const int joff = j >= 0 ? min(j, avt - 1) : neg;
+    const int top_raw =
+        __ldcg(plane + top_iy * W + clampi(x0 + joff, 0, W - 1));
+    const int joff_l = j >= 0 ? min(j, avl - 1) : neg;
+    const int left_raw =
+        __ldcg(plane + clampi(y0 + joff_l, 0, H - 1) * W + left_ix);
+    eT[i] = j >= 0 ? (avt > 0 ? top_raw : top_m1)
                    : (cul > 0 ? top_raw : fallback);
-  s.eL[i] = j >= 0 ? (avl > 0 ? left_raw : left_m1)
+    eL[i] = j >= 0 ? (avl > 0 ? left_raw : left_m1)
                    : (cul > 0 ? left_raw : fallback);
+  }
 }
 
-// [1 2 1] reference smoothing; neighbours wrap at the vector ends
-__device__ void filter_edges(Shared& s, int L, int OFF) {
-  const int* c = s.c;
-  const int i = threadIdx.x;
-  if (i < L) {
+// [1 2 1] reference smoothing into (tL, tT); neighbours wrap at the
+// vector ends, as the JAX reference's rolled vectors do
+__device__ void filter_edges(const int* c, const int* eL, const int* eT,
+                             int* tL, int* tT, int L, int OFF, int lane) {
+  const int nl = c[k_left_size] - c[k_unfilter_last_one];
+  const int nt = c[k_top_size] - c[k_unfilter_last_one];
+  for (int i = lane; i < L; i += 32) {
     const int j = i - OFF;
     const int im = (i + L - 1) % L, ip = (i + 1) % L;
-    const int nl = c[k_left_size] - c[k_unfilter_last_one];
-    const int nt = c[k_top_size] - c[k_unfilter_last_one];
-    const int fl = (s.eL[im] + 2 * s.eL[i] + s.eL[ip] + 2) >> 2;
-    const int ft = (s.eT[im] + 2 * s.eT[i] + s.eT[ip] + 2) >> 2;
-    int lo = (j >= 0 && j < nl) ? fl : s.eL[i];
-    int to = (j >= 0 && j < nt) ? ft : s.eT[i];
+    const int fl = (eL[im] + 2 * eL[i] + eL[ip] + 2) >> 2;
+    const int ft = (eT[im] + 2 * eT[i] + eT[ip] + 2) >> 2;
+    int lo = (j >= 0 && j < nl) ? fl : eL[i];
+    int to = (j >= 0 && j < nt) ? ft : eT[i];
     if (i == OFF - 1) {
-      const int corner = (s.eL[OFF] + 2 * s.eL[OFF - 1] + s.eT[OFF] + 2) >> 2;
+      const int corner = (eL[OFF] + 2 * eL[OFF - 1] + eT[OFF] + 2) >> 2;
       lo = corner;
       to = corner;
     }
-    s.tL[i] = lo;
-    s.tT[i] = to;
+    tL[i] = lo;
+    tT[i] = to;
   }
-  __syncthreads();
-  if (i < L) {
-    s.eL[i] = s.tL[i];
-    s.eT[i] = s.tT[i];
-  }
-  __syncthreads();
 }
 
-// negative-angle projection of `src` into the negative lanes of `dst`
-__device__ void project(int* dst, const int* src, int* tmp, int L, int OFF,
-                        int inv, int limit, int r) {
-  const int i = threadIdx.x;
-  if (i < L) {
+// negative-angle projection of `src` into the negative lanes of `dst`,
+// written to `out`
+__device__ void project(const int* dst, const int* src, int* out, int L,
+                        int OFF, int inv, int limit, int r, int lane) {
+  for (int i = lane; i < L; i += 32) {
     const int t = i - OFF;
     const int xx = t + 1 + r;
     const int sidx = OFF - 1 - r + min(shr(xx * inv + 256, 9), limit);
     const int proj = src[clampi(sidx, 0, L - 1)];
     const bool sel = t >= -limit - 1 - r && t <= -2 - r;
-    tmp[i] = sel ? proj : dst[i];
+    out[i] = sel ? proj : dst[i];
   }
-  __syncthreads();
-  if (i < L) dst[i] = tmp[i];
-  __syncthreads();
 }
 
-__device__ void mip_prepare(const Params& p, Shared& s, int OFF, int maxv,
-                            int mid) {
-  const int* c = s.c;
+// MIP: boundary reduction (warp sums), the 64 x 8 matrix product and the
+// horizontal upsampling over the 8 reduced rows (mip_upsampling_1d)
+__device__ void mip_prepare(const Params& p, const int* c, const int* eL,
+                            const int* eT, int* aux, int OFF, int maxv,
+                            int mid, int lane) {
   const int w = c[k_w], h = c[k_h], sz = c[k_mip_sz];
   const int bsz = sz == 0 ? 2 : 4;
   const int ps = sz == 2 ? 8 : 4;
   const int maxs = p.maxs;
-  if (threadIdx.x == 0) {
-    const int in_size = sz == 0 ? 4 : (sz == 2 ? 7 : 8);
-    int red[2][4];
-    for (int side = 0; side < 2; ++side) {
-      const int* vals = side == 0 ? s.eT + OFF : s.eL + OFF;
-      const int n = side == 0 ? w : h;
-      const int ratio = n / bsz;
-      const int lg = ilog2(ratio);
-      for (int g = 0; g < 4; ++g) {
-        int sum = 0;
-        for (int jj = 0; jj < maxs; ++jj)
-          if (jj < n && shr(jj, lg) == g) sum += vals[jj];
-        red[side][g] = shr(sum + (ratio >> 1), lg);
-      }
-    }
-    const int* first = c[k_mip_t] > 0 ? red[1] : red[0];
-    const int* second = c[k_mip_t] > 0 ? red[0] : red[1];
-    int r8[8];
-    for (int i = 0; i < 8; ++i)
-      r8[i] = i < bsz ? first[clampi(i, 0, 3)] : second[clampi(i - bsz, 0, 3)];
-    const int temp0 = r8[0];
-    int sum = 0;
-    for (int i = 0; i < 8; ++i) {
-      int v = sz == 2 ? r8[clampi(i + 1, 0, 7)] - temp0
-                      : (i == 0 ? mid - temp0 : r8[i] - temp0);
-      v = i < in_size ? v : 0;
-      s.v[i] = v;
-      sum += v;
-    }
-    s.misc[1] = 32 - 32 * sum;  // ow
-    s.misc[2] = temp0;
+  const int in_size = sz == 0 ? 4 : (sz == 2 ? 7 : 8);
+  int red[2][4];
+  for (int side = 0; side < 2; ++side) {
+    const int n = side == 0 ? w : h;
+    const int val = lane < n ? (side == 0 ? eT : eL)[OFF + lane] : 0;
+    const int ratio = n / bsz;
+    const int lg = ilog2(ratio);
+    const int grp = shr(lane, lg);
+    for (int g = 0; g < 4; ++g)
+      red[side][g] =
+          shr(__reduce_add_sync(FULL, grp == g ? val : 0) + (ratio >> 1), lg);
   }
-  __syncthreads();
-  const int i = threadIdx.x;
-  if (i < 64) {
+  const int* first = c[k_mip_t] > 0 ? red[1] : red[0];
+  const int* second = c[k_mip_t] > 0 ? red[0] : red[1];
+  int r8[8];
+  for (int i = 0; i < 8; ++i)
+    r8[i] = i < bsz ? first[clampi(i, 0, 3)] : second[clampi(i - bsz, 0, 3)];
+  const int temp0 = r8[0];
+  int v[8], sum = 0;
+  for (int i = 0; i < 8; ++i) {
+    int vi = sz == 2 ? r8[clampi(i + 1, 0, 7)] - temp0
+                     : (i == 0 ? mid - temp0 : r8[i] - temp0);
+    vi = i < in_size ? vi : 0;
+    v[i] = vi;
+    sum += vi;
+  }
+  const int ow = 32 - 32 * sum;
+  int* predv = aux + MIP_PREDV;
+  for (int i = lane; i < 64; i += 32) {
     const int* m = p.mip + (clampi(c[k_mip_id], 0, 29) * 64 + i) * 8;
     int acc = 0;
-    for (int k = 0; k < 8; ++k) acc += m[k] * s.v[k];
-    s.predv[i] = clampi(shr(acc + s.misc[1], 6) + s.misc[2], 0, maxv);
+    for (int k = 0; k < 8; ++k) acc += __ldg(m + k) * v[k];
+    predv[i] = clampi(shr(acc + ow, 6) + temp0, 0, maxv);
   }
-  __syncthreads();
-  // horizontal upsampling over the 8 reduced rows (mip_upsampling_1d)
-  if (i < 8 * maxs) {
+  __syncwarp();
+  const int uh = w / ps, uv = h / ps;
+  const int lg_h = ilog2(uh);
+  const bool tr = c[k_mip_t] > 0;
+  for (int i = lane; i < 8 * maxs; i += 32) {
     const int yr = i / maxs, x = i % maxs;
-    const int uh = w / ps, uv = h / ps;
-    const int lg_h = ilog2(uh);
     const int k = shr(x, lg_h);
     const int dx = (x & (uh - 1)) + 1;
-    const bool tr = c[k_mip_t] > 0;
     auto p8 = [&](int a, int b) {  // reduced grid, transposed layout aware
-      return tr ? s.predv[clampi(b * ps + a, 0, 63)]
-                : s.predv[clampi(a * ps + b, 0, 63)];
+      return tr ? predv[clampi(b * ps + a, 0, 63)]
+                : predv[clampi(a * ps + b, 0, 63)];
     };
-    const int brow = s.eL[OFF + clampi((yr + 1) * uv - 1, 0, maxs - 1)];
+    const int brow = eL[OFF + clampi((yr + 1) * uv - 1, 0, maxs - 1)];
     const int pa = k == 0 ? brow : p8(yr, clampi(k - 1, 0, 7));
     const int pb = p8(yr, clampi(k, 0, 7));
-    s.tmp[yr * MAXS + x] = shr((uh - dx) * pa + dx * pb + (uh >> 1), lg_h);
+    aux[yr * MAXS + x] = shr((uh - dx) * pa + dx * pb + (uh >> 1), lg_h);
   }
-  __syncthreads();
 }
 
-__device__ void cclm_prepare(const Params& p, Shared& s, int u, int L,
-                             int OFF, int mid) {
-  if (threadIdx.x != 0) return;
-  const int* c = s.c;
+// one of a CCLM unit's four downsampled boundary luma picks, i < 4 (top
+// picks first); ops/intra.py cclm_select_luma.  cclm_vc carries the
+// flags: bit 0 vertical collocation, 1 the block starts a CTU row (the
+// line buffer's single-row top filter), 2 and 3 luma availability left
+// and top.
+__device__ int cclm_pick(const Params& p, const int* c, int i) {
+  const int H = p.Hl, W = p.Wl;
+  auto at = [&](int yy, int xx) {
+    return __ldg(p.luma + clampi(yy, 0, H - 1) * W + clampi(xx, 0, W - 1));
+  };
+  const int vcf = c[k_cclm_vc];
+  const int vc = vcf & 1, b_ctu = (vcf >> 1) & 1;
+  const int pos = c[k_cclm_p0 + i];
+  const int lx0 = 2 * c[k_x0], ly0 = 2 * c[k_y0];
+  if (i < c[k_cclm_ct]) {
+    const int xa = lx0 + 2 * pos;
+    const bool hl = 2 * pos > 0 || ((vcf >> 2) & 1);
+    const int lt_r1 = at(ly0 - 1, hl ? xa - 1 : xa);
+    if (b_ctu)
+      return (lt_r1 + 2 * at(ly0 - 1, xa) + at(ly0 - 1, xa + 1) + 2) >> 2;
+    const int lt_r2 = at(ly0 - 2, hl ? xa - 1 : xa);
+    if (vc)
+      return (at(ly0 - 3, xa) + lt_r2 + 4 * at(ly0 - 2, xa)
+              + at(ly0 - 2, xa + 1) + at(ly0 - 1, xa) + 4) >> 3;
+    return (lt_r2 + lt_r1 + 2 * (at(ly0 - 2, xa) + at(ly0 - 1, xa))
+            + at(ly0 - 2, xa + 1) + at(ly0 - 1, xa + 1) + 4) >> 3;
+  }
+  const int ya = ly0 + 2 * pos;
+  if (vc) {
+    const bool ht = 2 * pos > 0 || ((vcf >> 3) & 1);
+    return (at(ya, lx0 - 3) + at(ht ? ya - 1 : ya, lx0 - 2)
+            + 4 * at(ya, lx0 - 2) + at(ya, lx0 - 1) + at(ya + 1, lx0 - 2)
+            + 4) >> 3;
+  }
+  return (at(ya, lx0 - 3) + at(ya + 1, lx0 - 3)
+          + 2 * (at(ya, lx0 - 2) + at(ya + 1, lx0 - 2)) + at(ya, lx0 - 1)
+          + at(ya + 1, lx0 - 1) + 4) >> 3;
+}
+
+struct Cclm { int a, k, b; };
+
+// CCLM model from the four boundary picks; every lane computes it
+__device__ Cclm cclm_model(const Params& p, const int* c, const int* eL,
+                           const int* eT, const int* sl_in, int L, int OFF,
+                           int mid) {
   const int cnt_t = c[k_cclm_ct];
   const int n_sel = cnt_t + c[k_cclm_cl];
   int sl[4], sc[4];
   for (int i = 0; i < 4; ++i) {
     const int pos = clampi(OFF + c[k_cclm_p0 + i], 0, L - 1);
-    sl[i] = p.sel[i * p.ucap + u];
-    sc[i] = i < cnt_t ? s.eT[pos] : s.eL[pos];
+    sl[i] = sl_in[i];
+    sc[i] = i < cnt_t ? eT[pos] : eL[pos];
   }
   if (n_sel == 2) {  // [s0, s1] -> [s1, s0, s1, s0]
     const int l0 = sl[0], l1 = sl[1], c0 = sc[0], c1 = sc[1];
@@ -311,7 +451,7 @@ __device__ void cclm_prepare(const Params& p, Shared& s, int u, int L,
   x += norm_diff != 0;
   const int absc = abs(diffc);
   const int y = absc > 0 ? cclm_log2(max(absc, 1)) + 1 : 0;
-  const int vdiv = p.div[norm_diff] | 8;
+  const int vdiv = __ldg(p.div + norm_diff) | 8;
   const int add = shl(1, y) >> 1;
   int a = shr(diffc * vdiv + add, y);
   int k = max(1, 3 + x - y);
@@ -319,16 +459,14 @@ __device__ void cclm_prepare(const Params& p, Shared& s, int u, int L,
   int b = min_c - shr(a * min_l, k);
   if (diff == 0) { a = 0; k = 0; b = min_c; }
   if (n_sel == 0) { a = 0; k = 0; b = mid; }
-  s.misc[3] = a;
-  s.misc[4] = k;
-  s.misc[5] = b;
+  return {a, k, b};
 }
 
 // ---- per-sample prediction --------------------------------------------
 
-__device__ int ang_core(const Params& p, const Shared& s, const int* main,
-                        int i, int col, int L, int OFF, int maxv, int r) {
-  const int pos = (i + 1 + r) * s.c[k_angle];
+__device__ int ang_core(const Params& p, const int* c, const int* main, int i,
+                        int col, int L, int OFF, int maxv, int r) {
+  const int pos = (i + 1 + r) * c[k_angle];
   const int idx = pos >> 5;
   const int fact = pos & 31;
   const int base = OFF + col + idx;
@@ -336,16 +474,17 @@ __device__ int ang_core(const Params& p, const Shared& s, const int* main,
   for (int k = 0; k < 4; ++k) q[k] = main[clampi(base + k - 1, 0, L - 1)];
   if (p.is_chroma)
     return fact == 0 ? q[1] : ((32 - fact) * q[1] + fact * q[2] + 16) >> 5;
-  const int ff = s.c[k_filter_flag];
+  const int ff = c[k_filter_flag];
   if (fact == 0 && ff == 0) return q[1];
   const int* f = p.lfilt + (clampi(ff, 0, 1) * 32 + fact) * 4;
-  const int acc = (f[0] * q[0] + f[1] * q[1] + f[2] * q[2] + f[3] * q[3] + 32) >> 6;
+  const int acc = (__ldg(f) * q[0] + __ldg(f + 1) * q[1] + __ldg(f + 2) * q[2]
+                   + __ldg(f + 3) * q[3] + 32) >> 6;
   return clampi(acc, 0, maxv);
 }
 
-__device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
-                       int OFF, int maxv) {
-  const int* c = s.c;
+__device__ int predict(const Params& p, const int* c, const int* eL,
+                       const int* eT, const int* aux, int idx, int y, int x,
+                       int L, int OFF, int maxv, int dc, Cclm cm) {
   const int w = c[k_w], h = c[k_h];
   const int logw = c[k_logw], logh = c[k_logh];
   const int mc = c[k_mode_class];
@@ -354,27 +493,27 @@ __device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
   int pred = 0;
   switch (mc) {
     case MC_PLANAR: {
-      const int t = s.eT[OFF + x], l = s.eL[OFF + y];
-      const int tr = s.eT[OFF + w], bl = s.eL[OFF + h];
+      const int t = eT[OFF + x], l = eL[OFF + y];
+      const int tr = eT[OFF + w], bl = eL[OFF + h];
       const int pv = shl((h - 1 - y) * t + (y + 1) * bl, logw);
       const int ph = shl((w - 1 - x) * l + (x + 1) * tr, logh);
       pred = shr(pv + ph + w * h, logw + logh + 1);
       break;
     }
     case MC_DC:
-      pred = s.misc[0];
+      pred = dc;
       break;
     case MC_VERT:
-      pred = s.eT[OFF + x];
+      pred = eT[OFF + x];
       break;
     case MC_HORZ:
-      pred = s.eL[OFF + y];
+      pred = eL[OFF + y];
       break;
     case MC_ANG_V: {
-      pred = ang_core(p, s, s.eT, y, x, L, OFF, maxv, r);
+      pred = ang_core(p, c, eT, y, x, L, OFF, maxv, r);
       if (pdpc > 0) {
         const int inv_sum = 256 + inv * (x + 1);
-        const int lv = s.eL[clampi(OFF + y + shr(inv_sum, 9), 0, L - 1)];
+        const int lv = eL[clampi(OFF + y + shr(inv_sum, 9), 0, L - 1)];
         const int wl = shr(32, min(shr(x << 1, ns), 31));
         const int val = clampi(pred + shr((lv - pred) * wl + 32, 6), 0, maxv);
         if (x < min(w, shl(3, ns))) pred = val;
@@ -382,10 +521,10 @@ __device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
       break;
     }
     case MC_ANG_H: {
-      pred = ang_core(p, s, s.eL, x, y, L, OFF, maxv, r);
+      pred = ang_core(p, c, eL, x, y, L, OFF, maxv, r);
       if (pdpc > 0) {
         const int inv_sum = 256 + inv * (y + 1);
-        const int tv = s.eT[clampi(OFF + x + shr(inv_sum, 9), 0, L - 1)];
+        const int tv = eT[clampi(OFF + x + shr(inv_sum, 9), 0, L - 1)];
         const int wt = shr(32, min(shr(y * 2, ns), 31));
         const int val = clampi(pred + shr((tv - pred) * wt + 32, 6), 0, maxv);
         if (y < min(h, shl(3, ns))) pred = val;
@@ -398,28 +537,24 @@ __device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
       const int lg_v = ilog2(uv);
       const int ky = shr(y, lg_v);
       const int dy = (y & (uv - 1)) + 1;
-      const int ca = ky == 0 ? s.eT[OFF + x]
-                             : s.tmp[clampi(ky - 1, 0, 7) * MAXS + x];
-      const int cb = s.tmp[clampi(ky, 0, 7) * MAXS + x];
+      const int ca = ky == 0 ? eT[OFF + x]
+                             : aux[clampi(ky - 1, 0, 7) * MAXS + x];
+      const int cb = aux[clampi(ky, 0, 7) * MAXS + x];
       pred = shr((uv - dy) * ca + dy * cb + (uv >> 1), lg_v);
       break;
     }
-    case MC_CCLM: {
-      const int ys = clampi(c[k_y0], 0, p.Hd - p.maxs);
-      const int xs = clampi(c[k_x0], 0, p.Wd - p.maxs);
-      const int blk = __ldg(p.dsy + (ys + y) * p.Wd + xs + x);
-      pred = clampi(shr(blk * s.misc[3], s.misc[4]) + s.misc[5], 0, maxv);
+    case MC_CCLM:
+      pred = clampi(shr(aux[idx] * cm.a, cm.k) + cm.b, 0, maxv);
       break;
-    }
     default:
-      break;  // MC_INTER units are placed, never chunked
+      break;  // MC_INTER units are placed, never in the intra layout
   }
   if (pdpc > 0 && mc < MC_ANG_V) {  // PDPC for planar/DC/V/H
     const int scale = (logw + logh - 2) >> 2;
     const bool is_vh = mc == MC_VERT || mc == MC_HORZ;
-    const int lv = s.eL[OFF + y], tv = s.eT[OFF + x];
-    const int lq = is_vh ? lv - s.eL[OFF - 1] + pred : lv;
-    const int tq = is_vh ? tv - s.eT[OFF - 1] + pred : tv;
+    const int lv = eL[OFF + y], tv = eT[OFF + x];
+    const int lq = is_vh ? lv - eL[OFF - 1] + pred : lv;
+    const int tq = is_vh ? tv - eT[OFF - 1] + pred : tv;
     const int wl = mc == MC_HORZ ? 0 : shr(32, min(shr(x << 1, scale), 31));
     const int wt = mc == MC_VERT ? 0 : shr(32, min(shr(y << 1, scale), 31));
     pred = clampi(pred + shr(wl * (lq - pred) + wt * (tq - pred) + 32, 6), 0,
@@ -428,118 +563,225 @@ __device__ int predict(const Params& p, const Shared& s, int y, int x, int L,
   return pred;
 }
 
-__device__ void recon_unit(const Params& p, Shared& s, int u, int ch,
-                           int* plane, const int* res) {
+// ---- one intra unit, one warp -------------------------------------------
+
+__device__ void recon_unit(const Params& p, WarpSmem& sm, int u, int ch,
+                           int lane) {
+  const size_t hw = (size_t)p.Hp * p.Wp;
+  int* plane = p.plane + ch * hw;
+  int* map = p.ready + (size_t)ch * p.Hc * p.Wc;
   const int maxs = p.maxs;
   const int L = 5 * maxs + 16, OFF = 2 * maxs + 8;
   const int maxv = (1 << p.bd) - 1, mid = 1 << (p.bd - 1);
-  const int* c = s.c;
+  int* c = sm.c;
+
+  // prefetch what depends on no other unit: control row, residual block,
+  // CCLM's luma block and picks, or CIIP's tile
+  for (int k = lane; k < NUM_KEYS; k += 32)
+    c[k] = __ldg(p.ctrl + k * p.ucap + u);
+  __syncwarp();
+  const int x0 = c[k_x0], y0 = c[k_y0], w = c[k_w], h = c[k_h];
+  if (w <= 0) return;
+  const int lw = c[k_logw], n = w * h, mc = c[k_mode_class];
+  const int cw = c[k_ciipw];
+  const int* res = p.res + ch * hw + y0 * p.Wp + x0;
+#pragma unroll 4
+  for (int k = lane; k < n; k += 32)
+    sm.res[k] = __ldg(res + (k >> lw) * p.Wp + (k & (w - 1)));
+  if (mc == MC_CCLM) {
+    // lax.dynamic_slice semantics: the window start clamps into the plane
+    const int ys = clampi(y0, 0, p.Hd - maxs), xs = clampi(x0, 0, p.Wd - maxs);
+    const int* blk = p.dsy + ys * p.Wd + xs;
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32)
+      sm.aux[k] = __ldg(blk + (k >> lw) * p.Wd + (k & (w - 1)));
+  } else if (cw > 0) {
+    const int* tile = p.tiles
+        + ((size_t)clampi(__ldg(p.ipos + u), 0, p.n_mc - 1) * p.nch + ch)
+          * TILE * TILE;
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32)
+      sm.aux[k] = __ldg(tile + (k >> lw) * TILE + (k & (w - 1)));
+  }
+  int sl[4];
+  if (mc == MC_CCLM) {
+    const int pick = lane < 4 ? cclm_pick(p, c, lane) : 0;
+    for (int i = 0; i < 4; ++i) sl[i] = __shfl_sync(FULL, pick, i);
+  }
+
+  wait_ready(p, c, map, lane);
+
+  int *eL = sm.e[0], *eT = sm.e[1], *tL = sm.e[2], *tT = sm.e[3], *sw;
   const int r = p.is_chroma ? 0 : c[k_mrl];
+  build_edges(p, c, eL, eT, plane, L, OFF, mid, lane);
+  __syncwarp();
+  if (c[k_smooth] > 0) {
+    filter_edges(c, eL, eT, tL, tT, L, OFF, lane);
+    __syncwarp();
+    sw = eL; eL = tL; tL = sw;
+    sw = eT; eT = tT; tT = sw;
+  }
+  if (c[k_proj_v] > 0) {
+    project(eT, eL, tT, L, OFF, c[k_inv_angle], h, r, lane);
+    __syncwarp();
+    sw = eT; eT = tT; tT = sw;
+  }
+  if (c[k_proj_h] > 0) {
+    project(eL, eT, tL, L, OFF, c[k_inv_angle], w, r, lane);
+    __syncwarp();
+    sw = eL; eL = tL; tL = sw;
+  }
 
-  build_edges(p, s, plane, L, OFF, mid);
-  __syncthreads();
-  if (c[k_smooth] > 0) filter_edges(s, L, OFF);
-  if (c[k_proj_v] > 0)
-    project(s.eT, s.eL, s.tT, L, OFF, c[k_inv_angle], c[k_h], r);
-  if (c[k_proj_h] > 0)
-    project(s.eL, s.eT, s.tL, L, OFF, c[k_inv_angle], c[k_w], r);
-
-  const int mc = c[k_mode_class];
+  int dc = 0;
+  Cclm cm{0, 0, 0};
   if (mc == MC_DC) {
-    if (threadIdx.x == 0) {
-      const int w = c[k_w], h = c[k_h];
-      int sum_t = 0, sum_l = 0;
-      for (int i = 0; i < maxs; ++i) {
-        if (i < w) sum_t += s.eT[OFF + i];
-        if (i < h) sum_l += s.eL[OFF + i];
-      }
-      const int sum = (w >= h ? sum_t : 0) + (w <= h ? sum_l : 0);
-      const int offset = max(w == h ? w << 1 : max(w, h), 1);
-      s.misc[0] = shr(sum + (offset >> 1), ilog2(offset));
-    }
-    __syncthreads();
+    const int st = lane < w ? eT[OFF + lane] : 0;
+    const int sl_ = lane < h ? eL[OFF + lane] : 0;
+    const int sum_t = __reduce_add_sync(FULL, st);
+    const int sum_l = __reduce_add_sync(FULL, sl_);
+    const int sum = (w >= h ? sum_t : 0) + (w <= h ? sum_l : 0);
+    const int offset = max(w == h ? w << 1 : max(w, h), 1);
+    dc = shr(sum + (offset >> 1), ilog2(offset));
   } else if (mc == MC_MIP) {
-    mip_prepare(p, s, OFF, maxv, mid);
+    mip_prepare(p, c, eL, eT, sm.aux, OFF, maxv, mid, lane);
+    __syncwarp();
   } else if (mc == MC_CCLM) {
-    cclm_prepare(p, s, u, L, OFF, mid);
-    __syncthreads();
+    cm = cclm_model(p, c, eL, eT, sl, L, OFF, mid);
   }
 
-  const int y = threadIdx.x >> 5, x = threadIdx.x & 31;
-  if (y < c[k_h] && x < c[k_w]) {
-    int pred = predict(p, s, y, x, L, OFF, maxv);
-    const int cw = c[k_ciipw];
-    if (cw > 0) {  // CIIP blend (put_ciip, vvc_inter_template.c:60-76)
-      const int at = (clampi(__ldg(p.ipos + u), 0, p.n_mc - 1) * p.nch + ch)
-                     * TILE * TILE + y * TILE + x;
-      pred = (pred * cw + __ldg(p.tiles + at) * (4 - cw) + 2) >> 2;
-    }
-    const int at = (c[k_y0] + y) * p.Wp + c[k_x0] + x;
-    __stcg(plane + at, clampi(pred + __ldg(res + at), 0, maxv));
+  for (int k = lane; k < n; k += 32) {
+    const int y = k >> lw, x = k & (w - 1);
+    int pred = predict(p, c, eL, eT, sm.aux, k, y, x, L, OFF, maxv, dc, cm);
+    if (cw > 0)  // CIIP blend (put_ciip, vvc_inter_template.c:60-76)
+      pred = (pred * cw + sm.aux[k] * (4 - cw) + 2) >> 2;
+    __stcg(plane + (y0 + y) * p.Wp + x0 + x, clampi(pred + sm.res[k], 0, maxv));
+  }
+
+  // publish (release): __syncwarp orders every lane's sample stores before
+  // each lane's fence, and the fence orders them before its flag stores
+  __syncwarp();
+  fence_acq_rel();
+  const int cw_ = w / CELL, nc = cw_ * (h / CELL);
+  int* cells = map + (y0 / CELL) * p.Wc + x0 / CELL;
+  for (int k = lane; k < nc; k += 32)
+    st_relaxed(cells + (k / cw_) * p.Wc + k % cw_, 0);
+}
+
+__global__ void __launch_bounds__(WAVE_WARPS * 32, 4) wave_kernel(Params p) {
+  __shared__ WarpSmem smem[WAVE_WARPS];
+  WarpSmem& sm = smem[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int n_tickets = p.n_units * p.nch;
+  for (;;) {
+    __syncwarp();  // the previous unit's shared memory is no longer read
+    int t = 0;
+    if (lane == 0) t = atomicAdd(p.ticket, 1);
+    t = __shfl_sync(FULL, t, 0);
+    if (t >= n_tickets) break;
+    const int u = t / p.nch;
+    recon_unit(p, sm, u, t - u * p.nch, lane);
   }
 }
 
-// placement of the pure inter units: clip(tile + residual) over each
-// unit's (h, w); the blocks of a channel stride over the units
-__device__ void place_inter(const Params& p, int ch, int* plane,
-                            const int* res) {
+// placement of the pure inter units, clip(tile + residual) over each
+// unit's (h, w), and the pending marks of the intra units' cells.  The
+// pure inter units are the MC batch's rows [0, n_inter); the CIIP units'
+// rows follow from n_inter on, and the wavefront blends their tiles,
+// found through ipos.
+__global__ void __launch_bounds__(PLACE_THREADS) place_kernel(Params p) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  const int n_place = p.n_inter * p.nch;
+  const int n_items = n_place + p.n_units;
   const int maxv = (1 << p.bd) - 1;
-  const int y = threadIdx.x >> 5, x = threadIdx.x & 31;
-  for (int u = blockIdx.x; u < p.n_inter; u += gridDim.x) {
-    const int x0 = __ldg(p.ictrl + 0 * p.n_mc + u);
-    const int y0 = __ldg(p.ictrl + 1 * p.n_mc + u);
-    const int w = __ldg(p.ictrl + 2 * p.n_mc + u);
-    const int h = __ldg(p.ictrl + 3 * p.n_mc + u);
-    if (y < h && x < w) {
-      const int tile = __ldg(p.tiles + ((size_t)u * p.nch + ch) * TILE * TILE
-                             + y * TILE + x);
-      const int at = (y0 + y) * p.Wp + x0 + x;
-      __stcg(plane + at, clampi(tile + __ldg(res + at), 0, maxv));
-    }
-  }
-}
-
-__global__ void __launch_bounds__(1024, 1) recon_kernel(Params p) {
-  __shared__ Shared s;
-  cg::grid_group grid = cg::this_grid();
-  const int ch = blockIdx.y;
   const size_t hw = (size_t)p.Hp * p.Wp;
-  int* plane = p.plane + ch * hw;
-  const int* res = p.res + ch * hw;
-  if (p.n_inter > 0) {
-    place_inter(p, ch, plane, res);
-    grid.sync();  // the placed samples are visible to chunk 0
-  }
-  for (int k = 0; k < p.n_chunks; ++k) {
-    const int u = __ldg(p.ioff + k) + blockIdx.x;
-    if (u < __ldg(p.iend + k)) {  // uniform over the block
-      if (threadIdx.x < NUM_KEYS)
-        s.c[threadIdx.x] = __ldg(p.ctrl + threadIdx.x * p.ucap + u);
-      __syncthreads();
-      if (s.c[k_w] > 0) recon_unit(p, s, u, ch, plane, res);
-      __syncthreads();
+  for (int it = warp; it < n_items; it += n_warps) {
+    if (it < n_place) {
+      const int u = it / p.nch, ch = it - u * p.nch;
+      const int x0 = __ldg(p.ictrl + 0 * p.n_mc + u);
+      const int y0 = __ldg(p.ictrl + 1 * p.n_mc + u);
+      const int w = __ldg(p.ictrl + 2 * p.n_mc + u);
+      const int h = __ldg(p.ictrl + 3 * p.n_mc + u);
+      const int* tile = p.tiles + ((size_t)u * p.nch + ch) * TILE * TILE;
+      const int* res = p.res + ch * hw + y0 * p.Wp + x0;
+      int* plane = p.plane + ch * hw + y0 * p.Wp + x0;
+#pragma unroll 4
+      for (int k = lane; k < w * h; k += 32) {
+        const int y = k / w, x = k - y * w;
+        __stcg(plane + y * p.Wp + x,
+               clampi(__ldg(tile + y * TILE + x) + __ldg(res + y * p.Wp + x),
+                      0, maxv));
+      }
+    } else {
+      const int u = it - n_place;
+      const int x0 = __ldg(p.ctrl + k_x0 * p.ucap + u);
+      const int y0 = __ldg(p.ctrl + k_y0 * p.ucap + u);
+      const int cw = __ldg(p.ctrl + k_w * p.ucap + u) / CELL;
+      const int nc = cw * (__ldg(p.ctrl + k_h * p.ucap + u) / CELL);
+      for (int ch = 0; ch < p.nch; ++ch) {
+        int* cells = p.ready + (size_t)ch * p.Hc * p.Wc
+                     + (y0 / CELL) * p.Wc + x0 / CELL;
+        for (int k = lane; k < nc; k += 32) cells[(k / cw) * p.Wc + k % cw] = 1;
+      }
     }
-    grid.sync();  // chunk k's samples are visible to chunk k+1
   }
 }
 
+// blocks for one launch: as many as the card holds at once, no more than
+// the work needs
+static cudaError_t grid_for(const void* kernel, int threads, long items,
+                            int items_per_block, int* grid) {
+  int dev, sms, per_sm;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return e;
+  const long need = (items + items_per_block - 1) / items_per_block;
+  *grid = (int)(need < (long)sms * per_sm ? need : (long)sms * per_sm);
+  return cudaSuccess;
+}
+
+// stage 0: place_kernel; stage 1: wave_kernel.  scratch holds the nch
+// readiness maps of (Hp / CELL) x (Wp / CELL) cells, zeroed, then the
+// ticket counter, zeroed.
 extern "C" int recon_launch(
-    const int* ctrl, int num_keys, int ucap, const int* ioff, const int* iend,
-    int n_chunks, const int* ictrl, int num_inter_keys, int n_mc, int n_inter,
-    const int* tiles, const int* ipos, const int* res, int* plane, int nch,
-    int Hp, int Wp, const int* dsy, int Hd, int Wd, const int* sel,
-    const int* lfilt, const int* mip, const int* div, int maxs, int is_chroma,
-    int bit_depth, void* stream) {
+    const int* ctrl, int num_keys, int ucap, int n_units, const int* ictrl,
+    int num_inter_keys, int n_mc, int n_inter, const int* tiles,
+    const int* ipos, const int* res, int* plane, int nch, int Hp, int Wp,
+    const int* dsy, int Hd, int Wd, const int* luma, int Hl, int Wl,
+    const int* lfilt,
+    const int* mip, const int* div, int maxs, int is_chroma, int bit_depth,
+    int* scratch, int stage, void* stream) {
   if (num_keys != NUM_KEYS || num_inter_keys < 4 || maxs < 1 || maxs > MAXS
-      || nch < 1 || n_inter < 0 || n_inter > n_mc || (n_mc > 0 && !tiles))
+      || nch < 1 || n_units < 0 || n_units > ucap || n_inter < 0
+      || n_inter > n_mc || (n_mc > 0 && !tiles) || Hp % CELL || Wp % CELL
+      || !scratch || stage < 0 || stage > 1)
     return (int)cudaErrorInvalidValue;
-  Params p{ctrl, ucap, ioff, iend, n_chunks, ictrl, n_mc, n_inter, tiles,
-           ipos, res, plane, Hp, Wp, dsy, Hd, Wd, sel, lfilt, mip, div, maxs,
-           is_chroma, bit_depth, nch};
-  void* args[] = {&p};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)recon_kernel, dim3(CHUNK_CAP, nch), dim3(1024), args, 0,
-      (cudaStream_t)stream);
+  const int Hc = Hp / CELL, Wc = Wp / CELL;
+  Params p{ctrl, ucap, n_units, ictrl, n_mc, n_inter, tiles, ipos, res,
+           plane, Hp, Wp, dsy, Hd, Wd, luma, Hl, Wl, lfilt, mip, div, maxs,
+           is_chroma, bit_depth, nch, scratch,
+           scratch + (size_t)nch * Hc * Wc, Hc, Wc};
+  const long items = stage == 0 ? (long)n_inter * nch + n_units
+                                : (long)n_units * nch;
+  if (items == 0) return (int)cudaSuccess;
+  int grid = 0;
+  cudaError_t e;
+  if (stage == 0) {
+    e = grid_for((const void*)place_kernel, PLACE_THREADS, items,
+                 PLACE_THREADS / 32, &grid);
+    if (e == cudaSuccess)
+      place_kernel<<<grid, PLACE_THREADS, 0, (cudaStream_t)stream>>>(p);
+  } else {
+    e = grid_for((const void*)wave_kernel, WAVE_WARPS * 32, items, WAVE_WARPS,
+                 &grid);
+    if (e == cudaSuccess)
+      wave_kernel<<<grid, WAVE_WARPS * 32, 0, (cudaStream_t)stream>>>(p);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -4,19 +4,23 @@ version.
 The decoder's one sequential stage.  First the pure inter units of the
 MC batch (`inputs._layout_ctrl`) are placed: their prediction tiles
 (`ops.inter.inter_pred`) plus the residual.  Then the intra units
-(transform blocks of at most maxs x maxs) run in wavefront chunks of at
-most CHUNK_CAP mutually independent units, chunk s at [ioff[s],
-iend[s]) of the intra layout.  Every sample a unit reads was
-reconstructed by the inter placement or a strictly earlier chunk.
+(transform blocks of at most maxs x maxs) are reconstructed in an order
+that respects their sample dependencies.  The host lays them out in
+wavefront chunks of at most CHUNK_CAP mutually independent units, chunk
+s at [ioff[s], iend[s]) of the intra layout; every sample a unit reads
+was reconstructed by the inter placement or a strictly earlier chunk.
 CIIP units are intra units whose prediction is blended with their MC
 tile, found through `ipos`.
 
 `recon_plane` is the entry point.  A CUDA tensor launches the kernel
-(csrc/recon.cu, one cooperative launch per plane kind per frame); a CPU
-tensor runs `recon_plane_plain`, the batched torch port of the JAX
-frame program's `_recon_plane` (the inter pass, then the intra_chunk
-loop with `_intra_unit`/`_cclm_unit` and the CIIP blend), which is also
-the kernel's oracle.
+(csrc/recon.cu: a placement launch, then a dataflow wavefront launch in
+which each intra unit waits only for the writers of the samples it
+reads, the cells of `_wait_rects`); a CPU tensor runs
+`recon_plane_plain`, the batched torch port of the JAX frame program's
+`_recon_plane` (the inter pass, then the intra_chunk loop with
+`_intra_unit`/`_cclm_unit` and the CIIP blend), which is also the
+kernel's oracle.  `dependency_levels` is the Python twin of the
+kernel's wait stencil.
 """
 from __future__ import annotations
 
@@ -46,6 +50,61 @@ def _check_ipos(intra: dict, n_units: int, n_mc: int) -> None:
   if ipos.size and (ipos.min() < 0 or ipos.max() >= n_mc):
     raise ValueError(f"recon: CIIP tile index out of range [0, {n_mc}): "
                      f"{ipos.min()}..{ipos.max()}")
+
+
+# edge of a readiness cell in samples: the host's dependency granularity
+# (decode.cc `g`) for frames without ISP, which the port refuses
+CELL = 2
+
+
+def _wait_rects(x0, y0, avail_l, avail_t, cand_up_left, r):
+  """The cells a unit waits for before it builds its edges, as
+  half-open (row0, row1, col0, col1) ranges of CELL x CELL cells: the top
+  run [x0, x0 + avail_t) on rows y0-1-r .. y0-1, the left run [y0, y0 +
+  avail_l) on columns x0-1-r .. x0-1, and the corner when cand_up_left is
+  set.  r is the MRL reference line (0 for chroma).  This is decode.cc's
+  chunk stencil (derive, "wavefront chunk") and the twin of
+  csrc/recon.cu `wait_rects`: change the three together."""
+  C = CELL
+  yt, xl = max(0, (y0 - 1 - r) // C), max(0, (x0 - 1 - r) // C)
+  rects = []
+  if avail_t > 0:
+    rects.append((yt, (y0 - 1) // C + 1, x0 // C, (x0 + avail_t - 1) // C + 1))
+  if avail_l > 0:
+    rects.append((y0 // C, (y0 + avail_l - 1) // C + 1, xl, (x0 - 1) // C + 1))
+  if cand_up_left > 0 and x0 > 0 and y0 > 0:
+    rects.append((yt, (y0 - 1) // C + 1, xl, (x0 - 1) // C + 1))
+  return rects
+
+
+def dependency_levels(intra: dict, n_units: int, *, is_chroma: bool):
+  """Each intra unit's level in the dataflow wavefront: 1 + the largest
+  level among the intra units that write the cells it waits for
+  (`_wait_rects`; cells no intra unit writes are ready from the start,
+  level 0).  Units are visited in layout order, which is topological:
+  a unit's writers lie in strictly earlier chunks.  The largest level is
+  the critical path of the recon kernel's wavefront launch.  Returns
+  (n_units,) int64."""
+  rows = intra["mat_host"][:, :n_units].astype(np.int64)
+  x0, y0, w, h = (rows[_K[k]] for k in ("x0", "y0", "w", "h"))
+  avl, avt, cul = (rows[_K[k]] for k in ("avail_l", "avail_t",
+                                         "cand_up_left"))
+  mrl = np.zeros_like(x0) if is_chroma else rows[_K["mrl"]]
+  level = np.zeros(n_units, np.int64)
+  if not n_units:
+    return level
+  cells = np.zeros((int((y0 + np.maximum(h, avl)).max()) // CELL + 1,
+                    int((x0 + np.maximum(w, avt)).max()) // CELL + 1),
+                   np.int64)
+  for i in range(n_units):
+    dep = 0
+    for a, b, c, d in _wait_rects(int(x0[i]), int(y0[i]), int(avl[i]),
+                                  int(avt[i]), int(cul[i]), int(mrl[i])):
+      dep = max(dep, int(cells[a:b, c:d].max()))
+    level[i] = dep + 1
+    cells[y0[i] // CELL:(y0[i] + h[i]) // CELL,
+          x0[i] // CELL:(x0[i] + w[i]) // CELL] = dep + 1
+  return level
 
 
 def _slice_block(plane, y0, x0, maxs):
@@ -243,14 +302,16 @@ def _get_kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.recon_launch.restype = ctypes.c_int
     lib.recon_launch.argtypes = [
-        p, i, i,            # ctrl (NK, ucap), NK, ucap
-        p, p, i,            # ioff, iend, n_chunks
+        p, i, i, i,         # ctrl (NK, ucap), NK, ucap, n_units
         p, i, i, i,         # MC batch ctrl (NKI, n_mc), NKI, n_mc, n_inter
         p, p,               # MC tiles (n_mc, nch, S, S), ipos (ucap,)
         p, p, i, i, i,      # res, plane (nch, Hp, Wp), nch, Hp, Wp
-        p, i, i, p,         # dsy (Hd, Wd), sel_luma (4, ucap)
+        p, i, i,            # dsy (Hd, Wd)
+        p, i, i,            # luma (Hl, Wl)
         p, p, p,            # luma filter, MIP bank, CCLM div table
         i, i, i,            # maxs, is_chroma, bit_depth
+        p,                  # scratch: readiness maps + ticket
+        i,                  # stage: 0 placement, 1 wavefront
         p]                  # stream
     lib.recon_error_string.restype = ctypes.c_char_p
     lib.recon_error_string.argtypes = [ctypes.c_int]
@@ -270,17 +331,29 @@ def _check(t, name, shape=None):
                      f"expected {tuple(shape)}")
 
 
+def _check_cells(rows: np.ndarray, Hp: int, Wp: int) -> None:
+  """Every intra unit covers whole CELL x CELL cells of the readiness
+  map, so that each cell has one writer."""
+  xywh = rows[[_K["x0"], _K["y0"], _K["w"], _K["h"]]]
+  if (xywh % CELL).any() or Hp % CELL or Wp % CELL:
+    raise ValueError(f"recon: an intra unit is not aligned to the "
+                     f"{CELL}x{CELL} readiness cells")
+
+
 def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
-                bit_depth, cclm):
+                bit_depth, cclm, mark=None):
+  """The kernel's two launches on the current stream.  mark(stage), if
+  given, is called just before each (stage 0 the placement, 1 the
+  wavefront), to record a CUDA event and time the two apart."""
   nch, Hp, Wp = res.shape
   mat = intra["mat"]
   ucap = mat.shape[1]
+  n_units = int(intra["iend_host"][-1]) if n_chunks else 0
   dev = res.device
   _check(res, "res")
   _check(mat, "ctrl", (len(INTRA_KEYS), ucap))
   _check(intra["ipos"], "ipos", (ucap,))
-  _check(intra["ioff"], "ioff", (n_chunks,))
-  _check(intra["iend"], "iend", (n_chunks,))
+  _check_cells(intra["mat_host"][:, :n_units], Hp, Wp)
   if maxs not in (16, 32):
     raise ValueError(f"recon: maxs {maxs} not in (16, 32)")
   n_mc, n_inter = inter["n_mc"], inter["n_inter"]
@@ -289,38 +362,38 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
     _check(tiles, "tiles", (n_mc, nch, MC_TILE, MC_TILE))
   plane = torch.full((nch, Hp, Wp), 1 << (bit_depth - 1), dtype=torch.int32,
                      device=dev)
-  if n_chunks == 0 and n_inter == 0:
+  if n_units == 0 and n_inter == 0:
     return plane
-  dsy_ptr, Hd, Wd, sel_ptr = None, 0, 0, None
+  dsy_ptr, Hd, Wd, luma_ptr, Hl, Wl = None, 0, 0, None, 0, 0
   if cclm is not None:
-    luma, dsy = cclm
-    vcf = intra["cclm_vc"]
-    pos = torch.stack([intra[f"cclm_p{j}"] for j in range(4)], dim=1)
-    sel = I.cclm_select_luma(luma, intra["x0"], intra["y0"],
-                             intra["cclm_ct"], pos, vcf & 1, (vcf >> 1) & 1,
-                             (vcf >> 2) & 1, (vcf >> 3) & 1)
-    sel = sel.t().contiguous()                                  # (4, ucap)
-    dsy = dsy.contiguous()
+    luma, dsy = cclm[0], cclm[1].contiguous()
+    _check(luma, "luma")
     _check(dsy, "dsy")
-    Hd, Wd = dsy.shape
-    dsy_ptr, sel_ptr = dsy.data_ptr(), sel.data_ptr()
+    (Hl, Wl), (Hd, Wd) = luma.shape, dsy.shape
+    luma_ptr, dsy_ptr = luma.data_ptr(), dsy.data_ptr()
   ftab = I._const("luma_filter", I.INTRA_LUMA_FILTER, dev)
   bank = I._const("mip_bank", I.MIP_BANK, dev)
   div = I._const("cclm_div", I.CCLM_DIV_SIG, dev)
+  # per channel a readiness map of (Hp/CELL, Wp/CELL) cells, 0 = ready;
+  # then the ticket counter
+  scratch = torch.zeros(nch * (Hp // CELL) * (Wp // CELL) + 1,
+                        dtype=torch.int32, device=dev)
   lib = _get_kernel()
-  rc = lib.recon_launch(
-      mat.data_ptr(), len(INTRA_KEYS), ucap,
-      intra["ioff"].data_ptr(), intra["iend"].data_ptr(), n_chunks,
-      inter["mat"].data_ptr(), len(INTER_KEYS), n_mc, n_inter,
-      tiles.data_ptr() if n_mc else None, intra["ipos"].data_ptr(),
-      res.data_ptr(), plane.data_ptr(), nch, Hp, Wp,
-      dsy_ptr, Hd, Wd, sel_ptr,
-      ftab.data_ptr(), bank.data_ptr(), div.data_ptr(),
-      maxs, int(is_chroma), bit_depth,
-      torch.cuda.current_stream(dev).cuda_stream)
-  if rc != 0:
-    raise RuntimeError("recon kernel launch failed: "
-                       f"{lib.recon_error_string(rc).decode()}")
+  args = (mat.data_ptr(), len(INTRA_KEYS), ucap, n_units,
+          inter["mat"].data_ptr(), len(INTER_KEYS), n_mc, n_inter,
+          tiles.data_ptr() if n_mc else None, intra["ipos"].data_ptr(),
+          res.data_ptr(), plane.data_ptr(), nch, Hp, Wp,
+          dsy_ptr, Hd, Wd, luma_ptr, Hl, Wl,
+          ftab.data_ptr(), bank.data_ptr(), div.data_ptr(),
+          maxs, int(is_chroma), bit_depth, scratch.data_ptr())
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  for stage in (0, 1):
+    if mark is not None:
+      mark(stage)
+    rc = lib.recon_launch(*args, stage, stream)
+    if rc != 0:
+      raise RuntimeError("recon kernel launch failed: "
+                         f"{lib.recon_error_string(rc).decode()}")
   LAUNCHES["recon"] += 1
   return plane
 

@@ -355,10 +355,11 @@ def cuda():
   return torch.device("cuda")
 
 
-def _kernels_vs_plain(data, device, n_frames=None):
+def _kernels_vs_plain(data, device, n_frames=None, repeats=1):
   """Walk a stream's frames through the frame program on the card,
-  holding every kernel call against its plain version on the same card
-  tensors.  Returns the names of the kernels called."""
+  holding every kernel call, launched `repeats` times, against its plain
+  version on the same card tensors.  Returns the names of the kernels
+  called."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
   from ffmpeg_tpu_torch.ops import inter as P
@@ -369,10 +370,12 @@ def _kernels_vs_plain(data, device, n_frames=None):
 
   def check(name, label, kw):
     kernel, plain = KERNELS[name]
+    want = plain(**kw)
     before = launches[name][name]
-    got = kernel(**kw)
-    assert launches[name][name] == before + 1
-    assert torch.equal(got, plain(**kw)), f"{name} {label}"
+    for i in range(repeats):
+      got = kernel(**kw)
+      assert torch.equal(got, want), f"{name} {label} launch {i}"
+    assert launches[name][name] == before + repeats
     called.add(name)
     return got
 
@@ -386,6 +389,64 @@ def _kernels_vs_plain(data, device, n_frames=None):
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720"])
 def test_recon_kernel_matches_plain_on_card(cuda, name):
   assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {"recon"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n_frames", [("ra1080", 3), ("ai720", 1)])
+def test_recon_kernel_repeats_match_plain_on_card(cuda, name, n_frames):
+  """The race check of the recon kernel's dataflow wavefront, whose
+  order of work differs from launch to launch: every kernel call of the
+  first frames in decode order (ra1080: POC 0, 4 and the B frame POC 2;
+  ai720: frame 0) launched 20 times, each equal to the plain version."""
+  assert "recon" in _kernels_vs_plain(_read(name), cuda, n_frames,
+                                      repeats=20)
+
+
+# a line of csrc/recon.cu, and what replaces it to break the wait stencil
+BROKEN_STENCIL = {
+    "no-wait": ("  wait_ready(p, c, map, lane);\n", ""),
+    "no-corner": ("if (c[k_cand_up_left] > 0 && x0 > 0 && y0 > 0)",
+                  "if (false)"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("broken,name,n_frames", [
+    ("no-wait", "ai720", 1), ("no-corner", "ra1080", 3)])
+def test_recon_race_check_catches_a_broken_stencil(cuda, tmp_path,
+                                                   monkeypatch, broken, name,
+                                                   n_frames):
+  """The race check has teeth: the recon kernel built from a copy of its
+  source (under tmp_path, never in the checkout) that skips the wait, or
+  drops the corner cell from the wait stencil, gives launches unequal to
+  the plain version on the last frame's calls."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+  from ffmpeg_tpu_torch.ops import recon as R
+  from ffmpeg_tpu_torch.utils import build
+
+  calls = []
+
+  def record(kernel, label, kw):
+    calls.append((kernel, kw))
+    return KERNELS[kernel][0](**kw)
+
+  aus = VVCDecoder(device=cuda)._split_aus(_read(name))[:n_frames]
+  for _ in walk_frames(aus, cuda, record):
+    pass
+  last = [kw for kernel, kw in calls[-2:] if kernel == "recon"]
+  want = [KERNELS["recon"][1](**kw) for kw in last]
+  with open(R._SRC) as f:
+    src = f.read()
+  line, repl = BROKEN_STENCIL[broken]
+  assert src.count(line) == 1
+  (tmp_path / "recon.cu").write_text(src.replace(line, repl))
+  monkeypatch.setattr(R, "_SRC", str(tmp_path / "recon.cu"))
+  monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+  monkeypatch.setattr(R, "_lib", None)
+  unequal = sum(not torch.equal(R.recon_plane(**kw), w)
+                for kw, w in zip(last, want) for _ in range(20))
+  assert unequal > 0
 
 
 @pytest.mark.gpu

@@ -163,6 +163,15 @@ def test_kernel_control_rows_match_layout():
   assert _kernel_enum("recon.cu") == INTRA_KEYS
 
 
+def test_kernel_readiness_cell_matches_twin():
+  """The recon kernel's readiness cell is the one its Python twin
+  (ops/recon.py dependency_levels, _wait_rects) counts in."""
+  from ffmpeg_tpu_torch.ops.recon import CELL
+
+  with open(os.path.join(PORT, "csrc", "recon.cu")) as f:
+    assert re.search(r"#define CELL (\d+)", f.read()).group(1) == str(CELL)
+
+
 def _kernel_enum(name):
   with open(os.path.join(PORT, "csrc", name)) as f:
     src = f.read()
