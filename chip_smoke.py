@@ -14,7 +14,8 @@ Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
   2. build    host parser (make) and every CUDA kernel (nvcc), in
-              parallel, from the sources in this checkout
+              parallel, from the sources in this checkout; each kernel
+              function's registers, shared memory and spills (ptxas)
   3. kernels  each kernel call of the frame program (recorded through
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
@@ -22,7 +23,8 @@ Phases, one JSON line each:
               ra1080 with its real DPB references (it holds pure inter,
               CIIP, GPM, BDOF and PROF units), and the recon kernel on
               frame 0 of the intra fixtures (luma, then chroma with
-              CCLM)
+              CCLM); the B frame's small and large MC units, and the
+              largest frame's MC tile bytes (models/vvc/mc_tiles.py)
   4. decode   each fixture decoded on the card; frame MD5s must equal
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
@@ -31,12 +33,14 @@ Phases, one JSON line each:
               the fetch, ra1080 per-stage ms, kernel vs plain ms (CUDA
               events, the launches queued behind a short sleep of the card
               so that the host's Python between them is not timed) on the
-              ra1080 B frame; the recon kernel's time split
+              ra1080 B frame; the inter kernel's time split into its small
+              and large launches, and its wrapper's host ms per call (with
+              the card held, and synced); the recon kernel's time split
               into its placement and wavefront launches, its critical path
               (dependency levels) and us per level on that frame and on
-              ai720's frame 0, every timed recon launch held against the
-              plain version (the race check), and the SM clocks before
-              and after
+              ai720's frame 0; every timed launch of both kernels held
+              against the plain version (for recon, the race check); and
+              the SM clocks before and after
   6. profile  torch.profiler over a ra1080 decode: device busy share and
               device time by kernel
 
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -67,7 +72,6 @@ PATH_KERNELS = {MAIN: KERNELS, "ai720": ("recon",),
 # 32-bit rate, used for the kernels' least-time bounds
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_32BIT_OPS_PER_S = 67e12
-S = 32  # MC tile edge
 
 
 def emit(obj) -> None:
@@ -95,6 +99,8 @@ def _zero_counts():
   for name, mod in _counts().items():
     mod.LAUNCHES[name] = 0
     mod.PLAIN_RUNS[name] = 0
+  for k in _counts()["inter_pred"].CLASS_LAUNCHES:
+    _counts()["inter_pred"].CLASS_LAUNCHES[k] = 0
 
 
 def phase_device(torch):
@@ -141,7 +147,21 @@ def phase_build():
     fail("build", "; ".join(errors))
   emit({"phase": "build", "seconds": time.perf_counter() - t0,
         "seconds_each": times,
-        "ptxas": {k: BUILD_LOG.get(k, {}).get("ptxas", []) for k in KERNELS}})
+        "ptxas": {k: _ptxas(BUILD_LOG.get(k, {}).get("ptxas", []))
+                  for k in KERNELS}})
+
+
+def _ptxas(lines):
+  """nvcc -Xptxas -v lines -> {kernel function: its registers, shared
+  memory and spill lines}."""
+  out, cur = {}, None
+  for ln in lines:
+    m = re.search(r"Compiling entry function '([^']+)'", ln)
+    if m:
+      cur = out.setdefault(m.group(1), [])
+    elif cur is not None:
+      cur.append(ln.split(":", 1)[-1].strip())
+  return out
 
 
 def _walk_calls(name, pick=None):
@@ -175,13 +195,15 @@ def _walk_calls(name, pick=None):
 
 def _unit_counts(fs, h):
   """The frame's luma units by path, and the bytes of its MC tiles
-  (units x channels x S x S int32, both plane kinds)."""
+  (mc_tiles, both plane kinds)."""
+  from ffmpeg_tpu_torch.models.vvc.mc_tiles import nbytes
+
   y = h["ctrl"]["y"]
   inter = y["inter"]
   n_pure = int(y["n_inter"])
-  tiles = len(inter["x0"]) * S * S * 4
+  tiles = nbytes(inter["toff"], 1)
   if fs.chroma_format_idc:
-    tiles += len(h["ctrl"]["c"]["inter"]["x0"]) * 2 * S * S * 4
+    tiles += nbytes(h["ctrl"]["c"]["inter"]["toff"], 2)
   rows = y["intra"]
   n_iu = int(rows["iend"][-1]) if int(y["n_chunks"]) else 0
   return {"poc": fs.poc, "slice_type": fs.slice_type, "pure_inter": n_pure,
@@ -214,30 +236,85 @@ def _plain(name, kw):
 
 def _bytes_moved(name, kw):
   """Each input read once, the output written once (bytes).  For the
-  reference planes, the samples the units' filter windows cover (at most
-  the planes themselves); for the MC tiles, only each unit's w x h
-  samples, the part that inter_pred defines and recon reads."""
+  reference planes, the samples the units read (_ref_samples); the MC
+  tiles, which inter_pred writes and recon reads, hold each unit's w x h
+  samples (mc_tiles)."""
+  from ffmpeg_tpu_torch.models.vvc.mc_tiles import nbytes
+
   inter = kw["inter"]
-  w, h, hyp = _wh_hyp(inter["mat_host"])
+  toff = inter["toff_host"]
   if name == "inter_pred":
     nch = len(kw["refs"])
-    taps = 4 if kw["is_chroma"] else 8
-    win = int((((w + taps - 1) * (h + taps - 1)) * hyp).sum())
-    planes = len(kw["refs"][0]) * kw["H"] * kw["W"]
-    b = nch * min(win, planes) * 4
+    b = _ref_samples(kw) * 4
     b += (inter["mat_host"].nbytes + inter["gslot"].numel() * 4
-          + inter["gwt"].numel() * 4)
-    return b + nch * int((w * h).sum()) * 4       # the units' samples out
+          + inter["gwt"].numel() * 4 + toff.nbytes
+          + inter["small_host"].nbytes + inter["large_host"].nbytes)
+    return b + nbytes(toff, nch)                  # the units' samples out
   intra = kw["intra"]
   nch = kw["res"].shape[0]
   b = kw["res"].numel() * 4 * 2                   # residual in, plane out
   b += intra["mat"].numel() * 4 + intra["ipos"].numel() * 4
   b += inter["mat_host"][:4].nbytes
   if kw["tiles"] is not None:                     # placed and CIIP samples
-    b += nch * int((w * h).sum()) * 4
+    b += nbytes(toff, nch) + toff.nbytes
   if kw.get("cclm") is not None:
     b += kw["cclm"][1].numel() * 4 + 4 * 4 * intra["mat"].shape[1]
   return b
+
+
+def _ref_samples(kw):
+  """Reference samples an inter_pred call must read, each once: the union
+  of the units' reads (per hypothesis the unit uses, its (w + taps - 1) x
+  (h + taps - 1) filter window, and luma PROF's 6x6 ring), rows clamped
+  to the picture and columns clamped or wrapped as the kernel reads them,
+  marked in one mask per distinct plane and channel.  Planes are told
+  apart by their storage, so that list entries naming one picture count
+  once."""
+  import numpy as np
+
+  from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS
+
+  inter = kw["inter"]
+  r = {k: inter["mat_host"][i].astype(np.int64)
+       for i, k in enumerate(INTER_KEYS)}
+  H, W, wrap = kw["H"], kw["W"], kw["wrap"]
+  taps, before, fb = (4, 1, 5) if kw["is_chroma"] else (8, 3, 4)
+  n = len(r["w"])
+  ciip = np.arange(n) >= inter["n_inter"]
+  gpm = r["gpm_part"] > 0
+  need = (gpm | (r["pf"] == 1) | (r["pf"] == 3), gpm | (r["pf"] != 1))
+  six = np.full(n, 6)
+  total = 0
+  for ch in kw["refs"]:
+    ids: dict = {}
+    plane_of = np.array([ids.setdefault(t.data_ptr(), len(ids)) for t in ch])
+    mask = np.zeros((len(ids), H, W), bool)
+    for lx in (0, 1):
+      mvx, mvy = r[f"m{lx}x"], r[f"m{lx}y"]
+      plane = plane_of[np.clip(r[f"r{lx}slot"], 0, len(ch) - 1)]
+      reads = [(need[lx], r["y0"] + (mvy >> fb) - before,
+                r["x0"] + (mvx >> fb) - before, r["w"] + taps - 1,
+                r["h"] + taps - 1, ciip)]
+      if not kw["is_chroma"]:
+        reads.append((need[lx] & (((r["prof"] >> lx) & 1) > 0),
+                      r["y0"] + (mvy >> 4) + ((mvy >> 3) & 1) - 1,
+                      r["x0"] + (mvx >> 4) + ((mvx >> 3) & 1) - 1, six, six,
+                      np.ones(n, bool)))
+      for sel, iy, ix, gw, gh, wraps in reads:
+        for cw, chh in set(zip(gw[sel].tolist(), gh[sel].tolist())):
+          idx = np.flatnonzero(sel & (gw == cw) & (gh == chh))
+          for lo in range(0, len(idx), 1024):
+            u = idx[lo:lo + 1024]
+            ys = np.clip(iy[u, None] + np.arange(chh), 0, H - 1)
+            xs = ix[u, None] + np.arange(cw)
+            if wrap:
+              on = wraps[u, None]
+              xs = np.where(on & (xs < 0), xs + wrap, xs)
+              xs = np.where(on & (xs > W - 1), xs - wrap, xs)
+            xs = np.clip(xs, 0, W - 1)
+            mask[plane[u, None, None], ys[:, :, None], xs[:, None, :]] = True
+    total += int(mask.sum())
+  return total
 
 
 def _wh_hyp(rows):
@@ -333,7 +410,8 @@ def phase_kernels(torch):
   fs, main_calls, records = _walk_calls(MAIN, _every_path)
   units = next(r for r in records if r["poc"] == fs.poc)
   out["frame"] = {"fixture": MAIN, **units,
-                  "mc_units": {label: kw["inter"]["n_mc"]
+                  "mc_units": {label: {k: len(kw["inter"][k + "_host"])
+                                       for k in ("small", "large")}
                                for n, label, kw in main_calls
                                if n == "inter_pred"}}
   calls = {MAIN: main_calls}
@@ -370,6 +448,8 @@ def phase_decode(torch):
     got = _decode_md5s(name, torch)
     counts = _counts()
     launches[name] = {k: m.LAUNCHES[k] for k, m in counts.items()}
+    launches[name]["inter_pred_by_class"] = dict(
+        counts["inter_pred"].CLASS_LAUNCHES)
     plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
@@ -474,6 +554,70 @@ def _recon_runs(kw, want, torch, reps):
   return total, place, wave, sum(not torch.equal(o, want) for o in outs)
 
 
+def _inter_runs(kw, want, torch, reps):
+  """reps calls of the inter kernel on one call's inputs, queued behind
+  _hold_card and timed with CUDA events: per call the whole wrapper's
+  card time, and apart its small and large launches (the wrapper's mark
+  hook records an event before each).  Every output is held against
+  `want`, the plain version's.  Returns (ms per call, small ms, large ms,
+  calls that differ)."""
+  from ffmpeg_tpu_torch.ops.inter import _inter_cuda
+
+  ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for _ in range(reps)]
+  outs = []
+  _hold_card(torch)
+  for e in ev:
+    e[0].record()
+    outs.append(_inter_cuda(**kw, mark=lambda cls, e=e: e[1 + cls].record()))
+    e[3].record()
+  torch.cuda.synchronize()
+  total = ev[0][0].elapsed_time(ev[-1][3]) / reps
+  small = sum(e[1].elapsed_time(e[2]) for e in ev) / reps
+  large = sum(e[2].elapsed_time(e[3]) for e in ev) / reps
+  return total, small, large, sum(not torch.equal(o, want) for o in outs)
+
+
+def _host_ms(fn, torch, reps, held):
+  """Host ms per call of fn: with held, the calls queue behind
+  _hold_card, so they time the host work of enqueueing alone; without,
+  each call is followed by a synchronize, which adds the card's time."""
+  if held:
+    _hold_card(torch)
+  else:
+    torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(reps):
+    fn()
+    if not held:
+      torch.cuda.synchronize()
+  t = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  return t * 1e3 / reps
+
+
+def _time_inter(kw, torch, reps, rounds):
+  """One inter call: ms per call (mean of `rounds` rounds of `reps`
+  calls), its small and large launches apart, the units of each class,
+  the wrapper's host ms per call (card held, and synced), and the calls
+  that differ from the plain version."""
+  from ffmpeg_tpu_torch.ops.inter import inter_pred
+
+  want = _plain("inter_pred", kw)
+  runs = [_inter_runs(kw, want, torch, reps) for _ in range(rounds)]
+  return {"ms": sum(r[0] for r in runs) / rounds,
+          "small_ms": sum(r[1] for r in runs) / rounds,
+          "large_ms": sum(r[2] for r in runs) / rounds,
+          "small_units": len(kw["inter"]["small_host"]),
+          "large_units": len(kw["inter"]["large_host"]),
+          "host_ms_per_call_card_held": _host_ms(
+              lambda: inter_pred(**kw), torch, reps, True),
+          "wall_ms_per_call_synced": _host_ms(
+              lambda: inter_pred(**kw), torch, reps, False),
+          "calls_checked": reps * rounds,
+          "calls_unequal": sum(r[3] for r in runs)}
+
+
 def _time_recon(kw, levels, torch, reps, rounds):
   """One recon call: ms per launch (mean of `rounds` rounds of `reps`
   launches), placement and wavefront ms, us per dependency level of the
@@ -499,32 +643,34 @@ def phase_timing(torch, card, calls, levels):
   out = {"phase": "timing", "card": card, "sm_clocks_before": _sm_clocks(),
          MAIN: _fps(MAIN, torch, traced=True),
          "ai720": _fps("ai720", torch)}
-  kern, plain, recon = {}, {}, {MAIN: {}, "ai720": {}}
+  kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
     if name == "recon":
       recon[MAIN][label] = _time_recon(kw, levels[MAIN][label], torch, 20, 2)
       kern[f"{name}/{label}"] = recon[MAIN][label]["ms"]
     else:
-      k1 = _events_ms(lambda: _kernel(name, kw), torch, 20)
-      k2 = _events_ms(lambda: _kernel(name, kw), torch, 20)
-      kern[f"{name}/{label}"] = (k1 + k2) / 2
+      inter[label] = _time_inter(kw, torch, 20, 2)
+      kern[f"{name}/{label}"] = inter[label]["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
   for name, label, kw in calls["ai720"]:
     recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
                                         20, 1)
-  out["kernel_ms"], out["plain_ms"], out["recon"] = kern, plain, recon
+  out["kernel_ms"], out["plain_ms"] = kern, plain
+  out["inter"], out["recon"] = inter, recon
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
   emit(out)
-  bad = {f"{f} {label}": r["launches_unequal"]
+  bad = {f"recon {f} {label}": r["launches_unequal"]
          for f, rr in recon.items() for label, r in rr.items()
          if r["launches_unequal"]}
+  bad.update({f"inter_pred {label}": r["calls_unequal"]
+              for label, r in inter.items() if r["calls_unequal"]})
   if bad:
-    fail("timing", f"recon launches unequal to the plain version: {bad}")
-  return kern, plain, recon
+    fail("timing", f"launches unequal to the plain version: {bad}")
+  return kern, plain, recon, inter
 
 
 def phase_profile(torch, card):
@@ -586,7 +732,7 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon = phase_timing(torch, card, calls, levels)
+  kern, plain, recon, inter = phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   rows = []
   for name in KERNELS:
@@ -611,6 +757,13 @@ def main() -> int:
       rows[-1]["split_ms"] = {
           label: {k: r[k] for k in ("placement_ms", "wavefront_ms")}
           for label, r in recon[MAIN].items()}
+    else:
+      rows[-1]["launches_by_class"] = {
+          f: launches[f]["inter_pred_by_class"] for f in FIXTURES}
+      rows[-1]["split_ms"] = {
+          label: {k: r[k] for k in ("small_ms", "large_ms", "small_units",
+                                    "large_units")}
+          for label, r in inter.items()}
   emit({"kernels": rows})
   emit({"ok": True, "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),

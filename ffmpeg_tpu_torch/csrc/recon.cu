@@ -13,7 +13,8 @@
 //  1. place_kernel.  One warp per work item, the warps striding over the
 //     items: first each (pure inter unit, channel) of the MC batch, whose
 //     samples clip(tile + residual) over the unit's (h, w) the warp's
-//     lanes write row by row (the tiles come from csrc/inter_pred.cu);
+//     lanes write row by row (the int16 tiles of models/vvc/mc_tiles.py,
+//     written by csrc/inter_pred.cu);
 //     then each intra unit, whose CELL x CELL cells the warp marks
 //     pending (1) in every channel's readiness map.  The wrapper zeroes
 //     the maps, so every cell no intra unit writes is ready from the
@@ -79,7 +80,6 @@
 
 #define MAXS 32               // largest unit dimension
 #define LMAX (5 * MAXS + 16)  // edge vector length at MAXS
-#define TILE 32               // MC tile edge (MC_TILE)
 #define CELL 2                // readiness cell edge (ops/recon.py CELL)
 #define WAVE_WARPS 4          // warps per wavefront block
 #define PLACE_THREADS 256
@@ -109,7 +109,10 @@ struct Params {
   int ucap, n_units;
   const int* ictrl;  // (NUM_INTER_KEYS, n_mc) MC batch; x0, y0, w, h first
   int n_mc, n_inter;
-  const int* tiles;  // (n_mc, nch, TILE, TILE) MC prediction tiles
+  const short* tiles;  // (nch, T) MC prediction samples, unit u's w * h
+                       // row-major at toff[u] (models/vvc/mc_tiles.py)
+  const int* toff;   // (n_mc + 1,)
+  long long T;
   const int* ipos;   // (ucap,) row of a CIIP unit in the MC batch
   const int* res;    // (nch, Hp, Wp) residual
   int* plane;        // (nch, Hp, Wp) output, pre-filled with mid grey
@@ -596,12 +599,17 @@ __device__ void recon_unit(const Params& p, WarpSmem& sm, int u, int ch,
     for (int k = lane; k < n; k += 32)
       sm.aux[k] = __ldg(blk + (k >> lw) * p.Wd + (k & (w - 1)));
   } else if (cw > 0) {
-    const int* tile = p.tiles
-        + ((size_t)clampi(__ldg(p.ipos + u), 0, p.n_mc - 1) * p.nch + ch)
-          * TILE * TILE;
+    // the MC unit's samples over the CIIP unit's (h, w), 0 outside the
+    // MC unit
+    const int m = clampi(__ldg(p.ipos + u), 0, p.n_mc - 1);
+    const int mw = __ldg(p.ictrl + 2 * p.n_mc + m);
+    const int mh = __ldg(p.ictrl + 3 * p.n_mc + m);
+    const short* tile = p.tiles + (size_t)ch * p.T + __ldg(p.toff + m);
 #pragma unroll 4
-    for (int k = lane; k < n; k += 32)
-      sm.aux[k] = __ldg(tile + (k >> lw) * TILE + (k & (w - 1)));
+    for (int k = lane; k < n; k += 32) {
+      const int y = k >> lw, x = k & (w - 1);
+      sm.aux[k] = y < mh && x < mw ? __ldg(tile + y * mw + x) : 0;
+    }
   }
   int sl[4];
   if (mc == MC_CCLM) {
@@ -703,15 +711,14 @@ __global__ void __launch_bounds__(PLACE_THREADS) place_kernel(Params p) {
       const int y0 = __ldg(p.ictrl + 1 * p.n_mc + u);
       const int w = __ldg(p.ictrl + 2 * p.n_mc + u);
       const int h = __ldg(p.ictrl + 3 * p.n_mc + u);
-      const int* tile = p.tiles + ((size_t)u * p.nch + ch) * TILE * TILE;
+      const short* tile = p.tiles + (size_t)ch * p.T + __ldg(p.toff + u);
       const int* res = p.res + ch * hw + y0 * p.Wp + x0;
       int* plane = p.plane + ch * hw + y0 * p.Wp + x0;
 #pragma unroll 4
       for (int k = lane; k < w * h; k += 32) {
         const int y = k / w, x = k - y * w;
         __stcg(plane + y * p.Wp + x,
-               clampi(__ldg(tile + y * TILE + x) + __ldg(res + y * p.Wp + x),
-                      0, maxv));
+               clampi(__ldg(tile + k) + __ldg(res + y * p.Wp + x), 0, maxv));
       }
     } else {
       const int u = it - n_place;
@@ -750,20 +757,22 @@ static cudaError_t grid_for(const void* kernel, int threads, long items,
 // ticket counter, zeroed.
 extern "C" int recon_launch(
     const int* ctrl, int num_keys, int ucap, int n_units, const int* ictrl,
-    int num_inter_keys, int n_mc, int n_inter, const int* tiles,
-    const int* ipos, const int* res, int* plane, int nch, int Hp, int Wp,
+    int num_inter_keys, int n_mc, int n_inter, const short* tiles,
+    const int* toff, long long T, const int* ipos, const int* res,
+    int* plane, int nch, int Hp, int Wp,
     const int* dsy, int Hd, int Wd, const int* luma, int Hl, int Wl,
     const int* lfilt,
     const int* mip, const int* div, int maxs, int is_chroma, int bit_depth,
     int* scratch, int stage, void* stream) {
   if (num_keys != NUM_KEYS || num_inter_keys < 4 || maxs < 1 || maxs > MAXS
       || nch < 1 || n_units < 0 || n_units > ucap || n_inter < 0
-      || n_inter > n_mc || (n_mc > 0 && !tiles) || Hp % CELL || Wp % CELL
+      || n_inter > n_mc || (n_mc > 0 && (!tiles || !toff)) || T < 0
+      || Hp % CELL || Wp % CELL
       || !scratch || stage < 0 || stage > 1)
     return (int)cudaErrorInvalidValue;
   const int Hc = Hp / CELL, Wc = Wp / CELL;
-  Params p{ctrl, ucap, n_units, ictrl, n_mc, n_inter, tiles, ipos, res,
-           plane, Hp, Wp, dsy, Hd, Wd, luma, Hl, Wl, lfilt, mip, div, maxs,
+  Params p{ctrl, ucap, n_units, ictrl, n_mc, n_inter, tiles, toff, T, ipos,
+           res, plane, Hp, Wp, dsy, Hd, Wd, luma, Hl, Wl, lfilt, mip, div, maxs,
            is_chroma, bit_depth, nch, scratch,
            scratch + (size_t)nch * Hc * Wc, Hc, Wc};
   const long items = stage == 0 ? (long)n_inter * nch + n_units

@@ -5,7 +5,8 @@
 int32 tensors.  Counts the host loops need stay Python ints.  Each
 layout's control rows travel as one (len(KEYS), n) matrix whose rows
 are exposed under their names, with a host copy kept for the checks
-and the chunk bounds.
+and the chunk bounds (so do the MC batch's tile offsets and work
+lists).
 """
 from __future__ import annotations
 
@@ -40,12 +41,16 @@ def _intra(intra: dict, n_chunks: int, device) -> dict:
 
 
 def _inter(inter: dict, n_inter: int, device) -> dict:
-  """The MC batch: n_mc rows, the first n_inter of them pure inter."""
+  """The MC batch: n_mc rows, the first n_inter of them pure inter; its
+  tiles hold T samples per channel (mc_tiles)."""
   out = _rows(inter, INTER_KEYS, device)
   out["n_inter"] = n_inter
   out["n_mc"] = out["mat"].shape[1]
-  out["gwt"] = _t(inter["gwt"], device)
-  out["gslot"] = _t(inter["gslot"], device)
+  for k in ("gwt", "gslot", "toff", "small", "large"):
+    out[k] = _t(inter[k], device)
+  for k in ("toff", "small", "large"):
+    out[k + "_host"] = np.asarray(inter[k], np.int32)
+  out["T"] = int(out["toff_host"][-1])
   return out
 
 

@@ -20,6 +20,7 @@ import numpy as np
 from ...ops.tables import VVC_TABLES
 from ...ops.transform import BUCKET_ROWS, LEVEL_SCALE, dequant_scale_shift
 from .host import CHUNK_CAP, FrameSyntax, _get_lib
+from .mc_tiles import MC_TILE, offsets
 from .recon import CTRL_KEYS, _round_up
 
 # TU size classes per plane kind (w, h): the port's residual
@@ -37,8 +38,9 @@ INTER_KEYS = ("x0", "y0", "w", "h", "pf", "m0x", "m0y", "m1x", "m1y",
               "prof", "pdhx0", "pdhy0", "pdvx0", "pdvy0",
               "pdhx1", "pdhy1", "pdvx1", "pdvy1", "bdof")
 
-# MC prediction tiles are S x S: every MC unit is at most 32 x 32
-MC_TILE = 32
+# the inter kernel's small units: at most SMALL_AREA samples, counted
+# over at least 4 x 4 (csrc/inter_pred.cu SMALL_AREA)
+SMALL_AREA = 64
 
 # control rows the intra pass reads (the JAX frame program's INTRA_KEYS,
 # with the CIIP motion and blend rows)
@@ -309,13 +311,27 @@ def _gpm_weight_blocks(inter, ss, S=MC_TILE):
   return gwt, gslot
 
 
+def mc_size_classes(w, h, bdof):
+  """The inter kernel's two work lists over an MC batch's rows (int32
+  row indices): small, the units of at most SMALL_AREA samples (over
+  at least 4 x 4) without BDOF, in row order; large, the rest, the
+  largest first.  bdof: the luma batch's bdof row (0 for chroma)."""
+  area = np.maximum(w, 4) * np.maximum(h, 4)
+  small = (area <= SMALL_AREA) & ~(np.asarray(bdof) > 0)
+  large = np.flatnonzero(~small)
+  large = large[np.argsort(-area[large], kind="stable")]
+  return np.flatnonzero(small).astype(np.int32), large.astype(np.int32)
+
+
 def _layout_ctrl(mat, n_l0: int, ss: int):
   """The two layouts of one (kNumKeys, n_units) control matrix:
 
     inter: the MC batch, dict of (n_mc,) INTER_KEYS rows: the n_inter
       pure inter units (chunk < 0; no intra-frame sample deps), then
       the CIIP units, whose MC tile the intra pass blends.  Plus the
-      GPM weight tiles `gwt` and the per-row index `gslot`.
+      GPM weight tiles `gwt` and the per-row index `gslot`, the tile
+      offsets `toff` (mc_tiles) and the kernel's work lists `small` and
+      `large` (mc_size_classes).
     intra: dict of (n_iu + CHUNK_CAP,) arrays, units contiguous in
       chunk order, plus ioff/iend (n_chunks,): chunk s's units live at
       [ioff[s], iend[s]), at most CHUNK_CAP of them.  The CHUNK_CAP
@@ -336,6 +352,9 @@ def _layout_ctrl(mat, n_l0: int, ss: int):
   inter = {k: np.ascontiguousarray(keys[k][mc_idx], np.int32)
            for k in INTER_KEYS}
   inter["gwt"], inter["gslot"] = _gpm_weight_blocks(inter, ss)
+  inter["toff"] = offsets(inter["w"], inter["h"])
+  inter["small"], inter["large"] = mc_size_classes(
+      inter["w"], inter["h"], inter["bdof"] if ss == 0 else 0)
   ipos = np.zeros(mat.shape[1], np.int32)
   ipos[mc_idx] = np.arange(len(mc_idx), dtype=np.int32)
 

@@ -2,20 +2,22 @@
 plain version.
 
 Every unit of the MC batch (`inputs._layout_ctrl`: the pure inter units,
-then the CIIP units) gets its clipped S x S prediction tile (S =
-MC_TILE = 32) per channel: both hypotheses through the separable
-8-tap luma / 4-tap chroma filter (AMVR half-pel and affine 6-tap banks
-through `hpel`), reference wraparound, PROF, BDOF, uni/bi rounding,
-explicit weights and BCW (Cr takes the second weight set), and the GPM
-blend.  Samples outside the unit's (h, w) are 0.  The recon pass places
-the pure units' tiles and blends the CIIP units' tiles.
+then the CIIP units) gets its clipped w x h prediction per channel, in
+the MC tile format of `models.vvc.mc_tiles`: both hypotheses through
+the separable 8-tap luma / 4-tap chroma filter (AMVR half-pel and affine
+6-tap banks through `hpel`), reference wraparound, PROF, BDOF, uni/bi
+rounding, explicit weights and BCW (Cr takes the second weight set), and
+the GPM blend.  The recon pass places the pure units' samples and blends
+the CIIP units' samples.
 
 `inter_pred` is the entry point.  A CUDA tensor launches the kernel
-(csrc/inter_pred.cu, one launch per plane kind per frame); a CPU
-tensor runs `inter_pred_plain`, the batched torch port of the JAX frame
-program's `_inter_pred_unit` (with `_mc_block`, `_hwrap`,
-`_prof_refine` and `_bdof_bi`), which is also the kernel's oracle.
-All of it is int32 arithmetic: the two agree bit for bit.
+(csrc/inter_pred.cu, up to two launches per plane kind per frame: the
+small units of `inputs.mc_size_classes` one per half-warp, then the
+large ones one per 128-thread block); a CPU tensor runs `inter_pred_plain_kind`, the
+batched torch port of the JAX frame program's `_inter_pred_unit` (with
+`_mc_block`, `_hwrap`, `_prof_refine` and `_bdof_bi`) on S x S tiles,
+packed at the end, which is also the kernel's oracle.  All of it is
+int32 arithmetic: the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ import os
 import numpy as np
 import torch
 
-from ..models.vvc.inputs import INTER_KEYS, MC_TILE
+from ..models.vvc import mc_tiles
+from ..models.vvc.inputs import INTER_KEYS
+from ..models.vvc.mc_tiles import MC_TILE
 from .tables import VVC_TABLES, on_device
 
 INTERP_LUMA = VVC_TABLES["interp_luma"].astype(np.int32)      # (3, 16, 8)
@@ -37,7 +41,9 @@ _CR_WEIGHTS = (("w0", "w0b"), ("w1", "w1b"), ("wo0", "wo0b"), ("wo1", "wo1b"))
 # units per batch of the plain version (bounds its gather indices)
 _PLAIN_BATCH = 2048
 
+# kernel launches (one per size class that has units), and apart by class
 LAUNCHES = {"inter_pred": 0}
+CLASS_LAUNCHES = {"small": 0, "large": 0}
 PLAIN_RUNS = {"inter_pred": 0}
 
 _I32 = torch.int32
@@ -268,7 +274,8 @@ def inter_pred_plain(refs, inter: dict, *, is_chroma: bool, bit_depth: int,
   picture-size planes [L0..., L1...]; inter: the converted MC batch
   (convert.inputs_from_numpy); cr: Cr, which takes the second weight
   set.  wrap: the channel's wraparound offset (0 = edge clamp).
-  Returns (n_mc, S, S) int32, 0 outside each unit.
+  Returns the channel's (T,) int16 tiles (mc_tiles), computed as
+  (n_mc, S, S) tiles and packed.
 
   Wraparound follows the JAX frame program's reads: its pure inter
   units clamp the MC window and the BDOF ring to the picture (the
@@ -290,9 +297,9 @@ def inter_pred_plain(refs, inter: dict, *, is_chroma: bool, bit_depth: int,
     out.append(_pred_units(R, c, inter["gwt"],
                            inter["gslot"][lo:lo + _PLAIN_BATCH],
                            is_chroma=is_chroma, bit_depth=bit_depth))
-  if not out:
-    return torch.zeros((0, MC_TILE, MC_TILE), dtype=_I32, device=refs.device)
-  return torch.cat(out)
+  padded = (torch.cat(out) if out else
+            torch.zeros((0, MC_TILE, MC_TILE), dtype=_I32, device=refs.device))
+  return mc_tiles.pack(padded, inter["toff"], inter["w"], inter["h"])
 
 
 # ----------------------------------------------------------------------
@@ -303,6 +310,9 @@ def inter_pred_plain(refs, inter: dict, *, is_chroma: bool, bit_depth: int,
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "inter_pred.cu")
 _lib = None
+
+# limits of the kernel's parameter block (csrc/inter_pred.cu)
+MAX_NCH, MAX_REFS = 2, 32
 
 
 def _get_kernel():
@@ -315,11 +325,14 @@ def _get_kernel():
     lib.inter_pred_launch.restype = ctypes.c_int
     lib.inter_pred_launch.argtypes = [
         p, i, i, i,         # ctrl (NK, n_mc), NK, n_mc, n_inter
-        p, i, i,            # ref plane pointers (nch, n_refs), n_refs, nch
+        p, i, i,            # work list, its length, class (0 small,
+                            # 1 large)
+        p, i, i,            # host array of ref plane pointers (nch,
+                            # n_refs), n_refs, nch
         i, i, i,            # picture H, W, plane row stride
         p, p,               # GPM weight tiles, gslot
-        p, p,               # luma (3, 16, 8) and chroma (32, 4) filters
-        p,                  # out (n_mc, nch, S, S)
+        p, ctypes.c_longlong,  # toff (n_mc + 1,), T
+        p,                  # out (nch, T) int16
         i, i, i,            # is_chroma, bit_depth, wrap
         p]                  # stream
     lib.inter_pred_error_string.restype = ctypes.c_char_p
@@ -340,16 +353,35 @@ def _check(t, name, shape=None):
                      f"expected {tuple(shape)}")
 
 
-def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap):
+def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap, mark=None):
+  """The kernel's launches on the current stream: the small units, then
+  the large ones (a class with no unit is not launched), into one
+  (nch, T) output.  mark(cls), if given, is called just before each (0
+  small, 1 large), to record a CUDA event and time the two apart.  The
+  host checks here are O(1): the kernel checks each unit against its
+  class, its toff and T, and traps on a malformed batch."""
   nch, n_refs = len(refs), len(refs[0])
   n_mc = inter["n_mc"]
   mat = inter["mat"]
   dev = mat.device
+  if not 1 <= nch <= MAX_NCH or not 1 <= n_refs <= MAX_REFS:
+    raise ValueError(f"inter_pred: {nch} channels of {n_refs} references "
+                     f"(at most {MAX_NCH} of {MAX_REFS})")
   _check(mat, "ctrl", (len(INTER_KEYS), n_mc))
   _check(inter["gslot"], "gslot", (n_mc,))
   _check(inter["gwt"], "gwt")
   if inter["gwt"].shape[1:] != (MC_TILE, MC_TILE):
     raise ValueError(f"inter_pred: gwt has shape {tuple(inter['gwt'].shape)}")
+  _check(inter["toff"], "toff", (n_mc + 1,))
+  n_list = {k: len(inter[k + "_host"]) for k in ("small", "large")}
+  for k, n in n_list.items():
+    _check(inter[k], k, (n,))
+  if sum(n_list.values()) != n_mc:
+    raise ValueError(f"inter_pred: the small and large lists hold "
+                     f"{sum(n_list.values())} units of {n_mc}")
+  T = inter["T"]
+  if T != int(inter["toff_host"][-1]):
+    raise ValueError(f"inter_pred: T {T} is not toff[-1]")
   Hp, Wp = refs[0][0].shape
   if Hp < H or Wp < W:
     raise ValueError(f"inter_pred: reference planes {Hp}x{Wp} are smaller "
@@ -359,39 +391,40 @@ def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap):
       raise ValueError("inter_pred: channels differ in reference count")
     for r in ch:
       _check(r, "reference plane", (Hp, Wp))
-  ptrs = torch.tensor([[r.data_ptr() for r in ch] for ch in refs],
-                      dtype=torch.int64).to(dev)
-  out = torch.empty((n_mc, nch, MC_TILE, MC_TILE), dtype=torch.int32,
-                    device=dev)
-  luma_f = on_device("interp_luma", dev,
-                     lambda: torch.from_numpy(INTERP_LUMA.copy()))
-  chroma_f = on_device("interp_chroma0", dev,
-                       lambda: torch.from_numpy(INTERP_CHROMA[0].copy()))
+  ptrs = (ctypes.c_longlong * (nch * n_refs))(
+      *[r.data_ptr() for ch in refs for r in ch])
+  out = torch.empty((nch, T), dtype=mc_tiles.DTYPE, device=dev)
   lib = _get_kernel()
-  rc = lib.inter_pred_launch(
-      mat.data_ptr(), len(INTER_KEYS), n_mc, inter["n_inter"],
-      ptrs.data_ptr(), n_refs, nch,
-      H, W, Wp, inter["gwt"].data_ptr(), inter["gslot"].data_ptr(),
-      luma_f.data_ptr(), chroma_f.data_ptr(), out.data_ptr(),
-      int(is_chroma), bit_depth, wrap,
-      torch.cuda.current_stream(dev).cuda_stream)
-  if rc != 0:
-    raise RuntimeError("inter_pred kernel launch failed: "
-                       f"{lib.inter_pred_error_string(rc).decode()}")
-  LAUNCHES["inter_pred"] += 1
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  for cls, key in enumerate(("small", "large")):
+    if mark is not None:
+      mark(cls)
+    if not n_list[key]:
+      continue
+    rc = lib.inter_pred_launch(
+        mat.data_ptr(), len(INTER_KEYS), n_mc, inter["n_inter"],
+        inter[key].data_ptr(), n_list[key], cls,
+        ptrs, n_refs, nch, H, W, Wp, inter["gwt"].data_ptr(),
+        inter["gslot"].data_ptr(), inter["toff"].data_ptr(), T,
+        out.data_ptr(), int(is_chroma), bit_depth, wrap, stream)
+    if rc != 0:
+      raise RuntimeError("inter_pred kernel launch failed: "
+                         f"{lib.inter_pred_error_string(rc).decode()}")
+    LAUNCHES["inter_pred"] += 1
+    CLASS_LAUNCHES[key] += 1
   return out
 
 
 def inter_pred(refs, inter: dict, *, H: int, W: int, is_chroma: bool,
                bit_depth: int, wrap: int = 0):
-  """Prediction tiles of the MC batch of one plane kind.
+  """Prediction samples of the MC batch of one plane kind.
 
   refs: per channel (1 for luma, 2 for Cb+Cr), the frame's reference
   planes [L0..., L1...] as padded (Hp, Wp) int32 DPB planes; reads
   clamp to the H x W picture (or wrap by `wrap` columns).  inter: the
-  converted MC batch.  Returns (n_mc, nch, S, S) int32.  A CUDA batch
-  launches the kernel; a CPU batch runs the plain version; nothing
-  falls back from one to the other."""
+  converted MC batch.  Returns its (nch, T) int16 tiles (mc_tiles).  A
+  CUDA batch launches the kernel; a CPU batch runs the plain version;
+  nothing falls back from one to the other."""
   dev = inter["mat"].device
   if dev.type == "cuda":
     return _inter_cuda(refs, inter, H=H, W=W, is_chroma=is_chroma,
@@ -410,4 +443,4 @@ def inter_pred_plain_kind(refs, inter: dict, *, H: int, W: int,
       inter_pred_plain(torch.stack([r[:H, :W] for r in ch]), inter,
                        is_chroma=is_chroma, bit_depth=bit_depth, wrap=wrap,
                        cr=is_chroma and i == 1)
-      for i, ch in enumerate(refs)], dim=1)
+      for i, ch in enumerate(refs)])

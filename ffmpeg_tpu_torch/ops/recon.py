@@ -30,8 +30,9 @@ import os
 import numpy as np
 import torch
 
+from ..models.vvc import mc_tiles
 from ..models.vvc.host import CHUNK_CAP
-from ..models.vvc.inputs import INTER_KEYS, INTRA_KEYS, MC_TILE
+from ..models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 from ..models.vvc.recon import MC_CCLM, MC_MIP
 from . import intra as I
 
@@ -149,7 +150,8 @@ def _intra_units(plane, res_plane, c, present, *, maxs, is_chroma, bit_depth,
   `present` holds the host's view of which paths the chunk's live
   units take (mode classes, smoothing, projections, PDPC, CIIP); paths
   no live unit takes are skipped — their results would be discarded.
-  tiles: this channel's (n_mc, S, S) MC tiles, read by CIIP units."""
+  tiles: this channel's MC tiles as (n_mc, S, S) blocks with zeros
+  outside each unit (mc_tiles.unpack), read by CIIP units."""
   maxv = (1 << bit_depth) - 1
   mid = 1 << (bit_depth - 1)
   _, OFF = I.edge_len(maxs)
@@ -249,8 +251,8 @@ def recon_plane_plain(res_plane, intra: dict, n_chunks: int, *, maxs: int,
   only the units in [ioff[s], iend[s]) with w > 0; the window's tail
   belongs to chunk s+1 and is reconstructed there.
   cclm: (reconstructed luma plane, cclm_dsy_plane of it) or None.
-  tiles: this channel's (n_mc, S, S) MC tiles (ops.inter.inter_pred),
-  or None for a frame without MC units."""
+  tiles: this channel's (T,) row of the MC tiles (ops.inter.inter_pred,
+  mc_tiles), or None for a frame without MC units."""
   PLAIN_RUNS["recon"] += 1
   Hp, Wp = res_plane.shape
   dev = res_plane.device
@@ -258,8 +260,11 @@ def recon_plane_plain(res_plane, intra: dict, n_chunks: int, *, maxs: int,
   plane = torch.full((Hp * Wp + 1,), 1 << (bit_depth - 1), dtype=torch.int32,
                      device=dev)
   n_inter = inter["n_inter"] if inter is not None else 0
+  # the MC tiles as (n_mc, S, S) blocks, zeros outside each unit
+  blocks = None if tiles is None else mc_tiles.unpack(
+      tiles, inter["toff"], inter["w"], inter["h"])
   if n_inter:
-    S = MC_TILE
+    S = blocks.shape[-1]
     c = {k: inter[k][:n_inter] for k in ("x0", "y0", "w", "h")}
     d = torch.arange(S, dtype=torch.int32, device=dev)
     inside = ((d[None, :, None] < c["h"][:, None, None])
@@ -267,7 +272,7 @@ def recon_plane_plain(res_plane, intra: dict, n_chunks: int, *, maxs: int,
     at = ((c["y0"][:, None, None] + d[None, :, None]) * Wp
           + c["x0"][:, None, None] + d[None, None, :])
     res = res_plane.reshape(-1)[torch.where(inside, at, 0).long()]
-    blks = (tiles[:n_inter] + res).clamp(0, maxv)
+    blks = (blocks[:n_inter] + res).clamp(0, maxv)
     _scatter(plane, Wp, blks, c, torch.ones_like(c["w"], dtype=torch.bool), S)
   lanes = torch.arange(CHUNK_CAP, dtype=torch.int32, device=dev)
   ioff, iend = intra["ioff_host"], intra["iend_host"]
@@ -278,7 +283,7 @@ def recon_plane_plain(res_plane, intra: dict, n_chunks: int, *, maxs: int,
     view = plane[:Hp * Wp].view(Hp, Wp)
     blks = _intra_units(view, res_plane, c, _present(rows[:, off:end]),
                         maxs=maxs, is_chroma=is_chroma, bit_depth=bit_depth,
-                        cclm=cclm, tiles=tiles)
+                        cclm=cclm, tiles=blocks)
     _scatter(plane, Wp, blks, c, (off + lanes < end) & (c["w"] > 0), maxs)
   return plane[:Hp * Wp].view(Hp, Wp).clone()
 
@@ -304,7 +309,8 @@ def _get_kernel():
     lib.recon_launch.argtypes = [
         p, i, i, i,         # ctrl (NK, ucap), NK, ucap, n_units
         p, i, i, i,         # MC batch ctrl (NKI, n_mc), NKI, n_mc, n_inter
-        p, p,               # MC tiles (n_mc, nch, S, S), ipos (ucap,)
+        p, p, ctypes.c_longlong,  # MC tiles (nch, T) int16, toff, T
+        p,                  # ipos (ucap,)
         p, p, i, i, i,      # res, plane (nch, Hp, Wp), nch, Hp, Wp
         p, i, i,            # dsy (Hd, Wd)
         p, i, i,            # luma (Hl, Wl)
@@ -319,11 +325,11 @@ def _get_kernel():
   return _lib
 
 
-def _check(t, name, shape=None):
+def _check(t, name, shape=None, dtype=torch.int32):
   if t.device.type != "cuda":
     raise ValueError(f"recon: {name} must be a CUDA tensor")
-  if t.dtype != torch.int32:
-    raise ValueError(f"recon: {name} must be int32, got {t.dtype}")
+  if t.dtype != dtype:
+    raise ValueError(f"recon: {name} must be {dtype}, got {t.dtype}")
   if not t.is_contiguous():
     raise ValueError(f"recon: {name} must be contiguous")
   if shape is not None and tuple(t.shape) != tuple(shape):
@@ -359,7 +365,8 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
   n_mc, n_inter = inter["n_mc"], inter["n_inter"]
   _check(inter["mat"], "MC batch ctrl", (len(INTER_KEYS), n_mc))
   if n_mc:
-    _check(tiles, "tiles", (n_mc, nch, MC_TILE, MC_TILE))
+    _check(inter["toff"], "toff", (n_mc + 1,))
+    _check(tiles, "tiles", (nch, inter["T"]), mc_tiles.DTYPE)
   plane = torch.full((nch, Hp, Wp), 1 << (bit_depth - 1), dtype=torch.int32,
                      device=dev)
   if n_units == 0 and n_inter == 0:
@@ -381,7 +388,9 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
   lib = _get_kernel()
   args = (mat.data_ptr(), len(INTRA_KEYS), ucap, n_units,
           inter["mat"].data_ptr(), len(INTER_KEYS), n_mc, n_inter,
-          tiles.data_ptr() if n_mc else None, intra["ipos"].data_ptr(),
+          tiles.data_ptr() if n_mc else None,
+          inter["toff"].data_ptr() if n_mc else None, inter["T"],
+          intra["ipos"].data_ptr(),
           res.data_ptr(), plane.data_ptr(), nch, Hp, Wp,
           dsy_ptr, Hd, Wd, luma_ptr, Hl, Wl,
           ftab.data_ptr(), bank.data_ptr(), div.data_ptr(),
@@ -405,9 +414,9 @@ def recon_plane(res, intra: dict, n_chunks: int, inter: dict, tiles, *,
   res: (nch, Hp, Wp) int32 residual planes (nch=1 luma, 2 for Cb+Cr,
   which share the chroma control rows).  intra, inter: the converted
   intra layout and MC batch (convert.inputs_from_numpy).  tiles: the
-  MC batch's (n_mc, nch, S, S) prediction tiles (ops.inter.inter_pred),
-  or None when n_mc is 0.  cclm: (luma plane, dsy plane) for chroma
-  frames with CCLM units.  Returns (nch, Hp, Wp) int32.
+  MC batch's (nch, T) int16 prediction tiles (ops.inter.inter_pred,
+  mc_tiles), or None when n_mc is 0.  cclm: (luma plane, dsy plane)
+  for chroma frames with CCLM units.  Returns (nch, Hp, Wp) int32.
   A CUDA tensor launches the kernel; a CPU tensor runs the plain
   version; nothing falls back from one to the other."""
   n_units = int(intra["iend_host"][-1]) if n_chunks else 0
@@ -430,5 +439,5 @@ def recon_plane_plain_kind(res, intra: dict, n_chunks: int, inter: dict,
   return torch.stack([recon_plane_plain(
       res[ch], intra, n_chunks, maxs=maxs, is_chroma=is_chroma,
       bit_depth=bit_depth, cclm=cclm, inter=inter,
-      tiles=tiles[:, ch] if tiles is not None else None)
+      tiles=tiles[ch] if tiles is not None else None)
       for ch in range(res.shape[0])])

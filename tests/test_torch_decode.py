@@ -16,6 +16,7 @@ conftest stays out):
 """
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -257,6 +258,7 @@ def test_ciip_tile_index_checked_by_recon():
   from ffmpeg_tpu_torch.models.vvc.convert import _inter, _intra
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
   from ffmpeg_tpu_torch.ops.recon import recon_plane
+  from torch_mc_rows import batch
 
   rows = {k: np.zeros(33, np.int32) for k in (*INTRA_KEYS, "ipos")}
   rows["w"][0] = rows["h"][0] = 8
@@ -265,10 +267,11 @@ def test_ciip_tile_index_checked_by_recon():
   rows["ioff"] = np.array([0], np.int32)
   rows["iend"] = np.array([1], np.int32)
   intra = _intra(rows, 1, "cpu")
-  batch = {k: np.zeros(1, np.int32) for k in INTER_KEYS}
-  batch["gwt"], batch["gslot"] = np.zeros((1, 32, 32)), np.zeros(1)
-  inter = _inter(batch, 0, "cpu")
-  tiles = torch.zeros((1, 1, 32, 32), dtype=torch.int32)
+  mc = {k: np.zeros(1, np.int32) for k in INTER_KEYS}
+  mc["w"][0] = mc["h"][0] = 8
+  inter = _inter(batch(mc, np.zeros((1, 32, 32)), np.zeros(1), False), 0,
+                 "cpu")
+  tiles = torch.zeros((1, 64), dtype=torch.int16)
   with pytest.raises(ValueError, match="CIIP tile index"):
     recon_plane(torch.zeros((1, 64, 64), dtype=torch.int32), intra, 1, inter,
                 tiles, maxs=32, is_chroma=False, bit_depth=8)
@@ -368,6 +371,13 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1):
   launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES}
   called = set()
 
+  def per_call(name, kw):
+    """Launches counted per call: recon 1; inter_pred 1 per size class
+    that has units."""
+    if name == "recon":
+      return 1
+    return sum(len(kw["inter"][k + "_host"]) > 0 for k in ("small", "large"))
+
   def check(name, label, kw):
     kernel, plain = KERNELS[name]
     want = plain(**kw)
@@ -375,7 +385,7 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1):
     for i in range(repeats):
       got = kernel(**kw)
       assert torch.equal(got, want), f"{name} {label} launch {i}"
-    assert launches[name][name] == before + repeats
+    assert launches[name][name] == before + repeats * per_call(name, kw)
     called.add(name)
     return got
 
@@ -400,6 +410,90 @@ def test_recon_kernel_repeats_match_plain_on_card(cuda, name, n_frames):
   ai720: frame 0) launched 20 times, each equal to the plain version."""
   assert "recon" in _kernels_vs_plain(_read(name), cuda, n_frames,
                                       repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("chan", ["y", "cb", "cr"])
+@pytest.mark.parametrize("wrap", [0, 1])
+def test_inter_kernel_matches_plain_random(cuda, bd, chan, wrap):
+  """The inter-prediction kernel against its plain version on seeded
+  random MC batches with every mode (tests/torch_mc_rows.py): Cr through
+  a two-channel call, wraparound on and off; pure inter rows, then CIIP
+  rows; small and large units both launched."""
+  from ffmpeg_tpu_torch.models.vvc.convert import _inter
+  from ffmpeg_tpu_torch.ops import inter as P
+  from torch_mc_rows import batch, random_rows
+
+  rng = np.random.default_rng(1000 * bd + 10 * ("y", "cb", "cr").index(chan)
+                              + wrap)
+  is_chroma = chan != "y"
+  H, W, n_refs = (24, 40, 3) if is_chroma else (48, 80, 3)
+  refs = [[torch.from_numpy(rng.integers(0, 1 << bd, (H, W)).astype(
+      np.int32)).to(cuda) for _ in range(n_refs)]
+          for _ in range(2 if chan == "cr" else 1)]
+  rows, gwt, gslot = random_rows(rng, 192, H, W, n_refs, is_chroma, bd)
+  inter = _inter(batch(rows, gwt, gslot, is_chroma), 128, cuda)
+  kw = dict(H=H, W=W, is_chroma=is_chroma, bit_depth=bd,
+            wrap=W - 8 if wrap else 0)
+  want = P.inter_pred_plain_kind(refs, inter, **kw)
+  before = dict(P.CLASS_LAUNCHES)
+  got = P.inter_pred(refs, inter, **kw)
+  assert torch.equal(got, want)
+  assert all(P.CLASS_LAUNCHES[k] == before[k] + 1 for k in before)
+
+
+# a malformed MC batch, made from a good one: the kernel traps on it
+MALFORMED = ("large-unit-in-small-list", "toff-shifted")
+
+_MALFORMED_SCRIPT = """
+import os
+import sys
+import numpy as np
+import torch
+from ffmpeg_tpu_torch.models.vvc.convert import _inter
+from ffmpeg_tpu_torch.models.vvc.inputs import SMALL_AREA
+from ffmpeg_tpu_torch.ops import inter as P
+from torch_mc_rows import batch, random_rows
+
+rng = np.random.default_rng(7)
+H, W = 48, 80
+refs = [[torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.int32))
+         .cuda() for _ in range(3)]]
+rows, gwt, gslot = random_rows(rng, 192, H, W, 3, False, 8)
+b = batch(rows, gwt, gslot, False)
+area = np.maximum(b["w"], 4) * np.maximum(b["h"], 4)
+if sys.argv[1] == "large-unit-in-small-list":
+  big = int(np.flatnonzero(area > SMALL_AREA)[0])
+  b["small"] = np.append(b["small"], big).astype(np.int32)
+  b["large"] = b["large"][b["large"] != big]
+else:
+  b["toff"] = b["toff"].copy()
+  b["toff"][1:-1] += 1
+inter = _inter(b, 128, "cuda")
+try:
+  P.inter_pred(refs, inter, H=H, W=W, is_chroma=False, bit_depth=8)
+  torch.cuda.synchronize()
+except RuntimeError as e:
+  print("failed:", str(e).splitlines()[0], flush=True)
+  os._exit(3)  # no teardown in the failed CUDA context
+sys.exit(0)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("broken", MALFORMED)
+def test_inter_kernel_traps_malformed_batch(cuda, broken):
+  """The kernel checks each unit against its class and the tile offsets
+  (the wrapper's host checks are O(1)): a unit too large for the small
+  class, or toff that is not the prefix sum of w * h, makes the launch
+  fail instead of writing outside the unit's buffers.  A trap ends the
+  CUDA context, so each case runs in a process of its own."""
+  env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+      [ROOT, os.path.dirname(os.path.abspath(__file__))]))
+  proc = subprocess.run([sys.executable, "-c", _MALFORMED_SCRIPT, broken],
+                        capture_output=True, text=True, env=env, timeout=600)
+  assert proc.returncode == 3, proc.stdout + proc.stderr
 
 
 # a line of csrc/recon.cu, and what replaces it to break the wait stencil
@@ -464,7 +558,8 @@ def _counts_zeroed():
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
 
-  for d in (P.LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES, R.PLAIN_RUNS):
+  for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
+            R.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R

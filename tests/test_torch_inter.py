@@ -20,13 +20,15 @@ from ffmpeg_tpu.models.vvc import host as JH
 from ffmpeg_tpu.models.vvc import pipeline as JP
 from ffmpeg_tpu_torch.models.vvc import host as TH
 from ffmpeg_tpu_torch.models.vvc import inputs as TI
-from ffmpeg_tpu_torch.models.vvc.convert import inputs_from_numpy
+from ffmpeg_tpu_torch.models.vvc.convert import _inter, inputs_from_numpy
 from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
 from ffmpeg_tpu_torch.models.vvc.host import CHUNK_CAP
+from ffmpeg_tpu_torch.models.vvc.mc_tiles import unpack
 from ffmpeg_tpu_torch.models.vvc.pipeline import resolve_refs, submit_frame
 from ffmpeg_tpu_torch.ops import inter as TIP
 from ffmpeg_tpu_torch.ops import recon as TR
 from ffmpeg_tpu_torch.ops.transform import residual_plane
+from torch_mc_rows import batch, random_rows
 
 torch.set_num_threads(2)
 
@@ -145,15 +147,14 @@ def _masked(tiles, w, h):
 def _check_pred(refs_np, rows, gwt, gslot, n_inter, *, is_chroma, bit_depth,
                 wrap, cr):
   """The plain prediction of one channel against JAX, within each unit;
-  0 outside it.  As in the JAX frame program, the n_inter pure inter
-  rows go through _inter_pred_unit with its DMVR rows present (DMVR
-  off), the CIIP rows after them without."""
+  0 outside it (the compact tiles unpacked).  As in the JAX frame
+  program, the n_inter pure inter rows go through _inter_pred_unit with
+  its DMVR rows present (DMVR off), the CIIP rows after them without."""
   rows = {k: np.asarray(v, np.int32) for k, v in rows.items()}
-  inter = {k: _t(v) for k, v in rows.items()}
-  inter.update(n_mc=len(rows["x0"]), n_inter=n_inter, gwt=_t(gwt),
-               gslot=_t(gslot))
-  got = TIP.inter_pred_plain(_t(refs_np), inter, is_chroma=is_chroma,
-                             bit_depth=bit_depth, wrap=wrap, cr=cr).numpy()
+  inter = _inter(batch(rows, gwt, gslot, is_chroma), n_inter, "cpu")
+  tiles = TIP.inter_pred_plain(_t(refs_np), inter, is_chroma=is_chroma,
+                               bit_depth=bit_depth, wrap=wrap, cr=cr)
+  got = unpack(tiles, inter["toff"], inter["w"], inter["h"]).numpy()
   c = dict(rows)
   if cr:
     for a, b in TIP._CR_WEIGHTS:
@@ -194,50 +195,6 @@ def test_inter_pred_plain_real(name):
   assert n_units > 0
 
 
-def _random_rows(rng, n, H, W, n_refs, is_chroma, bd):
-  """n MC units with every mode: MVs far outside the picture, uni/bi,
-  default, explicit and BCW weights, GPM, BDOF (bi, <= 16x16) and PROF
-  (4x4)."""
-  r = {k: np.zeros(n, np.int32) for k in TI.INTER_KEYS}
-  sizes = np.array([4, 8, 16, 32])
-  r["w"] = sizes[rng.integers(0, 4, n)]
-  r["h"] = sizes[rng.integers(0, 4, n)]
-  r["x0"] = rng.integers(0, W // 4, n) * 4
-  r["y0"] = rng.integers(0, H // 4, n) * 4
-  r["pf"] = rng.integers(1, 4, n)
-  span = 4 * max(H, W) * (32 if is_chroma else 16)
-  for k in ("m0x", "m0y", "m1x", "m1y"):
-    r[k] = rng.integers(-span, span, n)
-  r["r0slot"] = rng.integers(0, n_refs, n)
-  r["r1slot"] = rng.integers(0, n_refs, n)
-  r["wden"] = np.where(rng.random(n) < 0.4, -1, rng.integers(0, 8, n))
-  r["w0"], r["w1"] = rng.integers(-128, 256, n), rng.integers(-128, 256, n)
-  r["wo0"], r["wo1"] = rng.integers(-128, 128, n), rng.integers(-128, 128, n)
-  for a, b in TIP._CR_WEIGHTS:
-    r[b] = rng.integers(-128, 256, n) if a[1] != "o" else rng.integers(
-        -128, 128, n)
-  r["hpel"] = rng.integers(0, 3, n)
-  gpm = rng.random(n) < 0.2
-  r["gpm_part"] = np.where(gpm, rng.integers(1, 65, n), 0)
-  if not is_chroma:
-    bdof = (rng.random(n) < 0.3) & ~gpm
-    r["bdof"] = bdof.astype(np.int32)
-    r["pf"] = np.where(bdof, 3, r["pf"])
-    r["wden"] = np.where(bdof & (rng.random(n) < 0.7), -1, r["wden"])
-    r["w"] = np.where(bdof, np.minimum(r["w"], 16), r["w"])
-    r["h"] = np.where(bdof, np.minimum(r["h"], 16), r["h"])
-    prof = (rng.random(n) < 0.3) & ~bdof
-    r["prof"] = np.where(prof, rng.integers(1, 4, n), 0)
-    r["w"] = np.where(prof, 4, r["w"])
-    r["h"] = np.where(prof, 4, r["h"])
-    for k in ("pdhx0", "pdhy0", "pdvx0", "pdvy0", "pdhx1", "pdhy1", "pdvx1",
-              "pdvy1"):
-      r[k] = rng.integers(-600, 600, n)
-  gwt = rng.integers(0, 9, (n, 32, 32))
-  gslot = np.where(gpm, np.arange(n), 0)
-  return r, gwt, gslot
-
-
 @pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("chan", ["y", "cb", "cr"])
 @pytest.mark.parametrize("wrap", [0, 1])
@@ -247,7 +204,7 @@ def test_inter_pred_plain_random(bd, chan, wrap):
   is_chroma = chan != "y"
   H, W, n_refs = (24, 40, 3) if is_chroma else (48, 80, 3)
   refs = rng.integers(0, 1 << bd, (n_refs, H, W)).astype(np.int32)
-  rows, gwt, gslot = _random_rows(rng, 192, H, W, n_refs, is_chroma, bd)
+  rows, gwt, gslot = random_rows(rng, 192, H, W, n_refs, is_chroma, bd)
   _check_pred(refs, rows, gwt, gslot, 128, is_chroma=is_chroma, bit_depth=bd,
               wrap=(W - 8 if wrap else 0), cr=chan == "cr")
 
@@ -302,7 +259,7 @@ def test_recon_plain_inter(name):
           tiles = TIP.inter_pred([[_t(r) for r in refs[1]],
                                   [_t(r) for r in refs[2]]], tc["inter"],
                                  H=H >> ss, W=W >> ss, is_chroma=True,
-                                 bit_depth=bd, wrap=wrap)[:, 1:]
+                                 bit_depth=bd, wrap=wrap)[1:]
       tcclm = None
       if cclm is not None:
         tcclm = (_t(luma), TR.I.cclm_dsy_plane(_t(luma), inp["cclm_vc"]))

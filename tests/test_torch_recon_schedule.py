@@ -35,6 +35,7 @@ from ffmpeg_tpu.models.vvc import host as JH
 from ffmpeg_tpu.models.vvc import pipeline as JP
 from ffmpeg_tpu_torch.models.vvc import host as TH
 from ffmpeg_tpu_torch.models.vvc import inputs as TI
+from ffmpeg_tpu_torch.models.vvc import mc_tiles
 from ffmpeg_tpu_torch.models.vvc.convert import inputs_from_numpy
 from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
 from ffmpeg_tpu_torch.models.vvc.pipeline import resolve_refs, submit_frame
@@ -163,6 +164,8 @@ def _recon_by_levels(res, ct, tiles, *, maxs, is_chroma, bit_depth, cclm,
                                inter=ct["inter"], tiles=tiles)
   Hp, Wp = plane.shape
   flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
+  blocks = None if tiles is None else mc_tiles.unpack(
+      tiles, ct["inter"]["toff"], ct["inter"]["w"], ct["inter"]["h"])
   rows = intra["mat_host"]
   rng = np.random.default_rng(seed)
   for level in range(1, int(levels.max(initial=0)) + 1):
@@ -173,7 +176,7 @@ def _recon_by_levels(res, ct, tiles, *, maxs, is_chroma, bit_depth, cclm,
       blk = TR._intra_units(flat[:Hp * Wp].view(Hp, Wp), res, c,
                             TR._present(rows[:, u:u + 1]), maxs=maxs,
                             is_chroma=is_chroma, bit_depth=bit_depth,
-                            cclm=cclm, tiles=tiles)
+                            cclm=cclm, tiles=blocks)
       TR._scatter(flat, Wp, blk, c, c["w"] > 0, maxs)
   return flat[:Hp * Wp].view(Hp, Wp).numpy()
 
@@ -205,7 +208,7 @@ def test_level_order_matches_jax(case, tag):
       cclm = (luma, TIn.cclm_dsy_plane(luma, inp["cclm_vc"]))
     for ch, c_idx in enumerate(chans):
       got = _recon_by_levels(
-          _t(res[c_idx]), ct, tiles[:, ch] if tiles is not None else None,
+          _t(res[c_idx]), ct, tiles[ch] if tiles is not None else None,
           maxs=min(32, (1 << fs.ctb_log2) >> ss), is_chroma=is_chroma,
           bit_depth=bd, cclm=cclm, seed=1000 * i + c_idx)
       np.testing.assert_array_equal(got, want[c_idx],

@@ -190,6 +190,44 @@ def test_inter_kernel_control_rows_match_layout():
   assert INTER_KEYS == tuple(k for k in JP.INTER_KEYS if k not in dmvr)
 
 
+def _kernel_table(src, name):
+  body = re.search(name + r"\[[^=]*= \{(.*?)\};", src, re.S).group(1)
+  return np.array([int(v) for v in re.findall(r"-?\d+", body)])
+
+
+def test_inter_kernel_constants_match_tables():
+  """The inter-prediction kernel's __constant__ filter banks are the
+  port's interpolation tables, its small-unit bound and largest unit
+  edge are the host's, and its small slices hold the window and the
+  horizontal pass of every unit the host calls small (the kernel cannot
+  be compiled here)."""
+  from ffmpeg_tpu_torch.models.vvc.inputs import SMALL_AREA
+  from ffmpeg_tpu_torch.models.vvc.mc_tiles import MC_TILE
+  from ffmpeg_tpu_torch.ops import inter as T
+
+  with open(os.path.join(PORT, "csrc", "inter_pred.cu")) as f:
+    src = f.read()
+
+  def define(name):
+    return int(re.search(rf"#define {name} (\d+)", src).group(1))
+
+  np.testing.assert_array_equal(_kernel_table(src, "c_luma"),
+                                T.INTERP_LUMA.reshape(-1))
+  np.testing.assert_array_equal(_kernel_table(src, "c_chroma"),
+                                T.INTERP_CHROMA[0].reshape(-1))
+  assert define("SMALL_AREA") == SMALL_AREA
+  assert define("LARGE_EDGE") == MC_TILE
+  assert define("GW") == MC_TILE
+  assert define("MAX_NCH") == T.MAX_NCH
+  assert define("MAX_REFS") == T.MAX_REFS
+  for w in range(1, MC_TILE + 1):
+    for h in range(1, MC_TILE + 1):
+      ww, hh = max(w, 4), max(h, 4)
+      if ww * hh <= SMALL_AREA:
+        assert (ww + 7) * (hh + 7) <= define("SMALL_WIN"), (w, h)
+        assert (hh + 7) * ww <= define("SMALL_TMP"), (w, h)
+
+
 def test_interp_tables():
   from ffmpeg_tpu.models.vvc import pipeline as JP
   from ffmpeg_tpu_torch.ops import inter as T
