@@ -5,9 +5,12 @@
 
 Drives ffmpeg_tpu_torch's main paths through the user entry point
 (VVCDecoder(device="cuda")) on the committed fixtures:
-  - ra1080: 5 frames of 1920x1080 8-bit random access (B slices with
-    TMVP, affine/PROF, BDOF, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM,
-    deblock and SAO), the P/B slice's path through both kernels;
+  - full1080, the main path: 5 frames of 1920x1080 8-bit random access
+    with the full toolset (bench.py FULL_KW: B slices with TMVP,
+    affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
+    with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
+    both kernels;
+  - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra.
 Phases, one JSON line each:
@@ -19,21 +22,28 @@ Phases, one JSON line each:
   3. kernels  each kernel call of the frame program (recorded through
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
-              (all-integer arithmetic): both kernels on a B frame of
-              ra1080 with its real DPB references (it holds pure inter,
-              CIIP, GPM, BDOF and PROF units), and the recon kernel on
-              frame 0 of the intra fixtures (luma, then chroma with
-              CCLM); the B frame's small and large MC units, and the
+              (all-integer arithmetic): both kernels on the first B frame
+              of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
+              and DMVR units under LMCS with ALF-on CTBs (the inter calls
+              carry DMVR windows and the luma forward map; its real,
+              LMCS-mapped DPB references) and on such a frame of ra1080
+              without the new tools, and the recon kernel on frame 0 of
+              the intra fixtures (luma, then chroma with CCLM); the B
+              frames' unit counts, small and large MC units, and the
               largest frame's MC tile bytes (models/vvc/mc_tiles.py)
   4. decode   each fixture decoded on the card; frame MD5s must equal
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
               of the path launched, the plain versions never ran
-  5. timing   ra1080 and ai720 fps with frames left on the card and with
-              the fetch, ra1080 per-stage ms, kernel vs plain ms (CUDA
-              events, the launches queued behind a short sleep of the card
-              so that the host's Python between them is not timed) on the
-              ra1080 B frame; the inter kernel's time split into its small
+  5. timing   full1080 and ai720 fps with frames left on the card and
+              with the fetch, full1080 per-stage ms (the DMVR round trip
+              per DMVR frame among them), the device ms of the LMCS, ALF
+              and DMVR torch ops per call and per frame (CUDA events
+              around each call, queued behind a held card), kernel vs
+              plain ms (CUDA events, the launches queued behind a short
+              sleep of the card so that the host's Python between them is
+              not timed) on the full1080 B frame; the inter kernel's time
+              split into its small
               and large launches, and its wrapper's host ms per call (with
               the card held, and synced); the recon kernel's time split
               into its placement and wavefront launches, its critical path
@@ -41,11 +51,13 @@ Phases, one JSON line each:
               ai720's frame 0; every timed launch of both kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
-  6. profile  torch.profiler over a ra1080 decode: device busy share and
-              device time by kernel
+  6. profile  torch.profiler over a full1080 decode: device busy share,
+              device time by kernel and by stage (the trace spans as
+              profiler ranges)
 
 then the kernel table line and, last, the result line.  Exits non-zero
-with no result line when CUDA is unavailable or any phase fails.
+with no result line when CUDA is unavailable or any phase fails
+(nothing falls back: a failed build, launch or check fails the run).
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -61,11 +73,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 TESTDATA = os.path.join(ROOT, "ffmpeg_tpu_torch", "testdata")
-MAIN = "ra1080"
-FIXTURES = (MAIN, "ai720", "ai256x128_10b")
+MAIN = "full1080"
+FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b")
 KERNELS = ("inter_pred", "recon")
 # the kernels each fixture's path must launch
-PATH_KERNELS = {MAIN: KERNELS, "ai720": ("recon",),
+PATH_KERNELS = {MAIN: KERNELS, "ra1080": KERNELS, "ai720": ("recon",),
                 "ai256x128_10b": ("recon",)}
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and the non-tensor
@@ -194,8 +206,9 @@ def _walk_calls(name, pick=None):
 
 
 def _unit_counts(fs, h):
-  """The frame's luma units by path, and the bytes of its MC tiles
-  (mc_tiles, both plane kinds)."""
+  """The frame's luma units by path, its LMCS and ALF state (the CTBs
+  with luma ALF on), and the bytes of its MC tiles (mc_tiles, both plane
+  kinds)."""
   from ffmpeg_tpu_torch.models.vvc.mc_tiles import nbytes
 
   y = h["ctrl"]["y"]
@@ -211,7 +224,11 @@ def _unit_counts(fs, h):
           "gpm": int((inter["gpm_part"][:n_pure] > 0).sum()),
           "bdof": int((inter["bdof"][:n_pure] > 0).sum()),
           "prof": int((inter["prof"][:n_pure] != 0).sum()),
+          "dmvr": int((inter["dmvr"][:n_pure] > 0).sum()),
           "intra": n_iu - int((rows["ciipw"][:n_iu] > 0).sum()),
+          "lmcs": "lmcs" in h, "lmcs_crs": "chroma_scale" in h.get("lmcs", {}),
+          "alf_luma_ctbs": int((h["alf"]["ctb"][..., 0] > 0).sum())
+          if "alf" in h else 0,
           "tile_bytes": tiles}
 
 
@@ -219,6 +236,14 @@ def _every_path(fs, h):
   c = _unit_counts(fs, h)
   return fs.slice_type == 0 and all(
       c[k] > 0 for k in ("pure_inter", "ciip", "gpm", "bdof", "prof"))
+
+
+def _every_tool(fs, h):
+  """_every_path, and DMVR units, LMCS with chroma scaling and ALF-on
+  CTBs: the main path's B frame."""
+  c = _unit_counts(fs, h)
+  return _every_path(fs, h) and c["dmvr"] > 0 and c["lmcs_crs"] and \
+      c["alf_luma_ctbs"] > 0
 
 
 def _kernel(name, kw):
@@ -266,10 +291,10 @@ def _ref_samples(kw):
   """Reference samples an inter_pred call must read, each once: the union
   of the units' reads (per hypothesis the unit uses, its (w + taps - 1) x
   (h + taps - 1) filter window, and luma PROF's 6x6 ring), rows clamped
-  to the picture and columns clamped or wrapped as the kernel reads them,
-  marked in one mask per distinct plane and channel.  Planes are told
-  apart by their storage, so that list entries naming one picture count
-  once."""
+  to the picture (or a DMVR unit's window) and columns clamped or wrapped
+  as the kernel reads them, marked in one mask per distinct plane and
+  channel.  Planes are told apart by their storage, so that list entries
+  naming one picture count once."""
   import numpy as np
 
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS
@@ -284,6 +309,17 @@ def _ref_samples(kw):
   gpm = r["gpm_part"] > 0
   need = (gpm | (r["pf"] == 1) | (r["pf"] == 3), gpm | (r["pf"] != 1))
   six = np.full(n, 6)
+  dmvr = (r["dmvr"] > 0) & ~ciip
+
+  def window(lx, a, size, lim):
+    """The clamp bounds of each unit's reads along one axis (ops/inter.py
+    _dmvr_windows): the picture, or a DMVR unit's original-MV region."""
+    o = r[f"{a}0"] + (r[f"om{lx}{a}"] >> fb)
+    lo = np.clip(o - before, 0, lim - 1)
+    hi = lo + np.maximum(np.minimum(lim, o + size + taps - before - 1) - lo,
+                         1) - 1
+    return np.where(dmvr, lo, 0), np.where(dmvr, hi, lim - 1)
+
   total = 0
   for ch in kw["refs"]:
     ids: dict = {}
@@ -292,26 +328,30 @@ def _ref_samples(kw):
     for lx in (0, 1):
       mvx, mvy = r[f"m{lx}x"], r[f"m{lx}y"]
       plane = plane_of[np.clip(r[f"r{lx}slot"], 0, len(ch) - 1)]
+      pic = (np.zeros(n, np.int64), np.full(n, W - 1),
+             np.zeros(n, np.int64), np.full(n, H - 1))
       reads = [(need[lx], r["y0"] + (mvy >> fb) - before,
                 r["x0"] + (mvx >> fb) - before, r["w"] + taps - 1,
-                r["h"] + taps - 1, ciip)]
+                r["h"] + taps - 1, ciip,
+                (*window(lx, "x", r["w"], W), *window(lx, "y", r["h"], H)))]
       if not kw["is_chroma"]:
         reads.append((need[lx] & (((r["prof"] >> lx) & 1) > 0),
                       r["y0"] + (mvy >> 4) + ((mvy >> 3) & 1) - 1,
                       r["x0"] + (mvx >> 4) + ((mvx >> 3) & 1) - 1, six, six,
-                      np.ones(n, bool)))
-      for sel, iy, ix, gw, gh, wraps in reads:
+                      np.ones(n, bool), pic))
+      for sel, iy, ix, gw, gh, wraps, (x0, x1, y0, y1) in reads:
         for cw, chh in set(zip(gw[sel].tolist(), gh[sel].tolist())):
           idx = np.flatnonzero(sel & (gw == cw) & (gh == chh))
           for lo in range(0, len(idx), 1024):
             u = idx[lo:lo + 1024]
-            ys = np.clip(iy[u, None] + np.arange(chh), 0, H - 1)
+            ys = np.clip(iy[u, None] + np.arange(chh), y0[u, None],
+                         y1[u, None])
             xs = ix[u, None] + np.arange(cw)
             if wrap:
               on = wraps[u, None]
               xs = np.where(on & (xs < 0), xs + wrap, xs)
               xs = np.where(on & (xs > W - 1), xs - wrap, xs)
-            xs = np.clip(xs, 0, W - 1)
+            xs = np.clip(np.clip(xs, 0, W - 1), x0[u, None], x1[u, None])
             mask[plane[u, None, None], ys[:, :, None], xs[:, None, :]] = True
     total += int(mask.sum())
   return total
@@ -402,28 +442,43 @@ def _check_calls(fixture, calls, out, torch):
 
 
 def phase_kernels(torch):
-  """Both kernels against their plain versions on a ra1080 B frame with
-  its real references; the recon kernel on frame 0 of the intra
-  fixtures.  Returns the worst error per kernel and each fixture's
-  checked calls."""
-  out = {"phase": "kernels", "tolerance": 0, "cases": []}
-  fs, main_calls, records = _walk_calls(MAIN, _every_path)
-  units = next(r for r in records if r["poc"] == fs.poc)
-  out["frame"] = {"fixture": MAIN, **units,
-                  "mc_units": {label: {k: len(kw["inter"][k + "_host"])
-                                       for k in ("small", "large")}
-                               for n, label, kw in main_calls
-                               if n == "inter_pred"}}
-  calls = {MAIN: main_calls}
-  for name in FIXTURES[1:]:
+  """Both kernels against their plain versions on the B frames of full1080
+  (with DMVR, LMCS and ALF) and ra1080 with their real references; the
+  recon kernel on frame 0 of the intra fixtures.  Returns the worst error
+  per kernel and each fixture's checked calls."""
+  out = {"phase": "kernels", "tolerance": 0, "cases": [], "frames": {}}
+  calls, records = {}, {}
+  for name, pick in ((MAIN, _every_tool), ("ra1080", _every_path)):
+    fs, calls[name], records[name] = _walk_calls(name, pick)
+    units = next(r for r in records[name] if r["poc"] == fs.poc)
+    out["frames"][name] = {
+        **units, "mc_units": {label: {k: len(kw["inter"][k + "_host"])
+                                      for k in ("small", "large")}
+                              for n, label, kw in calls[name]
+                              if n == "inter_pred"}}
+    # the main path's inter calls carry DMVR windows and the luma map
+    lm = [kw.get("lmcs") is not None for n, label, kw in calls[name]
+          if n == "inter_pred" and label == "luma"]
+    out["frames"][name]["inter_luma_lmcs"] = lm == [True]
+    if name == MAIN and not (lm == [True] and units["dmvr"] > 0):
+      fail("kernels", f"{MAIN} POC {fs.poc}: the inter calls carry no DMVR "
+           f"units or no LMCS map: {units}")
+  print(f"chip_smoke: kernels on {MAIN} POC {out['frames'][MAIN]['poc']}: "
+        f"{out['frames'][MAIN]['dmvr']} DMVR units, LMCS with chroma "
+        f"scaling, {out['frames'][MAIN]['alf_luma_ctbs']} CTBs with luma "
+        "ALF", flush=True)
+  for name in FIXTURES[2:]:
     calls[name] = _walk_calls(name)[1]
   for name in FIXTURES:
     _check_calls(name, calls[name], out, torch)
   worst = {k: max(c["max_abs_err"] for c in out["cases"] if c["kernel"] == k)
            for k in KERNELS}
   out["max_abs_err"] = max(worst.values())
-  out["levels"] = {MAIN: units["levels"], "ai720": _levels(calls["ai720"])}
-  out["tile_bytes_peak_frame"] = max(r["tile_bytes"] for r in records)
+  out["levels"] = {name: out["frames"][name]["levels"]
+                   for name in (MAIN, "ra1080")}
+  out["levels"]["ai720"] = _levels(calls["ai720"])
+  out["tile_bytes_peak_frame"] = {
+      name: max(r["tile_bytes"] for r in rr) for name, rr in records.items()}
   out["records"] = records
   emit(out)
   return worst, calls, out["levels"]
@@ -514,10 +569,57 @@ def _fps(name, torch, traced=False):
     trace.enable(True)
     list(dec.decode(data))
     trace.enable(False)
+    summary = trace.summary()
     out["stage_ms_per_frame_traced"] = {
-        k: v["total_ms"] / n_frames for k, v in trace.summary().items()
+        k: v["total_ms"] / n_frames for k, v in summary.items()
         if "total_ms" in v}
+    if "dmvr" in summary:
+      # the search, its fetch and the host's dmvr_apply, per DMVR frame
+      out["dmvr_round_trip_ms_per_dmvr_frame"] = summary["dmvr"]["mean_ms"]
+      out["dmvr_frames"] = summary["dmvr"]["n"]
   return out
+
+
+def _op_device_ms(name, torch):
+  """Device ms of the LMCS, ALF and DMVR torch ops over a decode of a
+  fixture: each call of pipeline.alf_pass, lmcs_inv, lmcs_vpdu_scales and
+  ops/dmvr.refine_subblocks is queued behind a held card and bracketed by
+  CUDA events, so the events time the card's work, not the host's
+  launches.  Returns per op its calls, ms per call and ms per frame."""
+  from ffmpeg_tpu_torch.models.vvc import pipeline
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.ops import dmvr
+
+  times: dict = {}
+
+  def timed(key, fn):
+    def run(*a, **kw):
+      e0 = torch.cuda.Event(enable_timing=True)
+      e1 = torch.cuda.Event(enable_timing=True)
+      _hold_card(torch)
+      e0.record()
+      out = fn(*a, **kw)
+      e1.record()
+      torch.cuda.synchronize()
+      times.setdefault(key, []).append(e0.elapsed_time(e1))
+      return out
+    return run
+
+  patches = [(pipeline, "alf_pass", "alf"), (pipeline, "lmcs_inv", "lmcs_inv"),
+             (pipeline, "lmcs_vpdu_scales", "lmcs_chroma_scales"),
+             (dmvr, "refine_subblocks", "dmvr_search")]
+  saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+  for mod, attr, key in patches:
+    setattr(mod, attr, timed(key, getattr(mod, attr)))
+  try:
+    n = sum(1 for _ in VVCDecoder(device="cuda").decode(_read(name),
+                                                        fetch=False))
+    torch.cuda.synchronize()
+  finally:
+    for mod, attr, fn in saved:
+      setattr(mod, attr, fn)
+  return {k: {"calls": len(v), "ms_per_call": sum(v) / len(v),
+              "ms_per_frame": sum(v) / n} for k, v in times.items()}
 
 
 def _sm_clocks():
@@ -634,8 +736,9 @@ def _time_recon(kw, levels, torch, reps, rounds):
 
 
 def phase_timing(torch, card, calls, levels):
-  """fps of ra1080 (with traced stages) and ai720; then each kernel
-  against its plain version on the ra1080 B frame's calls, in turns
+  """fps of full1080 (with traced stages) and ai720, and the device ms of
+  the LMCS, ALF and DMVR ops on full1080; then each kernel against its
+  plain version on the full1080 B frame's calls, in turns
   (plain, kernel, kernel, plain; recon's kernel launches each checked
   against the plain version), and the recon kernel alone on ai720's
   frame 0, checked the same way.  The SM clocks are read before and
@@ -643,6 +746,7 @@ def phase_timing(torch, card, calls, levels):
   out = {"phase": "timing", "card": card, "sm_clocks_before": _sm_clocks(),
          MAIN: _fps(MAIN, torch, traced=True),
          "ai720": _fps("ai720", torch)}
+  out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
@@ -674,42 +778,64 @@ def phase_timing(torch, card, calls, levels):
 
 
 def phase_profile(torch, card):
-  """torch.profiler over a warm ra1080 decode (frames left on the card).
-  Device busy share = union of device activity over the profiled
-  window; device time by kernel name."""
+  """torch.profiler over a warm full1080 decode (frames left on the card).
+  Device busy share = union of the kernels' and copies' device time over
+  the profiled window; device time by kernel name, and by stage: the
+  trace spans run as profiler ranges, which the profiler also marks on
+  the device timeline, and a stage's device time is that of the device
+  events inside its marks (one stream, so the stages' marks do not
+  overlap; this counts the CUDA kernels launched through ctypes too)."""
+  import bisect
+
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.utils import trace
 
   data = _read(MAIN)
   dec = VVCDecoder(device="cuda")
   list(dec.decode(data, fetch=False))
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    n = sum(1 for _ in dec.decode(data, fetch=False))
-    torch.cuda.synchronize()
+  trace.PROFILE_RANGES = True
+  try:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      n = sum(1 for _ in dec.decode(data, fetch=False))
+      torch.cuda.synchronize()
+  finally:
+    trace.PROFILE_RANGES = False
   events = list(prof.events())
-  dev = sorted((e.time_range.start, e.time_range.end) for e in events
-               if e.device_type == DeviceType.CUDA)
+  on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
+  marks = [e for e in on_dev if e.name.startswith("stage/")]
+  work = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in on_dev if not e.name.startswith("stage/"))
+  starts = [w[0] for w in work]
+  by_stage: dict = {}
+  for m in marks:
+    i = bisect.bisect_left(starts, m.time_range.start)
+    t = 0.0
+    while i < len(work) and work[i][0] < m.time_range.end:
+      t += max(0.0, min(work[i][1], m.time_range.end) - work[i][0])
+      i += 1
+    by_stage[m.name[6:]] = by_stage.get(m.name[6:], 0.0) + t
   lo = min(e.time_range.start for e in events)
   hi = max(e.time_range.end for e in events)
   busy, end = 0.0, lo
-  for s0, s1 in dev:
+  for s0, s1, _ in work:
     if s1 > end:
       busy += s1 - max(s0, end)
       end = s1
   by_name: dict = {}
-  for e in events:
-    if e.device_type == DeviceType.CUDA:
-      by_name[e.name] = by_name.get(e.name, 0.0) + (
-          e.time_range.end - e.time_range.start)
+  for s0, s1, name in work:
+    by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
   top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
   emit({"phase": "profile", "card": card, "fixture": MAIN, "frames": n,
         "window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
         "device_idle_share": 1 - busy / max(hi - lo, 1e-9),
-        "device_events": len(dev),
+        "device_events": len(work), "stage_marks": len(marks),
+        "device_ms_per_frame_by_stage": {k: v / 1e3 / n
+                                         for k, v in sorted(by_stage.items())},
         "device_ms_per_frame_by_kernel": {k[:80]: v / 1e3 / n
                                           for k, v in top}})
 
@@ -729,6 +855,9 @@ def main() -> int:
   except ImportError as e:
     fail("device", f"torch missing: {e}")
   card = phase_device(torch)
+  if not os.path.isdir(os.path.join(ROOT, "ffmpeg_tpu_torch")):
+    fail("build", f"no ffmpeg_tpu_torch package beside {__file__}: run "
+         "from a checkout of the repository")
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)

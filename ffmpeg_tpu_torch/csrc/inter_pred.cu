@@ -9,7 +9,9 @@
 // hpel row selects the AMVR half-pel or the affine 6-tap luma bank),
 // reference wraparound, PROF on affine subblocks, BDOF on bi units of at
 // most 16x16, uni/bi rounding, explicit weights and BCW (Cr reads the
-// second weight set), and the GPM blend.  It writes the MC tile format of
+// second weight set), the GPM blend, DMVR's read window and, for luma
+// under LMCS, the forward mapping of the prediction.  It writes the MC
+// tile format of
 // models/vvc/mc_tiles.py: (nch, T) int16, unit u's w * h samples
 // row-major at toff[u].  Its oracle is the plain torch version in
 // ffmpeg_tpu_torch/ops/inter.py (inter_pred_plain); everything is int32
@@ -36,10 +38,17 @@
 //    windows, and PROF's rings, go out as cp.async copies into shared
 //    memory, and each lane's GPM weights as plain loads into registers,
 //    before a single wait.  BDOF's integer ring is read from the staged
-//    window: the two clamp alike (pure inter units to the picture, CIIP
-//    units through the wraparound), and for a unit of at most 16x16 the
-//    ring samples BDOF uses lie inside the window.  PROF's ring always
-//    wraps while a pure unit's window clamps, so it has copies of its own.
+//    window: the two clamp alike (pure inter units to the picture, or a
+//    DMVR unit to the region of its original MV, CIIP units through the
+//    wraparound), and for a unit of at most 16x16 the ring samples BDOF
+//    uses lie inside the window.  PROF's ring always wraps while a pure
+//    unit's window clamps, so it has copies of its own.
+//  - DMVR changes only the clamp bounds of those reads: the window stays
+//    (w + 7) x (h + 7) at the refined MV, its rows and columns clamped to
+//    the original MV's region (ops/inter.py _dmvr_windows).  DMVR units
+//    are at least 8x16, so they run in the large class.
+//  - LMCS maps the clipped luma prediction forward through the frame's 16
+//    pivots and scales, which travel in the parameter block.
 //  - Filter coefficients come from __constant__ memory into registers;
 //    a group reads one bank row, so the reads broadcast.  The reference
 //    plane pointers sit in the parameter block.  Windows are walked in
@@ -84,7 +93,8 @@ enum {
   k_r1slot, k_wden, k_w0, k_w1, k_wo0, k_wo1, k_hpel, k_hyp0lx, k_hyp1lx,
   k_gpm_part, k_gpm_tx, k_gpm_ty, k_gpm_lw, k_gpm_lh, k_w0b, k_w1b,
   k_wo0b, k_wo1b, k_prof, k_pdhx0, k_pdhy0, k_pdvx0, k_pdvy0, k_pdhx1,
-  k_pdhy1, k_pdvx1, k_pdvy1, k_bdof,
+  k_pdhy1, k_pdvx1, k_pdvy1, k_bdof, k_dmvr, k_om0x, k_om0y, k_om1x,
+  k_om1y,
   NUM_KEYS
 };
 
@@ -190,6 +200,8 @@ struct Params {
   long long T;                 // tile samples per channel
   short* out;                  // (nch, T)
   int bd, wrap;
+  int lmcs;                    // map the luma prediction forward
+  int lm_pivot[16], lm_fwd[16];  // LMCS forward segments (ops/lmcs.py)
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -220,6 +232,32 @@ __device__ __forceinline__ int hwrap(int x, int W, int wrap) {
     if (x > W - 1) x -= wrap;
   }
   return clampi(x, 0, W - 1);
+}
+
+// the rectangle a hypothesis reads from, inclusive: the picture, or for a
+// DMVR unit the region of its original MV with the filter's taps before
+// (eb) and after (ea) it, clamped into the picture (emulated_edge_dmvr)
+struct Win {
+  int x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Win read_window(const int* c, int lx, bool dmvr,
+                                           int W, int H, int fb, int eb,
+                                           int ea) {
+  if (!dmvr) return Win{0, W - 1, 0, H - 1};
+  const int xsb = c[k_x0] + (c[lx ? k_om1x : k_om0x] >> fb);
+  const int ysb = c[k_y0] + (c[lx ? k_om1y : k_om0y] >> fb);
+  const int x0 = clampi(xsb - eb, 0, W - 1), y0 = clampi(ysb - eb, 0, H - 1);
+  return Win{x0, x0 + max(min(W, xsb + c[k_w] + ea) - x0, 1) - 1, y0,
+             y0 + max(min(H, ysb + c[k_h] + ea) - y0, 1) - 1};
+}
+
+// LMCS forward mapping of a clipped luma sample (lmcs_fwd)
+__device__ __forceinline__ int lmcs_fwd(const Params& p, int v, int maxv) {
+  const int shift = p.bd - 4, i = v >> shift;
+  return clampi(p.lm_pivot[i] +
+                    ((p.lm_fwd[i] * (v - (i << shift)) + (1 << 10)) >> 11),
+                0, maxv);
 }
 
 __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
@@ -414,9 +452,12 @@ __device__ void predict_unit(const Params& p, Unit<WIN, TMP, AREA>& s,
   const bool need[2] = {gpm || pf == 1 || pf == 3, gpm || pf != 1};
   const int prof = CHROMA ? 0 : c[k_prof] & (need[0] | (need[1] << 1));
   // the reference's reads: pure inter units clamp the MC window and the
-  // BDOF ring to the picture, CIIP units wrap them; the PROF ring always
-  // wraps (ops/inter.py inter_pred_plain)
-  const int wrap_mc = u >= p.n_inter ? p.wrap : 0;
+  // BDOF ring to the picture, or a DMVR unit to its original MV's region;
+  // CIIP units wrap them; the PROF ring always wraps (ops/inter.py
+  // inter_pred_plain)
+  const bool ciip = u >= p.n_inter;
+  const int wrap_mc = ciip ? p.wrap : 0;
+  const bool dmvr = !ciip && c[k_dmvr] > 0;
 
   // every sample load of the unit, then one wait
 #pragma unroll
@@ -427,11 +468,13 @@ __device__ void predict_unit(const Params& p, Unit<WIN, TMP, AREA>& s,
         c[lx ? k_r1slot : k_r0slot], 0, p.n_refs - 1)];
     const int ix = c[k_x0] + (mvx >> FB) - BEFORE;
     const int iy = c[k_y0] + (mvy >> FB) - BEFORE;
+    const Win rw =
+        read_window(c, lx, dmvr, p.W, p.H, FB, BEFORE, TAPS - BEFORE - 1);
     Walk<GS> wk(lane, gw);
     for (int i = lane; i < gw * gh; i += GS, wk.next())
       cp_async4(&s.win[lx][i],
-                ref + (size_t)clampi(iy + wk.r, 0, p.H - 1) * p.stride +
-                    hwrap(ix + wk.q, p.W, wrap_mc));
+                ref + (size_t)clampi(iy + wk.r, rw.y0, rw.y1) * p.stride +
+                    clampi(hwrap(ix + wk.q, p.W, wrap_mc), rw.x0, rw.x1));
     if ((prof >> lx) & 1) {
       const int ry = c[k_y0] + (mvy >> 4) + ((mvy >> 3) & 1) - 1;
       const int rx = c[k_x0] + (mvx >> 4) + ((mvx >> 3) & 1) - 1;
@@ -569,6 +612,7 @@ __device__ void predict_unit(const Params& p, Unit<WIN, TMP, AREA>& s,
         pred = clampi((ta + (1 << (shift2 - 1))) >> shift2, 0, maxv);
       }
     }
+    if (!CHROMA && p.lmcs) pred = lmcs_fwd(p, pred, maxv);
     out[y * w + x] = (short)pred;
   }
 }
@@ -642,17 +686,19 @@ static cudaError_t launch(const Params& p, int cls, cudaStream_t stream) {
 }
 
 // one launch over the rows `list` of the MC batch: cls 0 the small units,
-// 1 the large ones.  refs is a host array of nch x n_refs plane pointers.
+// 1 the large ones.  refs is a host array of nch x n_refs plane pointers;
+// lmcs a host array of the 16 forward pivots then the 16 forward scales
+// (luma only), or null.
 extern "C" int inter_pred_launch(
     const int* ctrl, int num_keys, int n_mc, int n_inter, const int* list,
     int n_list, int cls, const long long* refs, int n_refs, int nch, int H,
     int W, int stride, const int* gwt, const int* gslot, const int* toff,
     long long T, short* out, int is_chroma, int bit_depth, int wrap,
-    void* stream) {
+    const int* lmcs, void* stream) {
   if (num_keys != NUM_KEYS || n_refs < 1 || n_refs > MAX_REFS || nch < 1 ||
       nch > MAX_NCH || H < 1 || W < 1 || stride < W || bit_depth < 8 ||
       bit_depth > 12 || n_inter < 0 || n_inter > n_mc || n_list < 0 ||
-      n_list > n_mc || cls < 0 || cls > 1 || T < 0)
+      n_list > n_mc || cls < 0 || cls > 1 || T < 0 || (lmcs && is_chroma))
     return (int)cudaErrorInvalidValue;
   if (n_list == 0) return 0;
   Params p{};
@@ -675,6 +721,11 @@ extern "C" int inter_pred_launch(
   p.out = out;
   p.bd = bit_depth;
   p.wrap = wrap;
+  p.lmcs = lmcs != nullptr;
+  for (int i = 0; lmcs && i < 16; ++i) {
+    p.lm_pivot[i] = lmcs[i];
+    p.lm_fwd[i] = lmcs[16 + i];
+  }
   const cudaError_t e =
       is_chroma ? launch<4>(p, cls, (cudaStream_t)stream)
                 : launch<8>(p, cls, (cudaStream_t)stream);

@@ -6,7 +6,8 @@ int32 tensors.  Counts the host loops need stay Python ints.  Each
 layout's control rows travel as one (len(KEYS), n) matrix whose rows
 are exposed under their names, with a host copy kept for the checks
 and the chunk bounds (so do the MC batch's tile offsets and work
-lists).
+lists, and the LMCS forward table, which the inter kernel takes in its
+parameter block).
 """
 from __future__ import annotations
 
@@ -54,6 +55,16 @@ def _inter(inter: dict, n_inter: int, device) -> dict:
   return out
 
 
+def _lmcs(lm: dict, device) -> dict:
+  """The LMCS tables as tensors, and the inter kernel's forward table
+  (pivot[0:16] then fwd_scale), which travels in its parameter block, as
+  a host array."""
+  out = {k: _t(v, device) for k, v in lm.items()}
+  out["fwd_host"] = np.concatenate(
+      [np.asarray(lm["pivot"])[:16], lm["fwd_scale"]]).astype(np.int32)
+  return out
+
+
 def inputs_from_numpy(inp: dict, device) -> dict:
   device = torch.device(device)
   out = {"planes": []}
@@ -71,7 +82,9 @@ def inputs_from_numpy(inp: dict, device) -> dict:
                                         device)}
   if "cclm_vc" in inp:
     out["cclm_vc"] = int(inp["cclm_vc"])
-  for key in ("deblock", "sao"):
+  for key in ("deblock", "sao", "alf"):
     if key in inp:
       out[key] = {k: _t(v, device) for k, v in inp[key].items()}
+  if "lmcs" in inp:
+    out["lmcs"] = _lmcs(inp["lmcs"], device)
   return out

@@ -26,8 +26,8 @@ import torch
 
 from ...utils import trace
 from .host import HostDecoder
-from .inputs import _padded_plane_shapes
-from .pipeline import prepare_frame, submit_frame
+from .inputs import _padded_plane_shapes, check_supported, has_dmvr
+from .pipeline import prepare_frame, refine_dmvr, submit_frame
 
 log = logging.getLogger("ffmpeg_tpu_torch.vvc.decoder")
 
@@ -190,7 +190,10 @@ class VVCDecoder:
     def _parse_au(self, au: bytes, epoch: int):
         """Worker-thread frame stage: native CABAC parse (releases the
         GIL) + the numpy host inputs (pipeline.prepare_frame, which
-        refuses streams outside the port's slices)."""
+        refuses streams outside the port's slices).  A frame with DMVR
+        units returns (fs, None): its unit controls need the refined
+        MVs, which need the reference planes, so the main thread runs
+        the refinement and builds its inputs afterwards."""
         hd = self._hosts.get()
         try:
             with trace.span("host_parse"):
@@ -199,6 +202,9 @@ class VVCDecoder:
             self._hosts.put(hd)
         if fs is None:
             return None
+        if has_dmvr(fs):
+            check_supported(fs)  # refuse before any device work
+            return fs, None
         return fs, prepare_frame(fs)
 
     def _split_aus(self, data: bytes):
@@ -330,6 +336,15 @@ class VVCDecoder:
                     log.warning("poc %d: missing reference %d, "
                                 "synthesizing gray", fs.poc, poc)
                     self._dpb[poc] = self._gray_planes(fs)
+            if host_inp is None:
+                # DMVR, in decode order and before waiting on a later
+                # frame's parse: the search on the card against the DPB,
+                # then the refined motion to the native side, which
+                # publishes the frame's collocated motion and rebuilds its
+                # unit controls
+                refine_dmvr(fs, self._colstore, epoch, self._dpb,
+                            self.device)
+                host_inp = prepare_frame(fs)
             if is_idr:
                 if not first:
                     yield from bump(all_of_them=True)

@@ -108,6 +108,10 @@ def _get_lib():
         lib.vvch_fo_cu_ctrl.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int32)]
+        lib.vvch_dmvr_apply.restype = None
+        lib.vvch_dmvr_apply.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.POINTER(ctypes.c_int32)] * 6
         lib.vvch_detach.restype = ctypes.c_void_p
         lib.vvch_detach.argtypes = [ctypes.c_void_p]
         lib.vvch_fo_free.restype = None
@@ -224,10 +228,24 @@ class HostDecoder:
 
     def __init__(self, colstore: ColStore | None = None) -> None:
         self._lib = _get_lib()
-        self._h = self._lib.vvch_new()
         self._colstore = colstore  # keep alive while attached
-        if colstore is not None:
-            self._lib.vvch_set_colstore(self._h, colstore._s)
+        self._h = None
+        self._renew()
+
+    def _renew(self) -> None:
+        """A fresh native handle on the session's store.  Any handle can
+        parse any AU (each carries its parameter sets), so the parse goes
+        on with a fresh one where the old one's state cannot be trusted:
+        after a native error, and after a frame with DMVR units, whose
+        flag the handle keeps past vvch_detach; it would defer the
+        collocated motion of every later frame it parses, which no
+        dmvr_apply then publishes, and a later TMVP reader would wait
+        for it."""
+        if self._h:
+            self._lib.vvch_free(self._h)
+        self._h = self._lib.vvch_new()
+        if self._colstore is not None:
+            self._lib.vvch_set_colstore(self._h, self._colstore._s)
 
     def __del__(self):
         if getattr(self, "_h", None):
@@ -238,8 +256,9 @@ class HostDecoder:
         self._lib.vvch_set_epoch(self._h, epoch)
         ret = self._lib.vvch_decode_au(self._h, data, len(data))
         if ret != 0:
-            raise RuntimeError(
-                f"native decode error: {self._lib.vvch_last_error().decode()}")
+            err = self._lib.vvch_last_error().decode()
+            self._renew()
+            raise RuntimeError(f"native decode error: {err}")
         info = (ctypes.c_int32 * 31)()
         self._lib.vvch_frame_info(self._h, info)
         if not info[0]:
@@ -369,7 +388,7 @@ class HostDecoder:
                                          "mv1_x", "mv1_y", "ref1",
                                          "ciip"))}
 
-        return FrameSyntax(
+        fs = FrameSyntax(
             width=w, height=h, bit_depth=bd, chroma_format_idc=cidc,
             poc=poc, slice_qp=qp,
             coeff_y=plane(0, w, h),
@@ -405,4 +424,33 @@ class HostDecoder:
             fo=NativeFrame(self._lib,
                            self._lib.vvch_detach(self._h)),
         )
+        if np.any(fs.cus["dmvr"]):
+            self._renew()
+        return fs
 
+
+def dmvr_apply(fs: FrameSyntax, colstore: ColStore, epoch: int,
+               planes6) -> None:
+    """Hand the refined DMVR subblock MVs (ops/dmvr.py refine_frame) to
+    the native side: it stores them on the detached FrameOut, publishes
+    the frame's deferred collocated motion (which a later frame's parse
+    may be waiting on), and the unit control matrices are read again,
+    now with the refined MVs and the per-subblock BDOF kills."""
+    lib = _get_lib()
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    arrs = [np.ascontiguousarray(a, np.int32) for a in planes6]
+    lib.vvch_dmvr_apply(fs.fo.ptr, colstore._s, epoch,
+                        *[a.ctypes.data_as(i32p) for a in arrs])
+    n_keys = 75  # ctrl::kNumKeys
+
+    def fo_ctrl(is_chroma):
+        n_units = ctypes.c_int32(0)
+        ptr = lib.vvch_fo_cu_ctrl(fs.fo.ptr, int(is_chroma), fs.ctb_log2,
+                                  CHUNK_CAP, ctypes.byref(n_units))
+        nu = int(n_units.value)
+        if not nu:
+            return np.zeros((n_keys, 0), np.int32)
+        return np.ctypeslib.as_array(ptr, shape=(n_keys, nu)).copy()
+
+    fs.ctrl_y = fo_ctrl(False)
+    fs.ctrl_c = fo_ctrl(True)

@@ -1,12 +1,12 @@
 """Host half of a frame decode: FrameSyntax -> numpy input tree.
 
 Numpy port of the JAX frame program's host-input assembly
-(build_host_inputs, _layout_ctrl, _pallas_ctrl's inter index,
-_gpm_weight_blocks, _bucket_inputs, _deblock_grids).  The tree has the
-same structure and the same per-unit and per-TU rows as the JAX
-builder's non-Pallas tree.  Arrays are sized to this frame's exact
-counts: eager torch has no compiled program whose shapes would need to
-stay fixed across frames.
+(build_host_inputs with its LMCS and ALF tables, _layout_ctrl,
+_pallas_ctrl's inter index, _gpm_weight_blocks, _bucket_inputs,
+_deblock_grids).  The tree has the same structure and the same per-unit
+and per-TU rows as the JAX builder's non-Pallas tree.  Arrays are sized
+to this frame's exact counts: eager torch has no compiled program whose
+shapes would need to stay fixed across frames.
 
 Streams outside the port's slices are refused here, loudly
 (`check_supported`), naming the ROADMAP item that will add them.
@@ -28,15 +28,17 @@ from .recon import CTRL_KEYS, _round_up
 LUMA_SIZES = [(w, h) for w in (4, 8, 16, 32) for h in (4, 8, 16, 32)]
 CHROMA_SIZES = [(w, h) for w in (2, 4, 8, 16, 32) for h in (2, 4, 8, 16, 32)]
 
-# control rows of the MC batch (the JAX frame program's INTER_KEYS
-# without the DMVR rows, which ROADMAP 'Still to port' #7 adds)
+# control rows of the MC batch (the JAX frame program's INTER_KEYS); the
+# last five are DMVR's: its flag and the original, unrefined MVs, around
+# which the unit's reads are clamped
 INTER_KEYS = ("x0", "y0", "w", "h", "pf", "m0x", "m0y", "m1x", "m1y",
               "r0slot", "r1slot", "wden", "w0", "w1", "wo0", "wo1",
               "hpel", "hyp0lx", "hyp1lx",
               "gpm_part", "gpm_tx", "gpm_ty", "gpm_lw", "gpm_lh",
               "w0b", "w1b", "wo0b", "wo1b",
               "prof", "pdhx0", "pdhy0", "pdvx0", "pdvy0",
-              "pdhx1", "pdhy1", "pdvx1", "pdvy1", "bdof")
+              "pdhx1", "pdhy1", "pdvx1", "pdvy1", "bdof",
+              "dmvr", "om0x", "om0y", "om1x", "om1y")
 
 # the inter kernel's small units: at most SMALL_AREA samples, counted
 # over at least 4 x 4 (csrc/inter_pred.cu SMALL_AREA)
@@ -61,8 +63,6 @@ def check_supported(fs: FrameSyntax) -> None:
   """Raise NotImplementedError for every stream feature the port does
   not decode (never decode such a frame wrongly or fall back)."""
   refusals = [
-      (fs.cus is not None and "dmvr" in fs.cus and np.any(fs.cus["dmvr"]),
-       "DMVR: ROADMAP 'Still to port' #7"),
       (fs.chroma_format_idc not in (0, 1),
        f"chroma_format_idc {fs.chroma_format_idc}: only 4:2:0 and 4:0:0"),
       (bool(fs.has_isp), "ISP: ROADMAP 'Still to port' #2"),
@@ -70,8 +70,6 @@ def check_supported(fs: FrameSyntax) -> None:
        "'Still to port' #2"),
       (fs.sl is not None, "explicit scaling lists: ROADMAP 'Still to "
        "port' #5"),
-      (fs.lmcs is not None, "LMCS: ROADMAP 'Still to port' #3"),
-      (fs.alf is not None, "ALF/CC-ALF: ROADMAP 'Still to port' #4"),
   ]
   for bad, what in refusals:
     if bad:
@@ -383,6 +381,56 @@ def _layout_ctrl(mat, n_l0: int, ss: int):
   return inter, np.int32(len(pure_idx)), intra, np.int32(n_chunks)
 
 
+def has_dmvr(fs: FrameSyntax) -> bool:
+  """The frame has DMVR units: its unit controls need the refined MVs
+  (ops/dmvr.py, host.dmvr_apply) before its inputs can be built."""
+  return fs.cus is not None and "dmvr" in fs.cus and bool(
+      np.any(fs.cus["dmvr"]))
+
+
+def _lmcs_inputs(fs: FrameSyntax) -> dict:
+  """LMCS piecewise-segment tables (ops/lmcs.py evaluates the mapping
+  arithmetically); chroma_scale only when the picture header enables
+  chroma residual scaling."""
+  lm = {"pivot": fs.lmcs["pivot"], "fwd_scale": fs.lmcs["fwd_scale"],
+        "inv_scale": fs.lmcs["inv_scale"],
+        "bins": np.array([fs.lmcs["min_bin"], fs.lmcs["max_bin"]], np.int32)}
+  if fs.lmcs["crs_flag"]:
+    lm["chroma_scale"] = fs.lmcs["chroma_scale"]
+  return {k: np.asarray(v, np.int32) for k, v in lm.items()}
+
+
+# ALF clip index -> clip value 1 << (bd - ALF_CLIP_OFF[idx])
+ALF_CLIP_OFF = np.array([0, 3, 5, 7], np.int32)
+
+
+def _alf_inputs(fs: FrameSyntax) -> dict:
+  """ALF filter banks: the 16 fixed sets (alf_fixed through
+  alf_class_to_filt) then the slice's APS banks, clip indices turned into
+  clip values at the frame's bit depth, and the CC-ALF coefficients with a
+  zero row for filter index 0 (ops/alf.py)."""
+  a = fs.alf
+  bd = fs.bit_depth
+  fixed = VVC_TABLES["alf_fixed"].astype(np.int32)           # (64, 12)
+  c2f = VVC_TABLES["alf_class_to_filt"].astype(np.int32)     # (16, 25)
+
+  def clipv(idx):
+    return (1 << (bd - ALF_CLIP_OFF[idx])).astype(np.int32)
+
+  return {
+      "ctb": np.asarray(a["ctb"], np.int8),
+      "banks_coeff": np.concatenate(
+          [fixed[c2f], a["luma_coeff"]], axis=0).astype(np.int16),
+      "banks_clipv": np.concatenate(
+          [np.full((16, 25, 12), 1 << bd, np.int32),
+           clipv(a["luma_clipidx"])], axis=0).astype(np.int16),
+      "chroma_coeff": np.asarray(a["chroma_coeff"], np.int16),
+      "chroma_clipv": clipv(a["chroma_clipidx"]).astype(np.int16),
+      "cc_coeff": np.concatenate([np.zeros((2, 1, 7), np.int32),
+                                  a["cc_coeff"]], axis=1).astype(np.int16),
+  }
+
+
 def build_host_inputs(fs: FrameSyntax):
   """Numpy input tree of one frame (safe on a parse worker)."""
   check_supported(fs)
@@ -409,6 +457,10 @@ def build_host_inputs(fs: FrameSyntax):
     inp["planes"].append({"buckets": _bucket_inputs(fs, c_idx, sizes)})
   if not fs.deblock_disabled:
     inp["deblock"] = _deblock_grids(fs, Hp_y, Wp_y, Hp_c, Wp_c, fs.ctb_log2)
+  if fs.lmcs is not None:
+    inp["lmcs"] = _lmcs_inputs(fs)
+  if fs.alf is not None:
+    inp["alf"] = _alf_inputs(fs)
   if fs.sao is not None and np.any(fs.sao[..., 0:3]):
     # per-CTB params are all small ints (types 0-2, band pos 0-28,
     # offsets |v| <= 31)

@@ -4,13 +4,19 @@ planes.
 Torch port of the JAX frame program (pipeline.frame_program, non-Pallas
 form), stage by stage on one device:
 
-  buckets ──dequant+ITX──> residual planes
-  MC batch + DPB refs ──inter kernel──> prediction tiles (P/B frames)
-  tiles + intra layout ──recon kernel──> luma, then Cb+Cr (CCLM reads
-                                         the reconstructed luma before
-                                         deblocking)
-  edge grids ──> deblock V, then H (transposed) ──> SAO ──> packed
-                                                           planar bytes
+  luma buckets ──dequant+ITX──> luma residual plane
+  MC batch + DPB refs ──inter kernel──> prediction tiles (P/B frames; the
+                                        luma mapped forward under LMCS)
+  tiles + intra layout ──recon kernel──> luma (in the LMCS-mapped domain)
+  mapped luma ──> per-VPDU chroma residual scales (LMCS)
+  chroma buckets ──dequant+ITX, scaled──> Cb, Cr residual planes
+  tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
+                                         reconstructed luma)
+  luma ──LMCS inverse──> edge grids ──> deblock V, then H (transposed)
+       ──> SAO ──> ALF + CC-ALF ──> packed planar bytes
+
+DMVR frames first run their refinement (ops/dmvr.py, `refine_dmvr`)
+against the DPB, which the session does in decode order.
 
 Eager torch needs no compiled program per stream geometry: shapes come
 from each frame's own counts.
@@ -20,16 +26,19 @@ from __future__ import annotations
 import torch
 
 from ...ops import intra as I
+from ...ops.alf import alf_pass
 from ...ops.deblock import deblock_vertical_chroma, deblock_vertical_luma
+from ...ops.dmvr import refine_frame
 from ...ops.inter import inter_pred, inter_pred_plain_kind
+from ...ops.lmcs import lmcs_inv, lmcs_vpdu_scales
 from ...ops.recon import recon_plane, recon_plane_plain_kind
 from ...ops.sao import sao_plane
 from ...ops.transform import residual_plane
 from ...utils import trace
 from .convert import inputs_from_numpy
-from .host import ColStore, FrameSyntax, HostDecoder
+from .host import ColStore, FrameSyntax, HostDecoder, dmvr_apply
 from .inputs import (CHROMA_SIZES, LUMA_SIZES, _padded_plane_shapes,
-                     build_host_inputs)
+                     build_host_inputs, has_dmvr)
 
 
 def _sync_for(device):
@@ -54,7 +63,8 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   """inp: converted input tree (convert.inputs_from_numpy).
   refs: per component, the reference planes [L0..., L1...]
   (resolve_refs).
-  tile_bds: interior tile boundaries in luma samples (CCLM stencils).
+  tile_bds: interior tile boundaries in luma samples (CCLM stencils and
+  the LMCS chroma scales).
   wrap: the luma reference wraparound offset (0 = off).
   crop: conformance-window offsets (l, r, t, b) in luma samples.
   dbo/dto: effective deblock beta/tc offsets per component.
@@ -69,12 +79,16 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   maxs_y = 1 << ctb_log2
   (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(W, H, ctb_log2)
   n_comp = 1 if mono else 3
-  with trace.span("residual", sync):
-    res = [residual_plane(inp["planes"][c]["buckets"],
+  lm = inp.get("lmcs")
+
+  def residual(c, chroma_scale=None):
+    return residual_plane(inp["planes"][c]["buckets"],
                           Hp_y if c == 0 else Hp_c, Wp_y if c == 0 else Wp_c,
                           bd, LUMA_SIZES if c == 0 else CHROMA_SIZES, c > 0,
-                          device)
-           for c in range(n_comp)]
+                          device, chroma_scale)
+
+  with trace.span("residual", sync):
+    res_y = residual(0)
   call = call or _launch
   # plane kinds: (label, chroma shift, control, reference channels)
   kinds = [("luma", 0, inp["ctrl"]["y"], refs[:1])]
@@ -83,24 +97,43 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   with trace.span("inter", sync):
     tiles = {label: call("inter_pred", label, dict(
         refs=chans, inter=ct["inter"], H=H >> ss, W=W >> ss,
-        is_chroma=bool(ss), bit_depth=bd, wrap=wrap >> ss))
+        is_chroma=bool(ss), bit_depth=bd, wrap=wrap >> ss,
+        lmcs=None if ss else lm))
              if ct["inter"]["n_mc"] else None
              for label, ss, ct, chans in kinds}
-  with trace.span("recon", sync):
-    planes = []
-    for label, ss, ct, _ in kinds:
-      cclm = None
-      if ss and "cclm_vc" in inp:
-        # chroma CCLM reads the reconstructed luma: the whole-plane
-        # collocated downsample + the plane itself
+
+  def recon(label, ss, ct, res, cclm=None):
+    with trace.span("recon", sync):
+      return list(call("recon", label, dict(
+          res=res, intra=ct["intra"], n_chunks=ct["n_chunks"],
+          inter=ct["inter"], tiles=tiles[label], maxs=min(32, maxs_y >> ss),
+          is_chroma=bool(ss), bit_depth=bd, cclm=cclm)))
+
+  # luma first, in the LMCS-mapped domain when LMCS is on
+  planes = recon("luma", 0, inp["ctrl"]["y"], res_y[None])
+  if not mono:
+    scale = None
+    if lm is not None and "chroma_scale" in lm:
+      # chroma residual scaling reads the mapped luma recon around each
+      # VPDU, so the chroma residuals wait for it
+      with trace.span("lmcs", sync):
+        scale = lmcs_vpdu_scales(planes[0][:H, :W], lm, W, H,
+                                 min(maxs_y, 64), bd, tile_bds)
+    with trace.span("residual", sync):
+      res_c = torch.stack([residual(c, scale) for c in (1, 2)])
+    cclm = None
+    if "cclm_vc" in inp:
+      # chroma CCLM reads the reconstructed (mapped) luma: the whole-plane
+      # collocated downsample + the plane itself
+      with trace.span("recon", sync):
         cclm = (planes[0], I.cclm_dsy_plane(planes[0], inp["cclm_vc"],
                                             tile_bds[0], tile_bds[1]))
-      out = call("recon", label, dict(
-          res=torch.stack(res[1:]) if ss else res[0][None],
-          intra=ct["intra"], n_chunks=ct["n_chunks"], inter=ct["inter"],
-          tiles=tiles[label], maxs=min(32, maxs_y >> ss), is_chroma=bool(ss),
-          bit_depth=bd, cclm=cclm))
-      planes += list(out)
+    planes += recon("chroma", 1, inp["ctrl"]["c"], res_c, cclm)
+  if lm is not None:
+    # the whole luma plane back to the original domain before the loop
+    # filters (ff_vvc_lmcs_filter, vvc_filter.c:1322-1331)
+    with trace.span("lmcs", sync):
+      planes[0] = lmcs_inv(planes[0], lm, bd)
 
   if "deblock" in inp:
     with trace.span("deblock", sync):
@@ -132,6 +165,11 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
                               s["band"][..., c], s["offv"][..., c, :],
                               s["eo"][..., c], W >> ss, H >> ss,
                               ctb=(1 << ctb_log2) >> ss, bit_depth=bd)
+
+  if "alf" in inp:
+    with trace.span("alf", sync):
+      planes = alf_pass(planes, inp["alf"], W=W, H=H, ctb_log2=ctb_log2,
+                        bit_depth=bd, mono=mono)
 
   with trace.span("pack", sync):
     # the cropped planes in planar YCbCr order: the exact byte layout of
@@ -193,6 +231,18 @@ def resolve_refs(fs: FrameSyntax, dpb: dict, device) -> list:
   return out
 
 
+def refine_dmvr(fs: FrameSyntax, colstore: ColStore, epoch: int, dpb: dict,
+                device) -> None:
+  """A DMVR frame's refinement: the subblock search on `device` against
+  the DPB's planes, its rows fetched, then host.dmvr_apply, which
+  publishes the frame's collocated motion and rereads its unit controls
+  with the refined MVs.  Runs on the main thread in decode order, before
+  the session waits on a later frame's parse (which may need that
+  motion)."""
+  with trace.span("dmvr", _sync_for(device)):
+    dmvr_apply(fs, colstore, epoch, refine_frame(fs, dpb, device))
+
+
 def prepare_frame(fs: FrameSyntax):
   """Worker-thread half of a frame decode: the numpy host inputs."""
   with trace.span("inputs"):
@@ -218,11 +268,14 @@ def walk_frames(aus, device, call):
   after each frame's program was queued.  call: as in frame_program.
   The card checks walk streams with it, to hold each kernel call of the
   real program against its plain version."""
-  host, dpb = HostDecoder(ColStore()), {}
+  colstore = ColStore()
+  host, dpb = HostDecoder(colstore), {}
   for _, epoch, au in aus:
     fs = host.decode_au(au, epoch)
     if fs is None:
       continue
+    if has_dmvr(fs):
+      refine_dmvr(fs, colstore, epoch, dpb, device)
     h = build_host_inputs(fs)
     _, dpb[fs.poc] = submit_frame(h, fs, device, dpb, call=call)
     yield fs, h

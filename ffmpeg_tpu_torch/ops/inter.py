@@ -6,8 +6,10 @@ then the CIIP units) gets its clipped w x h prediction per channel, in
 the MC tile format of `models.vvc.mc_tiles`: both hypotheses through
 the separable 8-tap luma / 4-tap chroma filter (AMVR half-pel and affine
 6-tap banks through `hpel`), reference wraparound, PROF, BDOF, uni/bi
-rounding, explicit weights and BCW (Cr takes the second weight set), and
-the GPM blend.  The recon pass places the pure units' samples and blends
+rounding, explicit weights and BCW (Cr takes the second weight set), the
+GPM blend, DMVR's read window around the original MV (the units filter
+at the refined MV) and, for luma under LMCS, the forward mapping of the
+prediction.  The recon pass places the pure units' samples and blends
 the CIIP units' samples.
 
 `inter_pred` is the entry point.  A CUDA tensor launches the kernel
@@ -30,6 +32,7 @@ import torch
 from ..models.vvc import mc_tiles
 from ..models.vvc.inputs import INTER_KEYS
 from ..models.vvc.mc_tiles import MC_TILE
+from .lmcs import lmcs_fwd
 from .tables import VVC_TABLES, on_device
 
 INTERP_LUMA = VVC_TABLES["interp_luma"].astype(np.int32)      # (3, 16, 8)
@@ -72,17 +75,25 @@ class _Refs:
     self.flat = refs.reshape(-1)
     self.wrap = wrap
 
-  def window(self, slot, iy, ix, n, wrap_on):
+  def window(self, slot, iy, ix, n, wrap_on, win=None):
     """(N, n, n) samples from rows iy.., columns ix.. of each unit's
-    reference plane; columns wrap for the units where wrap_on (N,)."""
+    reference plane; columns wrap for the units where wrap_on (N,).
+    win, when given, is each unit's (wx0, wx1, wy0, wy1) clamp window,
+    inside the picture (DMVR's, or the picture itself)."""
     d = _ar(n, slot.device)
-    ys = (iy[:, None] + d).clamp(0, self.H - 1)
+    ys = iy[:, None] + d
     xs = ix[:, None] + d
     if self.wrap:
       on = wrap_on[:, None]
       xs = torch.where(on & (xs < 0), xs + self.wrap, xs)
       xs = torch.where(on & (xs > self.W - 1), xs - self.wrap, xs)
-    xs = xs.clamp(0, self.W - 1)
+    if win is None:
+      xs = xs.clamp(0, self.W - 1)
+      ys = ys.clamp(0, self.H - 1)
+    else:
+      wx0, wx1, wy0, wy1 = (v[:, None] for v in win)
+      xs = torch.minimum(torch.maximum(xs, wx0), wx1)
+      ys = torch.minimum(torch.maximum(ys, wy0), wy1)
     slot = slot.clamp(0, self.n - 1)
     idx = (slot[:, None, None] * (self.H * self.W) + ys[:, :, None] * self.W
            + xs[:, None, :])
@@ -107,7 +118,8 @@ def _mc_block(R, c, lx, *, taps, before, frac_bits, bit_depth, hp):
     hf, vf = ftab[hp.long(), fx], ftab[hp.long(), fy]
   g = S + taps - 1
   win = R.window(slot, c["y0"] + (mvy >> frac_bits) - before,
-                 c["x0"] + (mvx >> frac_bits) - before, g, c["wrap_mc"])
+                 c["x0"] + (mvx >> frac_bits) - before, g, c["wrap_mc"],
+                 c[f"win{lx}"])
   acc = torch.zeros((win.shape[0], g, S), dtype=_I32, device=dev)
   for k in range(taps):
     acc += hf[:, k, None, None] * win[:, :, k:k + S]
@@ -118,14 +130,14 @@ def _mc_block(R, c, lx, *, taps, before, frac_bits, bit_depth, hp):
   return acc >> 6
 
 
-def _int_ring(R, c, lx, n, bit_depth, wrap_on):
+def _int_ring(R, c, lx, n, bit_depth, wrap_on, win=None):
   """(N, n, n) integer-position reference samples around each unit,
   scaled to 14 bits (bdof_fetch_samples)."""
   mvx, mvy = (c["m1x"], c["m1y"]) if lx else (c["m0x"], c["m0y"])
   slot = c["r1slot"] if lx else c["r0slot"]
   iy = c["y0"] + (mvy >> 4) + ((mvy >> 3) & 1) - 1
   ix = c["x0"] + (mvx >> 4) + ((mvx >> 3) & 1) - 1
-  return R.window(slot, iy, ix, n, wrap_on) << (14 - bit_depth)
+  return R.window(slot, iy, ix, n, wrap_on, win) << (14 - bit_depth)
 
 
 def _prof_refine(R, c, t, lx, bit_depth):
@@ -174,9 +186,9 @@ def _bdof_bi(R, c, t0, t1, bit_depth, maxv):
 
   t0r, t1r = rep(t0, S), rep(t1, S)
   p0 = torch.where(inside, t0r, _int_ring(R, c, 0, 18, bit_depth,
-                                          c["wrap_mc"]))
+                                          c["wrap_mc"], c["win0"]))
   p1 = torch.where(inside, t1r, _int_ring(R, c, 1, 18, bit_depth,
-                                          c["wrap_mc"]))
+                                          c["wrap_mc"], c["win1"]))
 
   def grad(p):  # 3-tap gradients on the int-ring padded signal
     return ((p[:, 1:17, 2:18] >> 6) - (p[:, 1:17, 0:16] >> 6),
@@ -213,13 +225,46 @@ def _bdof_bi(R, c, t0, t1, bit_depth, maxv):
   return out
 
 
-def _pred_units(R, c, gwt, gslot, *, is_chroma, bit_depth):
+def _dmvr_windows(R, c, *, taps, frac_bits):
+  """Each unit's read window per list, (wx0, wx1, wy0, wy1): for a DMVR
+  unit the reference region of its original MV (om*) and filter taps,
+  clamped into the picture (emulated_edge_dmvr; `_inter_pred_unit`'s
+  dmvr_win), which also bounds the reads at the refined MV; the picture
+  for every other unit.  The CIIP rows (wrap_mc) take no DMVR window, as
+  the JAX frame program's intra pass, which predicts them, has none."""
+  eb, ea = (3, 4) if taps == 8 else (1, 2)
+  on = (c["dmvr"] > 0) & ~c["wrap_mc"]
+  out = []
+  for lx in (0, 1):
+    xsb = c["x0"] + (c[f"om{lx}x"] >> frac_bits)
+    ysb = c["y0"] + (c[f"om{lx}y"] >> frac_bits)
+    wx0 = (xsb - eb).clamp(0, R.W - 1)
+    wx1 = wx0 + ((xsb + c["w"] + ea).clamp(max=R.W) - wx0).clamp(min=1) - 1
+    wy0 = (ysb - eb).clamp(0, R.H - 1)
+    wy1 = wy0 + ((ysb + c["h"] + ea).clamp(max=R.H) - wy0).clamp(min=1) - 1
+    zero = torch.zeros_like(wx0)
+    out.append((torch.where(on, wx0, zero),
+                torch.where(on, wx1, zero + R.W - 1),
+                torch.where(on, wy0, zero),
+                torch.where(on, wy1, zero + R.H - 1)))
+  return out
+
+
+def _rows(c, sel):
+  """The control rows (and read windows) of the units `sel`."""
+  return {k: tuple(a[sel] for a in v) if isinstance(v, tuple) else v[sel]
+          for k, v in c.items()}
+
+
+def _pred_units(R, c, gwt, gslot, *, is_chroma, bit_depth, lmcs=None):
   """Clipped prediction tiles of N units of one channel
-  (`_inter_pred_unit` without DMVR and LMCS)."""
+  (`_inter_pred_unit`), the luma mapped forward when lmcs is given."""
   S = MC_TILE
   bd = bit_depth
   maxv = (1 << bd) - 1
   taps, before, fb = (4, 1, 5) if is_chroma else (8, 3, 4)
+  c = dict(c)
+  c["win0"], c["win1"] = _dmvr_windows(R, c, taps=taps, frac_bits=fb)
   hp = torch.zeros_like(c["hpel"]) if is_chroma else c["hpel"]
   kw = dict(taps=taps, before=before, frac_bits=fb, bit_depth=bd, hp=hp)
   t0 = _mc_block(R, c, 0, **kw)
@@ -228,7 +273,7 @@ def _pred_units(R, c, gwt, gslot, *, is_chroma, bit_depth):
   if not is_chroma:
     sel = torch.nonzero(c["prof"] != 0).flatten()
     if sel.numel():
-      cs = {k: v[sel] for k, v in c.items()}
+      cs = _rows(c, sel)
       t0[sel] = _prof_refine(R, cs, t0[sel], 0, bd)
       t1[sel] = _prof_refine(R, cs, t1[sel], 1, bd)
   shift2 = 14 - bd
@@ -239,7 +284,7 @@ def _pred_units(R, c, gwt, gslot, *, is_chroma, bit_depth):
   if not is_chroma:
     sel = torch.nonzero(c["bdof"] > 0).flatten()
     if sel.numel():
-      cs = {k: v[sel] for k, v in c.items()}
+      cs = _rows(c, sel)
       bi[sel] = _bdof_bi(R, cs, t0[sel], t1[sel], bd, maxv)
   # explicit uni weighting (put_uni_w) and weighted bi (w_avg: BCW and
   # explicit weights); wden < 0 selects the defaults, and the shift is
@@ -262,6 +307,8 @@ def _pred_units(R, c, gwt, gslot, *, is_chroma, bit_depth):
   wb = gwt[gslot.long()]
   gp = ((t0 * wb + t1 * (8 - wb) + (1 << (sh_g - 1))) >> sh_g).clamp(0, maxv)
   pred = torch.where(c["gpm_part"][:, None, None] > 0, gp, pred)
+  if lmcs is not None:
+    pred = lmcs_fwd(pred, lmcs, bd)
   d = _ar(S, pred.device)
   inside = ((d[None, :, None] < c["h"][:, None, None])
             & (d[None, None, :] < c["w"][:, None, None]))
@@ -269,20 +316,22 @@ def _pred_units(R, c, gwt, gslot, *, is_chroma, bit_depth):
 
 
 def inter_pred_plain(refs, inter: dict, *, is_chroma: bool, bit_depth: int,
-                     wrap: int = 0, cr: bool = False):
+                     wrap: int = 0, cr: bool = False, lmcs=None):
   """Plain torch prediction tiles of one channel: refs (n_refs, H, W)
   picture-size planes [L0..., L1...]; inter: the converted MC batch
   (convert.inputs_from_numpy); cr: Cr, which takes the second weight
-  set.  wrap: the channel's wraparound offset (0 = edge clamp).
-  Returns the channel's (T,) int16 tiles (mc_tiles), computed as
-  (n_mc, S, S) tiles and packed.
+  set.  wrap: the channel's wraparound offset (0 = edge clamp).  lmcs:
+  the frame's converted LMCS tables, given for luma: the prediction is
+  mapped forward (ops/lmcs.py lmcs_fwd).  Returns the channel's (T,)
+  int16 tiles (mc_tiles), computed as (n_mc, S, S) tiles and packed.
 
-  Wraparound follows the JAX frame program's reads: its pure inter
-  units clamp the MC window and the BDOF ring to the picture (the
-  picture-sized DMVR window of `_inter_pred_unit`, which every unit of
-  its INTER_KEYS batch takes), and wrap only the PROF ring; its CIIP
-  units (rows n_inter.. here, MC from the intra pass without that
-  window) wrap every read."""
+  The reads follow the JAX frame program's, whose pure inter units take
+  the read window of `_inter_pred_unit` (every unit of its INTER_KEYS
+  batch carries the DMVR rows): a DMVR unit clamps the MC window and the
+  BDOF ring to the region of its original MV (`_dmvr_windows`), though
+  it filters at the refined MV; every other pure unit clamps them to the
+  picture.  The PROF ring always wraps.  CIIP units (rows n_inter..
+  here, MC from the intra pass without that window) wrap every read."""
   PLAIN_RUNS["inter_pred"] += 1
   n = inter["n_mc"]
   R = _Refs(refs, wrap)
@@ -296,7 +345,8 @@ def inter_pred_plain(refs, inter: dict, *, is_chroma: bool, bit_depth: int,
     c = {k: v[lo:lo + _PLAIN_BATCH] for k, v in keys.items()}
     out.append(_pred_units(R, c, inter["gwt"],
                            inter["gslot"][lo:lo + _PLAIN_BATCH],
-                           is_chroma=is_chroma, bit_depth=bit_depth))
+                           is_chroma=is_chroma, bit_depth=bit_depth,
+                           lmcs=lmcs))
   padded = (torch.cat(out) if out else
             torch.zeros((0, MC_TILE, MC_TILE), dtype=_I32, device=refs.device))
   return mc_tiles.pack(padded, inter["toff"], inter["w"], inter["h"])
@@ -311,8 +361,9 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "inter_pred.cu")
 _lib = None
 
-# limits of the kernel's parameter block (csrc/inter_pred.cu)
-MAX_NCH, MAX_REFS = 2, 32
+# limits of the kernel's parameter block (csrc/inter_pred.cu), and the
+# length of its LMCS forward table (16 pivots, 16 scales)
+MAX_NCH, MAX_REFS, LMCS_TABLE = 2, 32, 32
 
 
 def _get_kernel():
@@ -334,6 +385,8 @@ def _get_kernel():
         p, ctypes.c_longlong,  # toff (n_mc + 1,), T
         p,                  # out (nch, T) int16
         i, i, i,            # is_chroma, bit_depth, wrap
+        p,                  # host LMCS forward table (LMCS_TABLE,), or
+                            # NULL: no mapping
         p]                  # stream
     lib.inter_pred_error_string.restype = ctypes.c_char_p
     lib.inter_pred_error_string.argtypes = [ctypes.c_int]
@@ -353,7 +406,20 @@ def _check(t, name, shape=None):
                      f"expected {tuple(shape)}")
 
 
-def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap, mark=None):
+def _lmcs_table(lmcs):
+  """The kernel's LMCS forward table: pivot[0:16] then fwd_scale[0:16]
+  (the host copy convert.py keeps), as a ctypes array; None without
+  LMCS."""
+  if lmcs is None:
+    return None
+  t = np.ascontiguousarray(lmcs["fwd_host"], np.int32)
+  if t.shape != (LMCS_TABLE,):
+    raise ValueError(f"inter_pred: LMCS table of shape {t.shape}")
+  return (ctypes.c_int * LMCS_TABLE)(*t.tolist())
+
+
+def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap, lmcs=None,
+                mark=None):
   """The kernel's launches on the current stream: the small units, then
   the large ones (a class with no unit is not launched), into one
   (nch, T) output.  mark(cls), if given, is called just before each (0
@@ -391,8 +457,11 @@ def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap, mark=None):
       raise ValueError("inter_pred: channels differ in reference count")
     for r in ch:
       _check(r, "reference plane", (Hp, Wp))
+  if lmcs is not None and is_chroma:
+    raise ValueError("inter_pred: LMCS maps luma only")
   ptrs = (ctypes.c_longlong * (nch * n_refs))(
       *[r.data_ptr() for ch in refs for r in ch])
+  lm = _lmcs_table(lmcs)
   out = torch.empty((nch, T), dtype=mc_tiles.DTYPE, device=dev)
   lib = _get_kernel()
   stream = torch.cuda.current_stream(dev).cuda_stream
@@ -406,7 +475,7 @@ def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap, mark=None):
         inter[key].data_ptr(), n_list[key], cls,
         ptrs, n_refs, nch, H, W, Wp, inter["gwt"].data_ptr(),
         inter["gslot"].data_ptr(), inter["toff"].data_ptr(), T,
-        out.data_ptr(), int(is_chroma), bit_depth, wrap, stream)
+        out.data_ptr(), int(is_chroma), bit_depth, wrap, lm, stream)
     if rc != 0:
       raise RuntimeError("inter_pred kernel launch failed: "
                          f"{lib.inter_pred_error_string(rc).decode()}")
@@ -416,31 +485,34 @@ def _inter_cuda(refs, inter, *, H, W, is_chroma, bit_depth, wrap, mark=None):
 
 
 def inter_pred(refs, inter: dict, *, H: int, W: int, is_chroma: bool,
-               bit_depth: int, wrap: int = 0):
+               bit_depth: int, wrap: int = 0, lmcs=None):
   """Prediction samples of the MC batch of one plane kind.
 
   refs: per channel (1 for luma, 2 for Cb+Cr), the frame's reference
   planes [L0..., L1...] as padded (Hp, Wp) int32 DPB planes; reads
-  clamp to the H x W picture (or wrap by `wrap` columns).  inter: the
-  converted MC batch.  Returns its (nch, T) int16 tiles (mc_tiles).  A
+  clamp to the H x W picture, or to a DMVR unit's window (or wrap by
+  `wrap` columns).  inter: the converted MC batch.  lmcs: the frame's
+  converted LMCS tree, luma only: the prediction is mapped forward.
+  Returns its (nch, T) int16 tiles (mc_tiles).  A
   CUDA batch launches the kernel; a CPU batch runs the plain version;
   nothing falls back from one to the other."""
   dev = inter["mat"].device
   if dev.type == "cuda":
     return _inter_cuda(refs, inter, H=H, W=W, is_chroma=is_chroma,
-                       bit_depth=bit_depth, wrap=wrap)
+                       bit_depth=bit_depth, wrap=wrap, lmcs=lmcs)
   if dev.type != "cpu":
     raise ValueError(f"inter_pred: unsupported device {dev}")
   return inter_pred_plain_kind(refs, inter, H=H, W=W, is_chroma=is_chroma,
-                               bit_depth=bit_depth, wrap=wrap)
+                               bit_depth=bit_depth, wrap=wrap, lmcs=lmcs)
 
 
 def inter_pred_plain_kind(refs, inter: dict, *, H: int, W: int,
-                          is_chroma: bool, bit_depth: int, wrap: int = 0):
+                          is_chroma: bool, bit_depth: int, wrap: int = 0,
+                          lmcs=None):
   """inter_pred's plain version, with its arguments and result: every
   channel of the plane kind through inter_pred_plain."""
   return torch.stack([
       inter_pred_plain(torch.stack([r[:H, :W] for r in ch]), inter,
                        is_chroma=is_chroma, bit_depth=bit_depth, wrap=wrap,
-                       cr=is_chroma and i == 1)
+                       cr=is_chroma and i == 1, lmcs=lmcs)
       for i, ch in enumerate(refs)])

@@ -154,9 +154,12 @@ def bucket_view(bucket: dict) -> dict:
 
 
 def bucket_residuals(b: dict, w: int, h: int, bit_depth: int,
-                     is_chroma: bool) -> torch.Tensor:
+                     is_chroma: bool, chroma_scale=None) -> torch.Tensor:
   """Dequant + inverse transform of one (w, h) size class -> (n, h, w)
-  int32 residual blocks (bucket_view rows in, live rows only)."""
+  int32 residual blocks (bucket_view rows in, live rows only).
+  chroma_scale, when given, is the flat per-VPDU LMCS scale array
+  (ops/lmcs.py lmcs_vpdu_scales), applied to chroma TBs of more than 4
+  samples by their `vpdu` row (itransform, vvc_intra.c:449-475)."""
   if w > 32 or h > 32 or w == 1 or h == 1:
     raise NotImplementedError(
         f"{w}x{h} transform blocks (TB-64 / ISP): ROADMAP 'Still to "
@@ -194,20 +197,28 @@ def bucket_residuals(b: dict, w: int, h: int, bit_depth: int,
     jop = b["jop"][:, None, None]
     sgn = torch.where((jop == 2) | (jop == 4), -out, out)
     out = torch.where(jop == 0, out, torch.where(jop >= 3, sgn >> 1, sgn))
+  if is_chroma and chroma_scale is not None and w * h > 4:
+    # LMCS chroma residual scaling (lmcs_scale_chroma,
+    # vvc_intra_template.c:431-454), after the joint-CbCr sign and shift
+    sc = chroma_scale[b["vpdu"].long()][:, None, None]
+    c = out.clamp(-(1 << bit_depth), (1 << bit_depth) - 1)
+    mag = (c.abs() * sc + (1 << 10)) >> 11
+    out = torch.where(c < 0, -mag, mag)
   return out
 
 
 def residual_plane(buckets: dict, Hp: int, Wp: int, bit_depth: int, sizes,
-                   is_chroma: bool, device) -> torch.Tensor:
+                   is_chroma: bool, device, chroma_scale=None) -> torch.Tensor:
   """(Hp, Wp) int32 residual plane of one component: every size class's
-  blocks placed at their TU origins (TUs never overlap)."""
+  blocks placed at their TU origins (TUs never overlap).  chroma_scale:
+  as in bucket_residuals."""
   res = torch.zeros((Hp, Wp), dtype=torch.int32, device=device)
   for (w, h) in sizes:
     bucket = buckets[(w, h)]
     if not bucket["n"]:
       continue
     b = bucket_view(bucket)
-    out = bucket_residuals(b, w, h, bit_depth, is_chroma)
+    out = bucket_residuals(b, w, h, bit_depth, is_chroma, chroma_scale)
     yy = b["y0"].long()[:, None, None] + torch.arange(h, device=device)[
         None, :, None]
     xx = b["x0"].long()[:, None, None] + torch.arange(w, device=device)[

@@ -2,8 +2,9 @@
 analog, reference vvc_thread.c:568-603).
 
 Enable with FFMPEG_TPU_TRACE=1 (or `enable()`): the decoder records
-wall-clock spans for each stage (host_parse, inputs, h2d, residual,
-recon, deblock, sao, pack, fetch) and `summary()` aggregates them.  A span
+wall-clock spans for each stage (host_parse, inputs, dmvr, h2d,
+residual, inter, recon, lmcs, deblock, sao, alf, pack, fetch) and
+`summary()` aggregates them.  A span
 given a `sync` callable (torch.cuda.synchronize for a CUDA device)
 calls it at both edges, so the span holds the device work it queued;
 that costs the overlap of host and device and happens only while
@@ -19,6 +20,9 @@ from collections import defaultdict
 from contextlib import contextmanager
 
 ENABLED = bool(os.environ.get("FFMPEG_TPU_TRACE"))
+# profiler ranges around the spans (chip_smoke.py's profile phase); off
+# unless set, and independent of ENABLED
+PROFILE_RANGES = False
 
 _lock = threading.Lock()
 _spans: dict[str, list[float]] = defaultdict(list)
@@ -30,7 +34,7 @@ def enable(on: bool = True) -> None:
 
 
 @contextmanager
-def span(stage: str, sync=None):
+def _timed(stage: str, sync=None):
     if not ENABLED:
         yield
         return
@@ -45,6 +49,21 @@ def span(stage: str, sync=None):
         dt = time.perf_counter() - t0
         with _lock:
             _spans[stage].append(dt)
+
+
+@contextmanager
+def span(stage: str, sync=None):
+    """Time a stage (while tracing is on); while PROFILE_RANGES is on,
+    also mark it as a torch.profiler range named "stage/<stage>", so that a
+    profile can sum the device time of the kernels each stage launched."""
+    if not PROFILE_RANGES:
+        with _timed(stage, sync):
+            yield
+        return
+    from torch.profiler import record_function
+
+    with record_function("stage/" + stage), _timed(stage, sync):
+        yield
 
 
 def reset() -> None:

@@ -1,10 +1,11 @@
-"""End to end: the PyTorch port decodes intra and P/B streams to the JAX
-package's frame MD5s, and refuses what its slices do not cover.
+"""End to end: the PyTorch port decodes intra and P/B streams, with LMCS,
+ALF/CC-ALF and DMVR, to the JAX package's frame MD5s, and refuses what its
+slices do not cover.
 
 The JAX MD5s of the small cases live in
-ffmpeg_tpu_torch/testdata/intra_cases.md5.json and inter_cases.md5.json
-(a JAX decode per case costs a minute of XLA compile on the CPU);
-regenerate both with
+ffmpeg_tpu_torch/testdata/intra_cases.md5.json, inter_cases.md5.json and
+tools_cases.md5.json (a JAX decode per case costs a minute of XLA compile
+on the CPU); regenerate them with
 
   python tests/test_torch_decode.py
 
@@ -28,6 +29,7 @@ sys.path.insert(0, ROOT)
 TESTDATA = os.path.join(ROOT, "ffmpeg_tpu_torch", "testdata")
 CASES_JSON = os.path.join(TESTDATA, "intra_cases.md5.json")
 INTER_JSON = os.path.join(TESTDATA, "inter_cases.md5.json")
+TOOLS_JSON = os.path.join(TESTDATA, "tools_cases.md5.json")
 
 torch.set_num_threads(2)
 
@@ -142,11 +144,112 @@ INTER_CASES = {
                           sao=True),
 }
 
+# cases of tests/test_conformance.py with LMCS, ALF/CC-ALF or DMVR (same
+# ids and configs): every one the port decodes since those tools came
+TOOL_CASES = {
+    "lmcs": dict(width=96, height=96, seed=1501, qp=30, lmcs=True),
+    "lmcs-b": dict(width=96, height=96, seed=1504, qp=30, lmcs=True),
+    "lmcs-inter": dict(width=96, height=64, seed=1502, qp=28, lmcs=True,
+                       inter=True, b_slices=True, deblock=True, sao=True,
+                       n_frames=4),
+    "lmcs-ra": dict(width=96, height=64, seed=1505, qp=30, lmcs=True,
+                    inter=True, b_slices=True, ra=True, n_frames=9,
+                    deblock=True),
+    "lmcs-10bit-jcbcr": dict(width=96, height=64, seed=1506, qp=32, lmcs=True,
+                             bit_depth=10, joint_cbcr=True, sao=True),
+    "lmcs-tools": dict(width=128, height=64, seed=1507, qp=30, lmcs=True,
+                       mts=True, lfnst=True, dep_quant=True, cu_qp_delta=True,
+                       ctu_log2=6, max_bt_size=64),
+    "alf": dict(width=96, height=96, seed=1601, qp=30, alf=True),
+    "alf-ccalf": dict(width=96, height=96, seed=1604, qp=30, alf=True,
+                      ccalf=True),
+    "alf-inter": dict(width=96, height=64, seed=1605, qp=28, alf=True,
+                      ccalf=True, inter=True, b_slices=True, deblock=True,
+                      sao=True, n_frames=4),
+    "alf-ctu64-10bit": dict(width=128, height=128, seed=1606, qp=30, alf=True,
+                            ccalf=True, ctu_log2=6, max_bt_size=64,
+                            bit_depth=10),
+    "alf-lmcs-ra": dict(width=96, height=64, seed=1607, qp=30, alf=True,
+                        ccalf=True, lmcs=True, inter=True, b_slices=True,
+                        ra=True, n_frames=9, deblock=True, sao=True),
+    "inter-wave1-all": dict(width=96, height=64, seed=1706, qp=30, inter=True,
+                            b_slices=True, ra=True, tmvp=True, n_frames=9,
+                            mmvd=True, amvr=True, bcw=True, lmcs=True,
+                            alf=True, deblock=True, sao=True),
+    "ciip-tools-ra": dict(width=96, height=64, seed=1803, qp=28, inter=True,
+                          b_slices=True, ra=True, n_frames=9, ciip=True,
+                          mmvd=True, amvr=True, bcw=True, lmcs=True,
+                          deblock=True),
+    "wp-tools-ra": dict(width=96, height=64, seed=2003, qp=28, inter=True,
+                        b_slices=True, ra=True, n_frames=9,
+                        weighted_pred=True, mmvd=True, lmcs=True,
+                        deblock=True),
+    "sbtmvp-tools-ra": dict(width=96, height=64, seed=2106, qp=28, inter=True,
+                            b_slices=True, ra=True, n_frames=9, sbtmvp=True,
+                            tmvp=True, mmvd=True, amvr=True, bcw=True,
+                            lmcs=True, deblock=True, max_mv=160),
+    "affine-tools-ra": dict(width=96, height=64, seed=2206, qp=28, inter=True,
+                            b_slices=True, ra=True, n_frames=9, affine=True,
+                            sbtmvp=True, tmvp=True, mmvd=True, amvr=True,
+                            bcw=True, lmcs=True, deblock=True, max_mv=120),
+    "prof-tools-ra": dict(width=96, height=64, seed=2303, qp=28, inter=True,
+                          b_slices=True, ra=True, n_frames=9, affine=True,
+                          prof=True, sbtmvp=True, tmvp=True, bcw=True,
+                          lmcs=True, deblock=True, max_mv=120),
+    "bdof-ra": dict(width=96, height=64, seed=2403, qp=28, inter=True,
+                    b_slices=True, ra=True, n_frames=9, bdof=True, mmvd=True,
+                    tmvp=True, lmcs=True, deblock=True, max_mv=90),
+    "dmvr": dict(width=96, height=64, seed=2501, qp=28, inter=True,
+                 b_slices=True, ra=True, n_frames=9, dmvr=True, max_mv=90),
+    "dmvr-bdof-tmvp": dict(width=96, height=96, seed=2502, qp=28, inter=True,
+                           b_slices=True, ra=True, n_frames=9, dmvr=True,
+                           bdof=True, tmvp=True, deblock=True, sao=True,
+                           max_mv=90),
+    "dmvr-tools-ra": dict(width=96, height=64, seed=2503, qp=28, inter=True,
+                          b_slices=True, ra=True, n_frames=9, dmvr=True,
+                          bdof=True, mmvd=True, lmcs=True, affine=True,
+                          prof=True, deblock=True, max_mv=90),
+    "gpm-tools-ra": dict(width=96, height=64, seed=1903, qp=28, inter=True,
+                         b_slices=True, ra=True, n_frames=9, gpm=True,
+                         ciip=True, mmvd=True, bcw=True, amvr=True, lmcs=True,
+                         deblock=True),
+    "mip-lmcs-ra": dict(width=96, height=64, seed=2605, qp=30, mip=True,
+                        inter=True, b_slices=True, ra=True, n_frames=5,
+                        deblock=True, sao=True, lmcs=True),
+    "cclm-lmcs-ra": dict(width=96, height=64, seed=2705, qp=30, cclm=True,
+                         inter=True, b_slices=True, ra=True, n_frames=5,
+                         deblock=True, sao=True, lmcs=True),
+    "mrl-tools-ra": dict(width=96, height=64, seed=2804, qp=30, mrl=True,
+                         cclm=True, inter=True, b_slices=True, ra=True,
+                         n_frames=5, deblock=True, sao=True, lmcs=True),
+    "tiles-tools-ra": dict(width=96, height=96, seed=3004, qp=28,
+                           tile_cols=(1, 2), tile_rows=(1, 2), inter=True,
+                           b_slices=True, ra=True, n_frames=9, mmvd=True,
+                           amvr=True, bcw=True, lmcs=True, alf=True,
+                           deblock=True, sao=True, mip=True, cclm=True),
+    "wpp-tools-ra": dict(width=96, height=96, seed=3104, qp=28, wpp=True,
+                         inter=True, b_slices=True, ra=True, n_frames=9,
+                         mmvd=True, amvr=True, bcw=True, lmcs=True, alf=True,
+                         deblock=True, sao=True),
+    "separate-ph-tools-ra": dict(width=96, height=64, seed=2902, qp=28,
+                                 separate_ph=True, inter=True, b_slices=True,
+                                 ra=True, n_frames=5, deblock=True, sao=True,
+                                 lmcs=True),
+    "dualtree-10bit-filters": dict(width=96, height=64, seed=3205, qp=28,
+                                   dual_tree=True, bit_depth=10, alf=True,
+                                   ccalf=True, lmcs=True, deblock=True,
+                                   sao=True),
+    "rpl-ph-sps-ra": dict(width=96, height=64, seed=3804, qp=30, inter=True,
+                          b_slices=True, ra=True, tmvp=True, n_frames=9,
+                          rpl_in_ph=True, rpl_in_sps=True, deblock=True,
+                          sao=True, lmcs=True, max_mv=48),
+    "alf-ph": dict(width=96, height=64, seed=3805, qp=30, inter=True,
+                   n_frames=5, alf_in_ph=True, alf=True, ccalf=True,
+                   deblock=True, sao=True, max_mv=48),
+}
+
 # one stream per refused feature: (config, what the refusal names)
 REFUSED = {
-    "dmvr": (dict(width=96, height=64, seed=2501, qp=28, inter=True,
-                  b_slices=True, ra=True, n_frames=9, dmvr=True, max_mv=90),
-             "DMVR"),
     "isp": (dict(width=96, height=96, seed=3501, qp=30, isp=True,
                  split_prob=0.8), "ISP"),
     "tb64": (dict(width=128, height=128, seed=3701, qp=30, ctu_log2=6,
@@ -155,9 +258,6 @@ REFUSED = {
     "scaling-lists": (dict(width=96, height=96, seed=7002, qp=28,
                            scaling_lists=True, mts=True, joint_cbcr=True),
                       "scaling lists"),
-    "lmcs": (dict(width=96, height=96, seed=1501, qp=30, lmcs=True),
-             "LMCS"),
-    "alf": (dict(width=96, height=96, seed=1601, qp=30, alf=True), "ALF"),
 }
 
 
@@ -222,6 +322,29 @@ def test_inter_case_matches_jax(case):
     want = json.load(f)[case]
   assert want["config"] == json.loads(json.dumps(INTER_CASES[case]))
   assert _port_md5s(_stream(INTER_CASES[case])) == want["md5"]
+
+
+@pytest.mark.parametrize("case", list(TOOL_CASES))
+def test_tool_case_matches_jax(case):
+  with open(TOOLS_JSON) as f:
+    want = json.load(f)[case]
+  assert want["config"] == json.loads(json.dumps(TOOL_CASES[case]))
+  assert _port_md5s(_stream(TOOL_CASES[case])) == want["md5"]
+
+
+def test_session_decodes_dmvr_stream_again():
+  """One session decodes a stream with DMVR and TMVP three times, each to
+  the JAX MD5s: a parser handle that parsed a DMVR frame is not reused
+  (it would keep deferring the collocated motion of the frames it parses
+  next, and a later frame's TMVP would wait for it)."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import DecoderConfig, VVCDecoder
+
+  with open(TOOLS_JSON) as f:
+    want = json.load(f)["dmvr-bdof-tmvp"]["md5"]
+  data = _stream(TOOL_CASES["dmvr-bdof-tmvp"])
+  dec = VVCDecoder(device="cpu", config=DecoderConfig(errors="raise"))
+  for _ in range(3):
+    assert [f.md5() for f in dec.decode(data)] == want
 
 
 def test_fixture_10bit_matches_jax():
@@ -416,26 +539,32 @@ def test_recon_kernel_repeats_match_plain_on_card(cuda, name, n_frames):
 @pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("chan", ["y", "cb", "cr"])
 @pytest.mark.parametrize("wrap", [0, 1])
-def test_inter_kernel_matches_plain_random(cuda, bd, chan, wrap):
+@pytest.mark.parametrize("tools", ["", "dmvr-lmcs"])
+def test_inter_kernel_matches_plain_random(cuda, bd, chan, wrap, tools):
   """The inter-prediction kernel against its plain version on seeded
   random MC batches with every mode (tests/torch_mc_rows.py): Cr through
   a two-channel call, wraparound on and off; pure inter rows, then CIIP
-  rows; small and large units both launched."""
-  from ffmpeg_tpu_torch.models.vvc.convert import _inter
+  rows; small and large units both launched.  With dmvr-lmcs, a third of
+  the units are DMVR units whose refined reads cross their original
+  window, and luma is mapped through a random LMCS table."""
+  from ffmpeg_tpu_torch.models.vvc.convert import _inter, _lmcs
   from ffmpeg_tpu_torch.ops import inter as P
-  from torch_mc_rows import batch, random_rows
+  from torch_mc_rows import batch, random_lmcs, random_rows
 
   rng = np.random.default_rng(1000 * bd + 10 * ("y", "cb", "cr").index(chan)
-                              + wrap)
+                              + wrap + (7 if tools else 0))
   is_chroma = chan != "y"
   H, W, n_refs = (24, 40, 3) if is_chroma else (48, 80, 3)
   refs = [[torch.from_numpy(rng.integers(0, 1 << bd, (H, W)).astype(
       np.int32)).to(cuda) for _ in range(n_refs)]
           for _ in range(2 if chan == "cr" else 1)]
-  rows, gwt, gslot = random_rows(rng, 192, H, W, n_refs, is_chroma, bd)
+  rows, gwt, gslot = random_rows(rng, 192, H, W, n_refs, is_chroma, bd,
+                                 dmvr=bool(tools))
   inter = _inter(batch(rows, gwt, gslot, is_chroma), 128, cuda)
   kw = dict(H=H, W=W, is_chroma=is_chroma, bit_depth=bd,
             wrap=W - 8 if wrap else 0)
+  if tools and not is_chroma:
+    kw["lmcs"] = _lmcs(random_lmcs(rng, bd), cuda)
   want = P.inter_pred_plain_kind(refs, inter, **kw)
   before = dict(P.CLASS_LAUNCHES)
   got = P.inter_pred(refs, inter, **kw)
@@ -554,6 +683,16 @@ def test_kernels_match_plain_on_card_inter(cuda, case):
       "inter_pred", "recon"}
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dmvr-bdof-tmvp", "alf-lmcs-ra"])
+def test_kernels_match_plain_on_card_tools(cuda, case):
+  """Both kernels against their plain versions on every frame of a stream
+  with DMVR (its search and the refined controls run in the walk) or with
+  LMCS and ALF, with the frame's real references."""
+  assert _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda) == {
+      "inter_pred", "recon"}
+
+
 def _counts_zeroed():
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
@@ -590,12 +729,27 @@ def test_inter_case_decodes_on_card(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["ai256x128_10b", "ai720", "ra1080"])
+@pytest.mark.parametrize("case", list(TOOL_CASES))
+def test_tool_case_decodes_on_card(cuda, case):
+  """Every LMCS, ALF and DMVR case through both kernels (the intra-only
+  ones through recon) to the JAX MD5s."""
+  with open(TOOLS_JSON) as f:
+    want = json.load(f)[case]["md5"]
+  P, R = _counts_zeroed()
+  assert _port_md5s(_stream(TOOL_CASES[case]), device=cuda) == want
+  assert R.LAUNCHES["recon"] > 0
+  assert (P.LAUNCHES["inter_pred"] > 0) == bool(TOOL_CASES[case].get("inter"))
+  assert P.PLAIN_RUNS["inter_pred"] == 0 and R.PLAIN_RUNS["recon"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ai256x128_10b", "ai720", "ra1080",
+                                  "full1080"])
 def test_fixture_decodes_on_card(cuda, name):
   P, R = _counts_zeroed()
   assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
   assert R.LAUNCHES["recon"] > 0
-  assert (P.LAUNCHES["inter_pred"] > 0) == name.startswith("ra")
+  assert (P.LAUNCHES["inter_pred"] > 0) == name.endswith("1080")
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
 
 
@@ -624,6 +778,28 @@ def test_ra1080_fixture_regenerates():
 
 
 @pytest.mark.slow
+def test_full1080_fixture_regenerates():
+  """The committed full-toolset 1080p fixture is the generator's output
+  for its config (bench.py FULL_KW with 5 frames), and its MD5s are the
+  JAX package's decode (~5 min)."""
+  from bench import FULL_KW
+
+  with open(os.path.join(TESTDATA, "full1080.md5.json")) as f:
+    fixture = json.load(f)
+  assert fixture["config"] == dict(FULL_KW, n_frames=5)
+  data = _stream(fixture["config"])
+  assert data == _read("full1080")
+  assert _jax_md5s(data) == fixture["md5"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", list(TOOL_CASES))
+def test_tool_case_jax_live(case):
+  data = _stream(TOOL_CASES[case])
+  assert _port_md5s(data) == _jax_md5s(data)
+
+
+@pytest.mark.slow
 @pytest.mark.parametrize("case", sorted(INTRA_CASES))
 def test_intra_case_jax_live(case):
   data = _stream(INTRA_CASES[case])
@@ -648,12 +824,14 @@ def _missing_ref_entry():
 
 
 def main():
-  """Regenerate intra_cases.md5.json and inter_cases.md5.json (with the
-  missing-ref entry) with the JAX package's decoder."""
+  """Regenerate intra_cases.md5.json, inter_cases.md5.json (with the
+  missing-ref entry) and tools_cases.md5.json with the JAX package's
+  decoder, one decode at a time."""
   import jax
 
   jax.config.update("jax_platforms", "cpu")
-  for cases, path in ((INTRA_CASES, CASES_JSON), (INTER_CASES, INTER_JSON)):
+  for cases, path in ((INTRA_CASES, CASES_JSON), (INTER_CASES, INTER_JSON),
+                      (TOOL_CASES, TOOLS_JSON)):
     out = {}
     for case, kw in sorted(cases.items()):
       out[case] = {"config": kw, "md5": _jax_md5s(_stream(kw))}

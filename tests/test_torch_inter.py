@@ -127,8 +127,7 @@ def test_inter_layout(name):
 
 
 def _jax_pred(refs, c, wb, *, is_chroma, bit_depth, wrap):
-  """vmapped JAX _inter_pred_unit (the DMVR rows absent, as in the
-  port's MC batch) on (n, S, S) tiles."""
+  """vmapped JAX _inter_pred_unit on (n, S, S) tiles."""
   fn = jax.jit(jax.vmap(lambda cc, w1: JP._inter_pred_unit(
       refs, cc, maxs=32, taps=4 if is_chroma else 8,
       before=1 if is_chroma else 3, frac_bits=5 if is_chroma else 4,
@@ -160,14 +159,14 @@ def _check_pred(refs_np, rows, gwt, gslot, n_inter, *, is_chroma, bit_depth,
     for a, b in TIP._CR_WEIGHTS:
       c[a] = rows[b]
   wb = gwt[gslot]
+  dmvr = ("dmvr", "om0x", "om0y", "om1x", "om1y")
   pure = {k: v[:n_inter] for k, v in c.items()}
-  pure.update({k: np.zeros(n_inter, np.int32)
-               for k in ("dmvr", "om0x", "om0y", "om1x", "om1y")})
+  pure.update({k: np.zeros(n_inter, np.int32) for k in dmvr})
   want = [_jax_pred(jnp.asarray(refs_np), part, w, is_chroma=is_chroma,
                     bit_depth=bit_depth, wrap=wrap)
           for part, w in ((pure, wb[:n_inter]),
-                          ({k: v[n_inter:] for k, v in c.items()},
-                           wb[n_inter:]))
+                          ({k: v[n_inter:] for k, v in c.items()
+                            if k not in dmvr}, wb[n_inter:]))
           if len(w)]
   np.testing.assert_array_equal(got, _masked(np.concatenate(want), rows["w"],
                                              rows["h"]))

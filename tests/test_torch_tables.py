@@ -181,13 +181,23 @@ def _kernel_enum(name):
 
 def test_inter_kernel_control_rows_match_layout():
   """The inter-prediction kernel's enum follows INTER_KEYS, which are the
-  JAX frame program's INTER_KEYS without the DMVR rows."""
+  JAX frame program's INTER_KEYS, DMVR's rows included."""
   from ffmpeg_tpu.models.vvc import pipeline as JP
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS
 
   assert _kernel_enum("inter_pred.cu") == INTER_KEYS
-  dmvr = ("dmvr", "om0x", "om0y", "om1x", "om1y")
-  assert INTER_KEYS == tuple(k for k in JP.INTER_KEYS if k not in dmvr)
+  assert INTER_KEYS == JP.INTER_KEYS
+
+
+def test_inter_kernel_lmcs_table():
+  """The inter kernel's parameter block holds the LMCS forward table the
+  wrapper passes: 16 pivots and 16 scales."""
+  from ffmpeg_tpu_torch.ops import inter as T
+
+  with open(os.path.join(PORT, "csrc", "inter_pred.cu")) as f:
+    src = f.read()
+  assert "int lm_pivot[16], lm_fwd[16];" in src
+  assert T.LMCS_TABLE == 32
 
 
 def _kernel_table(src, name):
