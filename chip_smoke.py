@@ -12,7 +12,14 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     both kernels;
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
-  - ai256x128_10b: 2 frames of 10-bit all intra.
+  - ai256x128_10b: 2 frames of 10-bit all intra;
+  - ctu128_1080: 5 frames of 1920x1080 with CTU-128, 64-sample transform
+    blocks, ISP, explicit scaling lists and LFNST (full1080's toolset
+    without CIIP and GPM): the 64-edge luma units (the recon kernel's
+    64-edge wavefront) and ISP's 1-high sub-partitions (readiness cell
+    1);
+  - ciip64: 3 frames of 128x128 with CTU 64 whose B frames hold 64x64
+    CIIP units (their MC prediction in four 32x32 MC rows).
 Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
@@ -30,12 +37,16 @@ Phases, one JSON line each:
               without the new tools, and the recon kernel on frame 0 of
               the intra fixtures (luma, then chroma with CCLM); the B
               frames' unit counts, small and large MC units, and the
-              largest frame's MC tile bytes (models/vvc/mc_tiles.py)
+              largest frame's MC tile bytes (models/vvc/mc_tiles.py);
+              both kernels on ctu128_1080's I frame and first B frame and
+              on ciip64's first frame with a 64x64 CIIP unit, with their
+              64-edge, 1-high and CIIP-64 unit counts and readiness cell
   4. decode   each fixture decoded on the card; frame MD5s must equal
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
               of the path launched, the plain versions never ran
-  5. timing   full1080 and ai720 fps with frames left on the card and
+  5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
+              the card and
               with the fetch, full1080 per-stage ms (the DMVR round trip
               per DMVR frame among them), the device ms of the LMCS, ALF
               and DMVR torch ops per call and per frame (CUDA events
@@ -48,7 +59,9 @@ Phases, one JSON line each:
               the card held, and synced); the recon kernel's time split
               into its placement and wavefront launches, its critical path
               (dependency levels) and us per level on that frame and on
-              ai720's frame 0; every timed launch of both kernels held
+              ai720's frame 0, and on ctu128_1080's I and B frames (its
+              recon levels and us per level, its inter kernel); every
+              timed launch of both kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
   6. profile  torch.profiler over a full1080 decode: device busy share,
@@ -74,11 +87,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 TESTDATA = os.path.join(ROOT, "ffmpeg_tpu_torch", "testdata")
 MAIN = "full1080"
-FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b")
+CTU128 = "ctu128_1080"
+# the coding-tool frames the kernels and timing phases hold apart
+TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
+FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64")
 KERNELS = ("inter_pred", "recon")
 # the kernels each fixture's path must launch
 PATH_KERNELS = {MAIN: KERNELS, "ra1080": KERNELS, "ai720": ("recon",),
-                "ai256x128_10b": ("recon",)}
+                "ai256x128_10b": ("recon",), CTU128: KERNELS,
+                "ciip64": KERNELS}
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and the non-tensor
 # 32-bit rate, used for the kernels' least-time bounds
@@ -111,8 +128,10 @@ def _zero_counts():
   for name, mod in _counts().items():
     mod.LAUNCHES[name] = 0
     mod.PLAIN_RUNS[name] = 0
-  for k in _counts()["inter_pred"].CLASS_LAUNCHES:
-    _counts()["inter_pred"].CLASS_LAUNCHES[k] = 0
+  for d in (_counts()["inter_pred"].CLASS_LAUNCHES,
+            _counts()["recon"].EDGE_LAUNCHES):
+    for k in d:
+      d[k] = 0
 
 
 def phase_device(torch):
@@ -219,7 +238,13 @@ def _unit_counts(fs, h):
     tiles += nbytes(h["ctrl"]["c"]["inter"]["toff"], 2)
   rows = y["intra"]
   n_iu = int(rows["iend"][-1]) if int(y["n_chunks"]) else 0
+  w, hh = rows["w"][:n_iu], rows["h"][:n_iu]
   return {"poc": fs.poc, "slice_type": fs.slice_type, "pure_inter": n_pure,
+          "edge64": int(((w == 64) | (hh == 64)).sum()),
+          "high1": int((hh == 1).sum()), "high2": int((hh == 2).sum()),
+          "ciip64": int(((w == 64) & (hh == 64)
+                         & (rows["ciipw"][:n_iu] > 0)).sum()),
+          "has_isp": int(fs.has_isp), "has_tb64": int(fs.has_tb64),
           "ciip": int((rows["ciipw"][:n_iu] > 0).sum()),
           "gpm": int((inter["gpm_part"][:n_pure] > 0).sum()),
           "bdof": int((inter["bdof"][:n_pure] > 0).sum()),
@@ -244,6 +269,14 @@ def _every_tool(fs, h):
   c = _unit_counts(fs, h)
   return _every_path(fs, h) and c["dmvr"] > 0 and c["lmcs_crs"] and \
       c["alf_luma_ctbs"] > 0
+
+
+def _is_b(fs, h):
+  return fs.slice_type == 0
+
+
+def _has_ciip64(fs, h):
+  return _unit_counts(fs, h)["ciip64"] > 0
 
 
 def _kernel(name, kw):
@@ -467,15 +500,43 @@ def phase_kernels(torch):
         f"{out['frames'][MAIN]['dmvr']} DMVR units, LMCS with chroma "
         f"scaling, {out['frames'][MAIN]['alf_luma_ctbs']} CTBs with luma "
         "ALF", flush=True)
-  for name in FIXTURES[2:]:
+  for name in FIXTURES[2:4]:
     calls[name] = _walk_calls(name)[1]
-  for name in FIXTURES:
+  # the coding-tool paths: ctu128_1080's I frame (ISP at readiness cell 1,
+  # 64-edge luma units) and first B frame, ciip64's first frame with a
+  # 64x64 CIIP unit
+  from ffmpeg_tpu_torch.ops.recon import readiness_cell
+
+  for key, name, pick in ((CTU128 + "/I", CTU128, None),
+                          (CTU128 + "/B", CTU128, _is_b),
+                          ("ciip64", "ciip64", _has_ciip64)):
+    fs, calls[key], rr = _walk_calls(name, pick)
+    units = next(r for r in rr if r["poc"] == fs.poc)
+    units["cell"] = {label: readiness_cell(
+        kw["intra"]["mat_host"][:, :int(kw["intra"]["iend_host"][-1])
+                                if kw["n_chunks"] else 0])
+        for n, label, kw in calls[key] if n == "recon"}
+    units["maxs"] = {label: kw["maxs"] for n, label, kw in calls[key]
+                     if n == "recon"}
+    out["frames"][key] = units
+    records[key] = rr
+    print(f"chip_smoke: kernels on {name} POC {fs.poc}: {units['edge64']} "
+          f"64-edge and {units['high1']} 1-high / {units['high2']} 2-high "
+          f"luma units, {units['ciip64']} 64x64 CIIP units, readiness cell "
+          f"{units['cell']}, maxs {units['maxs']}", flush=True)
+  if not (out["frames"][CTU128 + "/I"]["edge64"]
+          and out["frames"][CTU128 + "/I"]["cell"]["luma"] == 1
+          and out["frames"]["ciip64"]["ciip64"]):
+    fail("kernels", "the coding-tool frames hold no 64-edge unit, no cell-1 "
+         "call or no 64x64 CIIP unit")
+  for name in calls:
     _check_calls(name, calls[name], out, torch)
   worst = {k: max(c["max_abs_err"] for c in out["cases"] if c["kernel"] == k)
            for k in KERNELS}
   out["max_abs_err"] = max(worst.values())
   out["levels"] = {name: out["frames"][name]["levels"]
-                   for name in (MAIN, "ra1080")}
+                   for name in (MAIN, "ra1080", CTU128 + "/I",
+                                CTU128 + "/B", "ciip64")}
   out["levels"]["ai720"] = _levels(calls["ai720"])
   out["tile_bytes_peak_frame"] = {
       name: max(r["tile_bytes"] for r in rr) for name, rr in records.items()}
@@ -505,6 +566,7 @@ def phase_decode(torch):
     launches[name] = {k: m.LAUNCHES[k] for k, m in counts.items()}
     launches[name]["inter_pred_by_class"] = dict(
         counts["inter_pred"].CLASS_LAUNCHES)
+    launches[name]["recon_by_edge"] = dict(counts["recon"].EDGE_LAUNCHES)
     plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
@@ -745,7 +807,7 @@ def phase_timing(torch, card, calls, levels):
   after."""
   out = {"phase": "timing", "card": card, "sm_clocks_before": _sm_clocks(),
          MAIN: _fps(MAIN, torch, traced=True),
-         "ai720": _fps("ai720", torch)}
+         "ai720": _fps("ai720", torch), CTU128: _fps(CTU128, torch)}
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
   for name, label, kw in calls[MAIN]:
@@ -761,6 +823,26 @@ def phase_timing(torch, card, calls, levels):
   for name, label, kw in calls["ai720"]:
     recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
                                         20, 1)
+  # the coding-tool frames: the recon kernel's 64-edge wavefront at cell 1
+  # (ctu128_1080's I frame), its B frame, the CIIP-64 frame; both kernels,
+  # each call also through its plain version once
+  tools = {}
+  for key in TOOL_FRAMES:
+    t = tools[key] = {"recon": {}, "inter_pred": {}, "plain_ms": {}}
+    for name, label, kw in calls[key]:
+      if name == "recon":
+        t[name][label] = _time_recon(kw, levels[key][label], torch, 20, 1)
+      else:
+        t[name][label] = _time_inter(kw, torch, 20, 1)
+      t["plain_ms"][f"{name}/{label}"] = _events_ms(
+          lambda: _plain(name, kw), torch, 1)
+    print(f"chip_smoke: timing {key}: " + ", ".join(
+        f"recon {label} {r['ms']} ms ({r['levels']} levels, "
+        f"{r['us_per_level']} us per level)"
+        for label, r in t["recon"].items()) + "".join(
+        f", inter_pred {label} {r['ms']} ms" for label, r in
+        t["inter_pred"].items()), flush=True)
+  out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"] = inter, recon
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
@@ -772,9 +854,15 @@ def phase_timing(torch, card, calls, levels):
          if r["launches_unequal"]}
   bad.update({f"inter_pred {label}": r["calls_unequal"]
               for label, r in inter.items() if r["calls_unequal"]})
+  for key, t in tools.items():
+    bad.update({f"recon {key} {label}": r["launches_unequal"]
+                for label, r in t["recon"].items() if r["launches_unequal"]})
+    bad.update({f"inter_pred {key} {label}": r["calls_unequal"]
+                for label, r in t["inter_pred"].items()
+                if r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
-  return kern, plain, recon, inter
+  return kern, plain, recon, inter, tools
 
 
 def phase_profile(torch, card):
@@ -840,6 +928,32 @@ def phase_profile(torch, card):
                                           for k, v in top}})
 
 
+def _bound(name, calls):
+  """The least time of a kernel's calls of one frame: the larger of its
+  bytes over the HBM rate and its operations over the 32-bit rate."""
+  mine = [kw for n, _, kw in calls if n == name]
+  bound_bytes = sum(_bytes_moved(name, kw) for kw in mine) \
+      / HBM_BYTES_PER_S * 1e3
+  bound_ops = sum(_ops(name, kw) for kw in mine) \
+      / NON_TENSOR_32BIT_OPS_PER_S * 1e3
+  return {"bound_ms": max(bound_bytes, bound_ops),
+          "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
+
+
+def _tool_row(name, calls, timed):
+  """One kernel's numbers on a coding-tool frame: ms per call summed over
+  the plane kinds, the plain version's, and the bound, as for the main
+  path's row."""
+  return {"ms": sum(r["ms"] for r in timed[name].values()),
+          "plain_ms": sum(v for k, v in timed["plain_ms"].items()
+                          if k.startswith(name + "/")),
+          **_bound(name, calls),
+          "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
+              "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
+              "small_ms", "large_ms", "small_units", "large_units")}
+              for label, r in timed[name].items()}}
+
+
 KERNEL_INFO = {
     "inter_pred": ("ffmpeg_tpu_torch/csrc/inter_pred.cu",
                    "ffmpeg_tpu/models/vvc/pipeline.py:1129 (_pred_blocks "
@@ -861,15 +975,11 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon, inter = phase_timing(torch, card, calls, levels)
+  kern, plain, recon, inter, tools = phase_timing(torch, card, calls,
+                                                  levels)
   phase_profile(torch, card)
   rows = []
   for name in KERNELS:
-    mine = [kw for n, _, kw in calls[MAIN] if n == name]
-    bound_bytes = sum(_bytes_moved(name, kw) for kw in mine) \
-        / HBM_BYTES_PER_S * 1e3
-    bound_ops = sum(_ops(name, kw) for kw in mine) \
-        / NON_TENSOR_32BIT_OPS_PER_S * 1e3
     src, replaces = KERNEL_INFO[name]
     rows.append({
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -879,13 +989,16 @@ def main() -> int:
         "ms": sum(v for k, v in kern.items() if k.startswith(name + "/")),
         "plain_ms": sum(v for k, v in plain.items()
                         if k.startswith(name + "/")),
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": None})
+        **_bound(name, calls[MAIN]),
+        "library_ms": None,
+        "coding_tools": {key: _tool_row(name, calls[key], tools[key])
+                         for key in TOOL_FRAMES}})
     if name == "recon":
       rows[-1]["split_ms"] = {
           label: {k: r[k] for k in ("placement_ms", "wavefront_ms")}
           for label, r in recon[MAIN].items()}
+      rows[-1]["launches_by_edge"] = {
+          f: launches[f]["recon_by_edge"] for f in FIXTURES}
     else:
       rows[-1]["launches_by_class"] = {
           f: launches[f]["inter_pred_by_class"] for f in FIXTURES}

@@ -15,8 +15,11 @@
 //     samples clip(tile + residual) over the unit's (h, w) the warp's
 //     lanes write row by row (the int16 tiles of models/vvc/mc_tiles.py,
 //     written by csrc/inter_pred.cu);
-//     then each intra unit, whose CELL x CELL cells the warp marks
-//     pending (1) in every channel's readiness map.  The wrapper zeroes
+//     then each intra unit, whose cell x cell cells the warp marks
+//     pending (1) in every channel's readiness map.  The cell is 2
+//     samples, or 1 where a unit is not 2-aligned (ISP's 1- and 2-sample
+//     sub-partitions; ops/recon.py readiness_cell), so that every unit
+//     covers whole cells and each cell has one writer.  The wrapper zeroes
 //     the maps, so every cell no intra unit writes is ready from the
 //     start.  Stream order makes the placed samples and the marks visible
 //     to launch 2.
@@ -63,6 +66,21 @@
 // MIP's boundary sums are warp reductions, CCLM's model is computed by
 // every lane in registers.
 //
+// Units of 64 a side (the luma of frames with 64-sample transform blocks
+// or CIIP units above 32: maxs 64) run in a second instance of the
+// wavefront kernel, wave_kernel<64>, which the launch picks for such a
+// call; it is the same code over the same tickets, so the argument above
+// holds as it is.  Staging a 64x64 unit's residual and CIIP block whole
+// would take 32 KB a warp and leave one block per SM, so a unit above 32
+// a side is staged and reconstructed a 32x32 quarter at a time through
+// the same buffers as in wave_kernel<32> (the first quarter before the
+// wait, the others as the warp reaches them, each load batch in flight
+// together); only its edge vectors are longer.  That is 13.8 KB a warp,
+// 3 warps a block, against 11.3 KB and 4 in wave_kernel<32>, which frames
+// without 64-sample units keep.  A CIIP unit above 32 a side has its MC
+// prediction in 32x32 MC rows, one per quarter (models/vvc/mc_tiles.py
+// split_rows).
+//
 // What bounds it on this card: not bytes (a frame moves a few tens of
 // MB) and not operations, but latency — the critical path of the
 // dependency levels (ops/recon.py dependency_levels) times the latency of
@@ -78,10 +96,6 @@
 
 #include <cuda_runtime.h>
 
-#define MAXS 32               // largest unit dimension
-#define LMAX (5 * MAXS + 16)  // edge vector length at MAXS
-#define CELL 2                // readiness cell edge (ops/recon.py CELL)
-#define WAVE_WARPS 4          // warps per wavefront block
 #define PLACE_THREADS 256
 #define FULL 0xffffffffu
 // a wait longer than this means a writer that never comes (a layout that
@@ -126,22 +140,29 @@ struct Params {
   const int* div;    // (16,) CCLM division significands
   int maxs, is_chroma, bd;
   int nch;
+  int cl2;           // log2 of the readiness cell edge (0 or 1)
   int* ready;        // (nch, Hc, Wc) readiness maps: 0 ready, 1 pending
   int* ticket;       // next wavefront ticket
-  int Hc, Wc;        // map shape: Hp / CELL, Wp / CELL
+  int Hc, Wc;        // map shape: Hp >> cl2, Wp >> cl2
 };
 
-// the warp's slice of shared memory
+// a unit is reconstructed a quarter of at most QE x QE samples at a time:
+// the whole unit when it is at most 32 a side, else its 32x32 quarters.
+// QE is mc_tiles.MC_TILE: a CIIP unit's quarter is one of its MC rows.
+#define QE 32
+
+// the warp's slice of shared memory for units of at most MX a side
+template <int MX>
 struct WarpSmem {
-  int c[64];             // control row
-  int e[4][LMAX];        // edge vectors: left, top, two scratch
-  int res[MAXS * MAXS];  // residual block, row stride w
-  int aux[MAXS * MAXS];  // CCLM luma block | CIIP tile block (stride w) |
-                         // MIP upsampling rows [0, 8*MAXS) + reduced
-                         // prediction [8*MAXS, 8*MAXS + 64)
+  static constexpr int L = 5 * MX + 16;  // edge vector length at MX
+  static constexpr int WARPS = MX > 32 ? 3 : 4;  // warps per block
+  int c[64];                            // control row
+  int e[4][L];                          // edge vectors: left, top, scratch
+  int res[QE * QE];  // the quarter's residual, row stride its width
+  int aux[QE * QE];  // CCLM luma block | CIIP tile quarter (stride the
+                     // quarter's width) | MIP upsampling rows [0, 8 * MX)
+                     // + reduced prediction [8 * MX, 8 * MX + 64)
 };
-
-#define MIP_PREDV (8 * MAXS)
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -195,17 +216,17 @@ struct Rect { int y0, y1, x0, x1; };  // half-open cell ranges
 // columns x0-1-r .. x0-1, and the corner when cand_up_left is set.  Twin
 // of ops/recon.py _wait_rects (and decode.cc's chunk stencil): change the
 // three together.  Returns the number of rects.
-__device__ int wait_rects(const int* c, int r, Rect* out) {
+__device__ int wait_rects(const int* c, int r, int s, Rect* out) {
   const int x0 = c[k_x0], y0 = c[k_y0];
   const int avl = c[k_avail_l], avt = c[k_avail_t];
-  const int yt = max(0, (y0 - 1 - r) / CELL), xl = max(0, (x0 - 1 - r) / CELL);
+  const int yt = max(0, (y0 - 1 - r) >> s), xl = max(0, (x0 - 1 - r) >> s);
   int n = 0;
   if (avt > 0)
-    out[n++] = {yt, (y0 - 1) / CELL + 1, x0 / CELL, (x0 + avt - 1) / CELL + 1};
+    out[n++] = {yt, ((y0 - 1) >> s) + 1, x0 >> s, ((x0 + avt - 1) >> s) + 1};
   if (avl > 0)
-    out[n++] = {y0 / CELL, (y0 + avl - 1) / CELL + 1, xl, (x0 - 1) / CELL + 1};
+    out[n++] = {y0 >> s, ((y0 + avl - 1) >> s) + 1, xl, ((x0 - 1) >> s) + 1};
   if (c[k_cand_up_left] > 0 && x0 > 0 && y0 > 0)
-    out[n++] = {yt, (y0 - 1) / CELL + 1, xl, (x0 - 1) / CELL + 1};
+    out[n++] = {yt, ((y0 - 1) >> s) + 1, xl, ((x0 - 1) >> s) + 1};
   return n;
 }
 
@@ -214,7 +235,7 @@ __device__ void wait_ready(const Params& p, const int* c, const int* map,
                            int lane) {
   const int r = p.is_chroma ? 0 : c[k_mrl];
   Rect rc[3];
-  const int nr = wait_rects(c, r, rc);
+  const int nr = wait_rects(c, r, p.cl2, rc);
   int cnt[3], total = 0;
   for (int q = 0; q < nr; ++q) {
     cnt[q] = (rc[q].y1 - rc[q].y0) * (rc[q].x1 - rc[q].x0);
@@ -240,6 +261,7 @@ __device__ void wait_ready(const Params& p, const int* c, const int* map,
 
 // ---- per-unit preparation ---------------------------------------------
 
+template <int LMAX>
 __device__ void build_edges(const Params& p, const int* c, int* eL, int* eT,
                             const int* plane, int L, int OFF, int mid,
                             int lane) {
@@ -314,7 +336,9 @@ __device__ void project(const int* dst, const int* src, int* out, int L,
 }
 
 // MIP: boundary reduction (warp sums), the 64 x 8 matrix product and the
-// horizontal upsampling over the 8 reduced rows (mip_upsampling_1d)
+// horizontal upsampling over the 8 reduced rows (mip_upsampling_1d), rows
+// of stride MX in aux, the reduced prediction at aux + 8 * MX
+template <int MX>
 __device__ void mip_prepare(const Params& p, const int* c, const int* eL,
                             const int* eT, int* aux, int OFF, int maxv,
                             int mid, int lane) {
@@ -326,13 +350,15 @@ __device__ void mip_prepare(const Params& p, const int* c, const int* eL,
   int red[2][4];
   for (int side = 0; side < 2; ++side) {
     const int n = side == 0 ? w : h;
-    const int val = lane < n ? (side == 0 ? eT : eL)[OFF + lane] : 0;
+    const int* e = side == 0 ? eT : eL;
     const int ratio = n / bsz;
     const int lg = ilog2(ratio);
-    const int grp = shr(lane, lg);
-    for (int g = 0; g < 4; ++g)
-      red[side][g] =
-          shr(__reduce_add_sync(FULL, grp == g ? val : 0) + (ratio >> 1), lg);
+    for (int g = 0; g < 4; ++g) {
+      int sum = 0;  // the lane's samples of group g
+      for (int i = lane; i < MX; i += 32)
+        sum += i < n && shr(i, lg) == g ? e[OFF + i] : 0;
+      red[side][g] = shr(__reduce_add_sync(FULL, sum) + (ratio >> 1), lg);
+    }
   }
   const int* first = c[k_mip_t] > 0 ? red[1] : red[0];
   const int* second = c[k_mip_t] > 0 ? red[0] : red[1];
@@ -349,7 +375,7 @@ __device__ void mip_prepare(const Params& p, const int* c, const int* eL,
     sum += vi;
   }
   const int ow = 32 - 32 * sum;
-  int* predv = aux + MIP_PREDV;
+  int* predv = aux + 8 * MX;
   for (int i = lane; i < 64; i += 32) {
     const int* m = p.mip + (clampi(c[k_mip_id], 0, 29) * 64 + i) * 8;
     int acc = 0;
@@ -371,7 +397,7 @@ __device__ void mip_prepare(const Params& p, const int* c, const int* eL,
     const int brow = eL[OFF + clampi((yr + 1) * uv - 1, 0, maxs - 1)];
     const int pa = k == 0 ? brow : p8(yr, clampi(k - 1, 0, 7));
     const int pb = p8(yr, clampi(k, 0, 7));
-    aux[yr * MAXS + x] = shr((uh - dx) * pa + dx * pb + (uh >> 1), lg_h);
+    aux[yr * MX + x] = shr((uh - dx) * pa + dx * pb + (uh >> 1), lg_h);
   }
 }
 
@@ -485,6 +511,7 @@ __device__ int ang_core(const Params& p, const int* c, const int* main, int i,
   return clampi(acc, 0, maxv);
 }
 
+template <int MX>
 __device__ int predict(const Params& p, const int* c, const int* eL,
                        const int* eT, const int* aux, int idx, int y, int x,
                        int L, int OFF, int maxv, int dc, Cclm cm) {
@@ -541,8 +568,8 @@ __device__ int predict(const Params& p, const int* c, const int* eL,
       const int ky = shr(y, lg_v);
       const int dy = (y & (uv - 1)) + 1;
       const int ca = ky == 0 ? eT[OFF + x]
-                             : aux[clampi(ky - 1, 0, 7) * MAXS + x];
-      const int cb = aux[clampi(ky, 0, 7) * MAXS + x];
+                             : aux[clampi(ky - 1, 0, 7) * MX + x];
+      const int cb = aux[clampi(ky, 0, 7) * MX + x];
       pred = shr((uv - dy) * ca + dy * cb + (uv >> 1), lg_v);
       break;
     }
@@ -568,7 +595,8 @@ __device__ int predict(const Params& p, const int* c, const int* eL,
 
 // ---- one intra unit, one warp -------------------------------------------
 
-__device__ void recon_unit(const Params& p, WarpSmem& sm, int u, int ch,
+template <int MX>
+__device__ void recon_unit(const Params& p, WarpSmem<MX>& sm, int u, int ch,
                            int lane) {
   const size_t hw = (size_t)p.Hp * p.Wp;
   int* plane = p.plane + ch * hw;
@@ -578,38 +606,53 @@ __device__ void recon_unit(const Params& p, WarpSmem& sm, int u, int ch,
   const int maxv = (1 << p.bd) - 1, mid = 1 << (p.bd - 1);
   int* c = sm.c;
 
-  // prefetch what depends on no other unit: control row, residual block,
-  // CCLM's luma block and picks, or CIIP's tile
   for (int k = lane; k < NUM_KEYS; k += 32)
     c[k] = __ldg(p.ctrl + k * p.ucap + u);
   __syncwarp();
   const int x0 = c[k_x0], y0 = c[k_y0], w = c[k_w], h = c[k_h];
   if (w <= 0) return;
-  const int lw = c[k_logw], n = w * h, mc = c[k_mode_class];
-  const int cw = c[k_ciipw];
+  const int mc = c[k_mode_class], cw = c[k_ciipw];
   const int* res = p.res + ch * hw + y0 * p.Wp + x0;
+  const short* tiles = p.tiles + (size_t)ch * p.T;
+  const int first = cw > 0 ? __ldg(p.ipos + u) : 0;
+  // the quarters, row-major: nqx across; a unit of at most QE a side is
+  // one quarter (always in the 32-edge instance)
+  const int nqx = MX > QE ? (w + QE - 1) / QE : 1;
+  const int nq = MX > QE ? nqx * ((h + QE - 1) / QE) : 1;
+
+  // stage quarter q: its residual and CIIP's MC samples (a CIIP unit
+  // above QE a side has one MC row per quarter, mc_tiles.py split_rows);
+  // 0 outside the MC unit
+  auto stage = [&](int q, int qx, int qy, int qw, int qh, int lqw) {
+    const int* r = res + qy * p.Wp + qx;
 #pragma unroll 4
-  for (int k = lane; k < n; k += 32)
-    sm.res[k] = __ldg(res + (k >> lw) * p.Wp + (k & (w - 1)));
-  if (mc == MC_CCLM) {
+    for (int k = lane; k < qw * qh; k += 32)
+      sm.res[k] = __ldg(r + (k >> lqw) * p.Wp + (k & (qw - 1)));
+    if (cw > 0) {
+      const int m = clampi(first + q, 0, p.n_mc - 1);
+      const int mw = __ldg(p.ictrl + 2 * p.n_mc + m);
+      const int mh = __ldg(p.ictrl + 3 * p.n_mc + m);
+      const short* tile = tiles + __ldg(p.toff + m);
+#pragma unroll 4
+      for (int k = lane; k < qw * qh; k += 32) {
+        const int y = k >> lqw, x = k & (qw - 1);
+        sm.aux[k] = y < mh && x < mw ? __ldg(tile + y * mw + x) : 0;
+      }
+    }
+  };
+
+  // prefetch what depends on no other unit: the control row, the first
+  // quarter's residual and CIIP tile, CCLM's luma block and picks
+  const int qw0 = min(w, QE), qh0 = min(h, QE);
+  stage(0, 0, 0, qw0, qh0, ilog2(qw0));
+  if (mc == MC_CCLM) {  // chroma: one quarter, row stride w
     // lax.dynamic_slice semantics: the window start clamps into the plane
     const int ys = clampi(y0, 0, p.Hd - maxs), xs = clampi(x0, 0, p.Wd - maxs);
     const int* blk = p.dsy + ys * p.Wd + xs;
+    const int lw = c[k_logw];
 #pragma unroll 4
-    for (int k = lane; k < n; k += 32)
+    for (int k = lane; k < w * h; k += 32)
       sm.aux[k] = __ldg(blk + (k >> lw) * p.Wd + (k & (w - 1)));
-  } else if (cw > 0) {
-    // the MC unit's samples over the CIIP unit's (h, w), 0 outside the
-    // MC unit
-    const int m = clampi(__ldg(p.ipos + u), 0, p.n_mc - 1);
-    const int mw = __ldg(p.ictrl + 2 * p.n_mc + m);
-    const int mh = __ldg(p.ictrl + 3 * p.n_mc + m);
-    const short* tile = p.tiles + (size_t)ch * p.T + __ldg(p.toff + m);
-#pragma unroll 4
-    for (int k = lane; k < n; k += 32) {
-      const int y = k >> lw, x = k & (w - 1);
-      sm.aux[k] = y < mh && x < mw ? __ldg(tile + y * mw + x) : 0;
-    }
   }
   int sl[4];
   if (mc == MC_CCLM) {
@@ -621,7 +664,7 @@ __device__ void recon_unit(const Params& p, WarpSmem& sm, int u, int ch,
 
   int *eL = sm.e[0], *eT = sm.e[1], *tL = sm.e[2], *tT = sm.e[3], *sw;
   const int r = p.is_chroma ? 0 : c[k_mrl];
-  build_edges(p, c, eL, eT, plane, L, OFF, mid, lane);
+  build_edges<WarpSmem<MX>::L>(p, c, eL, eT, plane, L, OFF, mid, lane);
   __syncwarp();
   if (c[k_smooth] > 0) {
     filter_edges(c, eL, eT, tL, tT, L, OFF, lane);
@@ -643,41 +686,57 @@ __device__ void recon_unit(const Params& p, WarpSmem& sm, int u, int ch,
   int dc = 0;
   Cclm cm{0, 0, 0};
   if (mc == MC_DC) {
-    const int st = lane < w ? eT[OFF + lane] : 0;
-    const int sl_ = lane < h ? eL[OFF + lane] : 0;
+    int st = 0, sl_ = 0;  // the lane's top and left samples
+    for (int i = lane; i < MX; i += 32) {
+      st += i < w ? eT[OFF + i] : 0;
+      sl_ += i < h ? eL[OFF + i] : 0;
+    }
     const int sum_t = __reduce_add_sync(FULL, st);
     const int sum_l = __reduce_add_sync(FULL, sl_);
     const int sum = (w >= h ? sum_t : 0) + (w <= h ? sum_l : 0);
     const int offset = max(w == h ? w << 1 : max(w, h), 1);
     dc = shr(sum + (offset >> 1), ilog2(offset));
   } else if (mc == MC_MIP) {
-    mip_prepare(p, c, eL, eT, sm.aux, OFF, maxv, mid, lane);
+    mip_prepare<MX>(p, c, eL, eT, sm.aux, OFF, maxv, mid, lane);
     __syncwarp();
   } else if (mc == MC_CCLM) {
     cm = cclm_model(p, c, eL, eT, sl, L, OFF, mid);
   }
 
-  for (int k = lane; k < n; k += 32) {
-    const int y = k >> lw, x = k & (w - 1);
-    int pred = predict(p, c, eL, eT, sm.aux, k, y, x, L, OFF, maxv, dc, cm);
-    if (cw > 0)  // CIIP blend (put_ciip, vvc_inter_template.c:60-76)
-      pred = (pred * cw + sm.aux[k] * (4 - cw) + 2) >> 2;
-    __stcg(plane + (y0 + y) * p.Wp + x0 + x, clampi(pred + sm.res[k], 0, maxv));
+  for (int q = 0; q < nq; ++q) {
+    const int qx = (q % nqx) * QE, qy = (q / nqx) * QE;
+    const int qw = min(w - qx, QE), qh = min(h - qy, QE), lqw = ilog2(qw);
+    if (q > 0) {
+      __syncwarp();  // every lane is done with the previous quarter
+      stage(q, qx, qy, qw, qh, lqw);
+      __syncwarp();
+    }
+    for (int k = lane; k < qw * qh; k += 32) {
+      const int y = qy + (k >> lqw), x = qx + (k & (qw - 1));
+      int pred = predict<MX>(p, c, eL, eT, sm.aux, k, y, x, L, OFF, maxv, dc,
+                             cm);
+      if (cw > 0)  // CIIP blend (put_ciip, vvc_inter_template.c:60-76)
+        pred = (pred * cw + sm.aux[k] * (4 - cw) + 2) >> 2;
+      __stcg(plane + (y0 + y) * p.Wp + x0 + x,
+             clampi(pred + sm.res[k], 0, maxv));
+    }
   }
 
   // publish (release): __syncwarp orders every lane's sample stores before
   // each lane's fence, and the fence orders them before its flag stores
   __syncwarp();
   fence_acq_rel();
-  const int cw_ = w / CELL, nc = cw_ * (h / CELL);
-  int* cells = map + (y0 / CELL) * p.Wc + x0 / CELL;
+  const int cw_ = w >> p.cl2, nc = cw_ * (h >> p.cl2);
+  int* cells = map + (y0 >> p.cl2) * p.Wc + (x0 >> p.cl2);
   for (int k = lane; k < nc; k += 32)
     st_relaxed(cells + (k / cw_) * p.Wc + k % cw_, 0);
 }
 
-__global__ void __launch_bounds__(WAVE_WARPS * 32, 4) wave_kernel(Params p) {
-  __shared__ WarpSmem smem[WAVE_WARPS];
-  WarpSmem& sm = smem[threadIdx.x >> 5];
+template <int MX>
+__global__ void __launch_bounds__(WarpSmem<MX>::WARPS * 32, 4)
+    wave_kernel(Params p) {
+  __shared__ WarpSmem<MX> smem[WarpSmem<MX>::WARPS];
+  WarpSmem<MX>& sm = smem[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
   const int n_tickets = p.n_units * p.nch;
   for (;;) {
@@ -687,7 +746,7 @@ __global__ void __launch_bounds__(WAVE_WARPS * 32, 4) wave_kernel(Params p) {
     t = __shfl_sync(FULL, t, 0);
     if (t >= n_tickets) break;
     const int u = t / p.nch;
-    recon_unit(p, sm, u, t - u * p.nch, lane);
+    recon_unit<MX>(p, sm, u, t - u * p.nch, lane);
   }
 }
 
@@ -724,11 +783,11 @@ __global__ void __launch_bounds__(PLACE_THREADS) place_kernel(Params p) {
       const int u = it - n_place;
       const int x0 = __ldg(p.ctrl + k_x0 * p.ucap + u);
       const int y0 = __ldg(p.ctrl + k_y0 * p.ucap + u);
-      const int cw = __ldg(p.ctrl + k_w * p.ucap + u) / CELL;
-      const int nc = cw * (__ldg(p.ctrl + k_h * p.ucap + u) / CELL);
+      const int cw = __ldg(p.ctrl + k_w * p.ucap + u) >> p.cl2;
+      const int nc = cw * (__ldg(p.ctrl + k_h * p.ucap + u) >> p.cl2);
       for (int ch = 0; ch < p.nch; ++ch) {
         int* cells = p.ready + (size_t)ch * p.Hc * p.Wc
-                     + (y0 / CELL) * p.Wc + x0 / CELL;
+                     + (y0 >> p.cl2) * p.Wc + (x0 >> p.cl2);
         for (int k = lane; k < nc; k += 32) cells[(k / cw) * p.Wc + k % cw] = 1;
       }
     }
@@ -752,9 +811,11 @@ static cudaError_t grid_for(const void* kernel, int threads, long items,
   return cudaSuccess;
 }
 
-// stage 0: place_kernel; stage 1: wave_kernel.  scratch holds the nch
-// readiness maps of (Hp / CELL) x (Wp / CELL) cells, zeroed, then the
-// ticket counter, zeroed.
+// stage 0: place_kernel; stage 1: wave_kernel, its 64-edge instance when
+// maxs > 32 (luma only).  cell is the readiness cell edge, 1 or 2
+// (ops/recon.py readiness_cell); scratch holds the nch readiness maps of
+// (Hp / cell) x (Wp / cell) cells, zeroed, then the ticket counter,
+// zeroed.
 extern "C" int recon_launch(
     const int* ctrl, int num_keys, int ucap, int n_units, const int* ictrl,
     int num_inter_keys, int n_mc, int n_inter, const short* tiles,
@@ -763,17 +824,17 @@ extern "C" int recon_launch(
     const int* dsy, int Hd, int Wd, const int* luma, int Hl, int Wl,
     const int* lfilt,
     const int* mip, const int* div, int maxs, int is_chroma, int bit_depth,
-    int* scratch, int stage, void* stream) {
-  if (num_keys != NUM_KEYS || num_inter_keys < 4 || maxs < 1 || maxs > MAXS
-      || nch < 1 || n_units < 0 || n_units > ucap || n_inter < 0
-      || n_inter > n_mc || (n_mc > 0 && (!tiles || !toff)) || T < 0
-      || Hp % CELL || Wp % CELL
-      || !scratch || stage < 0 || stage > 1)
+    int cell, int* scratch, int stage, void* stream) {
+  if (num_keys != NUM_KEYS || num_inter_keys < 4 || maxs < 1 || maxs > 64
+      || (maxs > 32 && is_chroma) || nch < 1 || n_units < 0
+      || n_units > ucap || n_inter < 0 || n_inter > n_mc
+      || (n_mc > 0 && (!tiles || !toff)) || T < 0 || (cell != 1 && cell != 2)
+      || Hp % cell || Wp % cell || !scratch || stage < 0 || stage > 1)
     return (int)cudaErrorInvalidValue;
-  const int Hc = Hp / CELL, Wc = Wp / CELL;
+  const int cl2 = cell == 2, Hc = Hp >> cl2, Wc = Wp >> cl2;
   Params p{ctrl, ucap, n_units, ictrl, n_mc, n_inter, tiles, toff, T, ipos,
            res, plane, Hp, Wp, dsy, Hd, Wd, luma, Hl, Wl, lfilt, mip, div, maxs,
-           is_chroma, bit_depth, nch, scratch,
+           is_chroma, bit_depth, nch, cl2, scratch,
            scratch + (size_t)nch * Hc * Wc, Hc, Wc};
   const long items = stage == 0 ? (long)n_inter * nch + n_units
                                 : (long)n_units * nch;
@@ -786,10 +847,15 @@ extern "C" int recon_launch(
     if (e == cudaSuccess)
       place_kernel<<<grid, PLACE_THREADS, 0, (cudaStream_t)stream>>>(p);
   } else {
-    e = grid_for((const void*)wave_kernel, WAVE_WARPS * 32, items, WAVE_WARPS,
-                 &grid);
-    if (e == cudaSuccess)
-      wave_kernel<<<grid, WAVE_WARPS * 32, 0, (cudaStream_t)stream>>>(p);
+    const bool big = maxs > 32;
+    const int warps = big ? WarpSmem<64>::WARPS : WarpSmem<32>::WARPS;
+    e = grid_for(big ? (const void*)wave_kernel<64>
+                     : (const void*)wave_kernel<32>,
+                 warps * 32, items, warps, &grid);
+    if (e == cudaSuccess && big)
+      wave_kernel<64><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(p);
+    else if (e == cudaSuccess)
+      wave_kernel<32><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(p);
   }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -82,7 +82,7 @@ def inputs_from_numpy(inp: dict, device) -> dict:
                                         device)}
   if "cclm_vc" in inp:
     out["cclm_vc"] = int(inp["cclm_vc"])
-  for key in ("deblock", "sao", "alf"):
+  for key in ("deblock", "sao", "alf", "sl"):
     if key in inp:
       out[key] = {k: _t(v, device) for k, v in inp[key].items()}
   if "lmcs" in inp:

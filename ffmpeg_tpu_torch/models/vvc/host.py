@@ -236,11 +236,12 @@ class HostDecoder:
         """A fresh native handle on the session's store.  Any handle can
         parse any AU (each carries its parameter sets), so the parse goes
         on with a fresh one where the old one's state cannot be trusted:
-        after a native error, and after a frame with DMVR units, whose
-        flag the handle keeps past vvch_detach; it would defer the
-        collocated motion of every later frame it parses, which no
-        dmvr_apply then publishes, and a later TMVP reader would wait
-        for it."""
+        after a native error, and after a frame whose flags the handle
+        keeps past vvch_detach: DMVR units (it would defer the collocated
+        motion of every later frame it parses, which no dmvr_apply then
+        publishes, and a later TMVP reader would wait for it), and ISP
+        or 64-sample TBs (has_isp / has_tb64 would stay set and select a
+        later frame's size classes, luma unit edge and readiness cells)."""
         if self._h:
             self._lib.vvch_free(self._h)
         self._h = self._lib.vvch_new()
@@ -424,7 +425,7 @@ class HostDecoder:
             fo=NativeFrame(self._lib,
                            self._lib.vvch_detach(self._h)),
         )
-        if np.any(fs.cus["dmvr"]):
+        if np.any(fs.cus["dmvr"]) or has_isp or has_tb64:
             self._renew()
         return fs
 

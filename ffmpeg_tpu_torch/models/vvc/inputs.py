@@ -8,8 +8,9 @@ and per-TU rows as the JAX builder's non-Pallas tree.  Arrays are sized
 to this frame's exact counts: eager torch has no compiled program whose
 shapes would need to stay fixed across frames.
 
-Streams outside the port's slices are refused here, loudly
-(`check_supported`), naming the ROADMAP item that will add them.
+Streams outside the port's coverage (chroma formats other than 4:2:0
+and 4:0:0, which the JAX package refuses too) are refused here, loudly
+(`check_supported`).
 """
 from __future__ import annotations
 
@@ -20,13 +21,21 @@ import numpy as np
 from ...ops.tables import VVC_TABLES
 from ...ops.transform import BUCKET_ROWS, LEVEL_SCALE, dequant_scale_shift
 from .host import CHUNK_CAP, FrameSyntax, _get_lib
-from .mc_tiles import MC_TILE, offsets
+from .mc_tiles import MC_TILE, offsets, split_rows
 from .recon import CTRL_KEYS, _round_up
 
-# TU size classes per plane kind (w, h): the port's residual
-# buckets (ISP and 64-point classes come with their ROADMAP items)
+# TU size classes per plane kind (w, h): the port's residual buckets
 LUMA_SIZES = [(w, h) for w in (4, 8, 16, 32) for h in (4, 8, 16, 32)]
 CHROMA_SIZES = [(w, h) for w in (2, 4, 8, 16, 32) for h in (2, 4, 8, 16, 32)]
+# luma classes that only frames with the tool carry (luma_sizes): ISP
+# sub-partitions (1 or 2 wide or high); 64-sample TBs, whose levels are
+# the coded (min(h, 32), min(w, 32)) corner (the 64-point DCT2 zero-out);
+# ISP sub-partitions of 64-sample CUs
+ISP_EXTRA_SIZES = [(1, 16), (1, 32), (2, 8), (2, 16), (2, 32),
+                   (8, 2), (16, 2), (32, 2), (16, 1), (32, 1)]
+TB64_EXTRA_SIZES = [(w, 64) for w in (4, 8, 16, 32, 64)] + \
+                   [(64, h) for h in (4, 8, 16, 32)]
+ISP64_EXTRA_SIZES = [(1, 64), (2, 64), (64, 1), (64, 2)]
 
 # control rows of the MC batch (the JAX frame program's INTER_KEYS); the
 # last five are DMVR's: its flag and the original, unrefined MVs, around
@@ -61,25 +70,27 @@ INTRA_KEYS = ("x0", "y0", "w", "h", "logw", "logh", "mode_class", "angle",
 
 def check_supported(fs: FrameSyntax) -> None:
   """Raise NotImplementedError for every stream feature the port does
-  not decode (never decode such a frame wrongly or fall back)."""
-  refusals = [
-      (fs.chroma_format_idc not in (0, 1),
-       f"chroma_format_idc {fs.chroma_format_idc}: only 4:2:0 and 4:0:0"),
-      (bool(fs.has_isp), "ISP: ROADMAP 'Still to port' #2"),
-      (bool(fs.has_tb64), "64-sample transform blocks (TB-64): ROADMAP "
-       "'Still to port' #2"),
-      (fs.sl is not None, "explicit scaling lists: ROADMAP 'Still to "
-       "port' #5"),
-  ]
-  for bad, what in refusals:
-    if bad:
-      raise NotImplementedError(f"poc {fs.poc}: {what}")
-  for ctrl in (fs.ctrl_y, fs.ctrl_c):
-    if ctrl is not None and ctrl.size and (
-        (ctrl[CTRL_KEYS.index("w")] > MC_TILE).any()
-        or (ctrl[CTRL_KEYS.index("h")] > MC_TILE).any()):
-      raise NotImplementedError(
-          f"poc {fs.poc}: 64-wide units: ROADMAP 'Still to port' #2")
+  not decode (never decode such a frame wrongly or fall back): chroma
+  formats other than 4:2:0 and 4:0:0, which the JAX package refuses
+  too."""
+  if fs.chroma_format_idc not in (0, 1):
+    raise NotImplementedError(
+        f"poc {fs.poc}: chroma_format_idc {fs.chroma_format_idc}: only "
+        "4:2:0 and 4:0:0 (the JAX package refuses it too)")
+
+
+def luma_sizes(fs: FrameSyntax) -> list:
+  """The frame's luma size classes: LUMA_SIZES, then the ISP, TB-64 and
+  ISP-64 classes of the tools the frame carries (the JAX package's
+  build_host_inputs order)."""
+  sizes = list(LUMA_SIZES)
+  if fs.has_isp:
+    sizes += ISP_EXTRA_SIZES
+  if fs.has_tb64:
+    sizes += TB64_EXTRA_SIZES
+    if fs.has_isp:
+      sizes += ISP64_EXTRA_SIZES
+  return sizes
 
 
 def _padded_plane_shapes(W, H, ctb_log2):
@@ -147,8 +158,8 @@ def _scsh_blob(sizes, bit_depth, dep_quant):
 def _bucket_inputs(fs: FrameSyntax, c_idx: int, sizes):
   """Size-bucketed residual batches, filled by the native parser
   (vvch_fo_fill_buckets): one (len(BUCKET_ROWS), n) scalar matrix and
-  one (n, h, w) int16 level-block array per size class, at exactly
-  the frame's TU count per class."""
+  one (n, min(h, 32), min(w, 32)) int16 level-block array per size
+  class, at exactly the frame's TU count per class."""
   lib = _get_lib()
   n_sizes = len(sizes)
   sizes_arr = np.ascontiguousarray(np.array(sizes, np.int32))
@@ -162,7 +173,8 @@ def _bucket_inputs(fs: FrameSyntax, c_idx: int, sizes):
   caps = np.ascontiguousarray(counts.copy())
   scsh = _scsh_blob(sizes, fs.bit_depth, bool(fs.dep_quant))
   mats = [np.zeros((len(BUCKET_ROWS), max(cap, 1)), np.int32) for cap in caps]
-  lvs = [np.zeros((max(cap, 1), h, w), np.int16)
+  # 64-sample dimensions store only the coded zero-out corner
+  lvs = [np.zeros((max(cap, 1), min(h, 32), min(w, 32)), np.int16)
          for cap, (w, h) in zip(caps, sizes)]
   slots = fs.slots_y if c_idx == 0 else fs.slots_c
   has_slots = slots is not None and len(slots)
@@ -326,7 +338,8 @@ def _layout_ctrl(mat, n_l0: int, ss: int):
 
     inter: the MC batch, dict of (n_mc,) INTER_KEYS rows: the n_inter
       pure inter units (chunk < 0; no intra-frame sample deps), then
-      the CIIP units, whose MC tile the intra pass blends.  Plus the
+      the CIIP units, whose MC tile the intra pass blends (a CIIP unit
+      above MC_TILE a side as its blocks, mc_tiles.split_rows).  Plus the
       GPM weight tiles `gwt` and the per-row index `gslot`, the tile
       offsets `toff` (mc_tiles) and the kernel's work lists `small` and
       `large` (mc_size_classes).
@@ -336,7 +349,7 @@ def _layout_ctrl(mat, n_l0: int, ss: int):
       tail of zero (w=0) rows keeps a full CHUNK_CAP window from any
       ioff in bounds.  The host guarantees every sample dependency of a
       unit lives in a strictly earlier chunk.  `ipos` is each unit's
-      row in the MC batch (its CIIP tile; 0 for other units).
+      first row in the MC batch (its CIIP tile; 0 for other units).
 
   Reference slots: r0slot/r1slot become ref_idx + n_l0 * list, an index
   into the frame's [L0 refs..., L1 refs...] (GPM hypotheses can sit on
@@ -347,14 +360,17 @@ def _layout_ctrl(mat, n_l0: int, ss: int):
   chunk = keys["chunk"]
   pure_idx = np.flatnonzero(chunk < 0)
   mc_idx = np.concatenate([pure_idx, np.flatnonzero(keys["ciipw"] > 0)])
-  inter = {k: np.ascontiguousarray(keys[k][mc_idx], np.int32)
-           for k in INTER_KEYS}
+  # a CIIP unit above MC_TILE a side (up to 64x64) becomes its MC_TILE
+  # blocks, consecutive rows (mc_tiles.split_rows)
+  inter, first = split_rows({k: np.ascontiguousarray(keys[k][mc_idx],
+                                                     np.int32)
+                             for k in INTER_KEYS})
   inter["gwt"], inter["gslot"] = _gpm_weight_blocks(inter, ss)
   inter["toff"] = offsets(inter["w"], inter["h"])
   inter["small"], inter["large"] = mc_size_classes(
       inter["w"], inter["h"], inter["bdof"] if ss == 0 else 0)
   ipos = np.zeros(mat.shape[1], np.int32)
-  ipos[mc_idx] = np.arange(len(mc_idx), dtype=np.int32)
+  ipos[mc_idx] = first
 
   intra_idx = np.flatnonzero(chunk >= 0)
   n_iu = len(intra_idx)
@@ -453,8 +469,12 @@ def build_host_inputs(fs: FrameSyntax):
         fs.ctrl_c[CTRL_KEYS.index("cclm_vc")].max() & 1)
   (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(W, H, fs.ctb_log2)
   for c_idx in range(1 if mono else 3):
-    sizes = LUMA_SIZES if c_idx == 0 else CHROMA_SIZES
+    sizes = luma_sizes(fs) if c_idx == 0 else CHROMA_SIZES
     inp["planes"].append({"buckets": _bucket_inputs(fs, c_idx, sizes)})
+  if fs.sl is not None:
+    # explicit scaling lists: the active APS's ScalingMatrixRec (an 8x8
+    # grid per matrix id) and ScalingMatrixDcRec (ops/transform.py)
+    inp["sl"] = {"rec": fs.sl["rec"], "dc": fs.sl["dc"]}
   if not fs.deblock_disabled:
     inp["deblock"] = _deblock_grids(fs, Hp_y, Wp_y, Hp_c, Wp_c, fs.ctb_log2)
   if fs.lmcs is not None:

@@ -10,6 +10,15 @@ units, then CIIP units), built on the host by `inputs._layout_ctrl`;
 T = toff[-1].  int16 is exact: every prediction is clipped to [0, 2^bd
 - 1] with bd <= 12.
 
+Every MC row is at most MC_TILE a side.  A CIIP unit above that (up to
+64x64, on frames with 64-sample luma units) is split into its MC_TILE x
+MC_TILE blocks, in row-major order, as consecutive rows of the batch
+(`split_rows`); the unit's CIIP tile index (`ipos`) is its first row,
+and its block (by, bx) is row ipos + by * nbx + bx with nbx = ceil(w /
+MC_TILE).  Inter prediction is position-wise for such units (no BDOF,
+PROF, DMVR, GPM or weights), so the blocks hold exactly the unit's
+prediction.  `ciip_blocks` reassembles a unit's prediction from them.
+
 `pack` and `unpack` convert from and to S x S tiles with zeros outside
 each unit (S = MC_TILE), the layout of the plain versions' batched
 arithmetic and of the tests' JAX references; the card's main path does
@@ -20,8 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# every MC unit is at most MC_TILE x MC_TILE (inputs.check_supported
-# refuses larger ones); the edge of the plain versions' padded tiles
+# every MC row is at most MC_TILE x MC_TILE (split_rows); the edge of the
+# plain versions' padded tiles
 MC_TILE = 32
 
 DTYPE = torch.int16
@@ -65,3 +74,47 @@ def unpack(tiles, toff, w, h, S: int = MC_TILE):
                     device=tiles.device)
   out[..., unit, y, x] = tiles.to(torch.int32)
   return out.movedim(-3, 0).contiguous()
+
+
+def n_blocks(w, h):
+  """Rows of the MC batch that a unit of w x h takes (split_rows)."""
+  return ((np.asarray(w) + MC_TILE - 1) // MC_TILE
+          * ((np.asarray(h) + MC_TILE - 1) // MC_TILE))
+
+
+def split_rows(rows: dict):
+  """An MC batch's (n,) control rows, each unit above MC_TILE a side
+  replaced by its MC_TILE blocks in row-major order (x0, y0, w and h
+  moved to the block; every other row copied).  Returns (the new rows,
+  (n,) int32 index of each unit's first row)."""
+  w, h = rows["w"], rows["h"]
+  nbx = (w + MC_TILE - 1) // MC_TILE
+  cnt = n_blocks(w, h).astype(np.int64)
+  first = np.zeros(len(w), np.int64)
+  np.cumsum(cnt[:-1], out=first[1:])
+  if not (cnt > 1).any():
+    return rows, first.astype(np.int32)
+  src = np.repeat(np.arange(len(w)), cnt)
+  k = np.arange(len(src)) - first[src]
+  bx, by = k % nbx[src], k // nbx[src]
+  out = {key: np.ascontiguousarray(v[src]) for key, v in rows.items()}
+  out["x0"] = (out["x0"] + MC_TILE * bx).astype(np.int32)
+  out["y0"] = (out["y0"] + MC_TILE * by).astype(np.int32)
+  out["w"] = np.minimum(MC_TILE, w[src] - MC_TILE * bx).astype(np.int32)
+  out["h"] = np.minimum(MC_TILE, h[src] - MC_TILE * by).astype(np.int32)
+  return out, first.astype(np.int32)
+
+
+def ciip_blocks(blocks, first, w, maxs: int):
+  """(N, maxs, maxs) MC prediction of N CIIP units from the unpacked
+  (n_mc, MC_TILE, MC_TILE) blocks: unit i's first row first[i] and its
+  width w[i] ((N,) tensors); values outside the unit are not defined
+  beyond being read from in-range rows."""
+  last = blocks.shape[0] - 1
+  if maxs <= MC_TILE:
+    return blocks[first.long().clamp(0, last), :maxs, :maxs]
+  nbx = (w + MC_TILE - 1) // MC_TILE
+  q = maxs // MC_TILE
+  rows = [torch.cat([blocks[(first + by * nbx + bx).long().clamp(0, last)]
+                     for bx in range(q)], dim=-1) for by in range(q)]
+  return torch.cat(rows, dim=-2)

@@ -37,8 +37,8 @@ from ...ops.transform import residual_plane
 from ...utils import trace
 from .convert import inputs_from_numpy
 from .host import ColStore, FrameSyntax, HostDecoder, dmvr_apply
-from .inputs import (CHROMA_SIZES, LUMA_SIZES, _padded_plane_shapes,
-                     build_host_inputs, has_dmvr)
+from .inputs import (CHROMA_SIZES, _padded_plane_shapes, build_host_inputs,
+                     has_dmvr)
 
 
 def _sync_for(device):
@@ -59,13 +59,16 @@ def _launch(name, label, kw):
 
 def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
                   tile_bds=((), ()), crop=(0, 0, 0, 0), dbo=(0, 0, 0),
-                  dto=(0, 0, 0), wrap=0, device="cuda", call=None):
+                  dto=(0, 0, 0), wrap=0, tb64=False, device="cuda",
+                  call=None):
   """inp: converted input tree (convert.inputs_from_numpy).
   refs: per component, the reference planes [L0..., L1...]
   (resolve_refs).
   tile_bds: interior tile boundaries in luma samples (CCLM stencils and
   the LMCS chroma scales).
   wrap: the luma reference wraparound offset (0 = off).
+  tb64: the frame has 64-sample luma TBs or CIIP units above 32 a side:
+  luma intra units reach 64 (the JAX frame program's maxs_intra_y).
   crop: conformance-window offsets (l, r, t, b) in luma samples.
   dbo/dto: effective deblock beta/tc offsets per component.
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
@@ -82,10 +85,12 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   lm = inp.get("lmcs")
 
   def residual(c, chroma_scale=None):
-    return residual_plane(inp["planes"][c]["buckets"],
-                          Hp_y if c == 0 else Hp_c, Wp_y if c == 0 else Wp_c,
-                          bd, LUMA_SIZES if c == 0 else CHROMA_SIZES, c > 0,
-                          device, chroma_scale)
+    # the frame's size classes: luma's vary with its tools (inputs.py)
+    buckets = inp["planes"][c]["buckets"]
+    return residual_plane(buckets, Hp_y if c == 0 else Hp_c,
+                          Wp_y if c == 0 else Wp_c, bd,
+                          list(buckets) if c == 0 else CHROMA_SIZES, c > 0,
+                          device, chroma_scale, inp.get("sl"))
 
   with trace.span("residual", sync):
     res_y = residual(0)
@@ -103,10 +108,11 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
              for label, ss, ct, chans in kinds}
 
   def recon(label, ss, ct, res, cclm=None):
+    maxs = min(64 if tb64 and not ss else 32, maxs_y >> ss)
     with trace.span("recon", sync):
       return list(call("recon", label, dict(
           res=res, intra=ct["intra"], n_chunks=ct["n_chunks"],
-          inter=ct["inter"], tiles=tiles[label], maxs=min(32, maxs_y >> ss),
+          inter=ct["inter"], tiles=tiles[label], maxs=maxs,
           is_chroma=bool(ss), bit_depth=bd, cclm=cclm)))
 
   # luma first, in the LMCS-mapped domain when LMCS is on
@@ -193,7 +199,8 @@ def frame_geometry(fs: FrameSyntax) -> dict:
                         tuple(v for v in fs.tile_bd[1]
                               if 0 < v < fs.height)),
               crop=tuple(fs.crop), dbo=tuple(fs.beta_offset),
-              dto=tuple(fs.tc_offset), wrap=int(fs.wrap_off))
+              dto=tuple(fs.tc_offset), wrap=int(fs.wrap_off),
+              tb64=bool(fs.has_tb64))
 
 
 _ZEROS: dict = {}

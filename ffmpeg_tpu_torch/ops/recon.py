@@ -42,31 +42,47 @@ _K = {k: i for i, k in enumerate(INTRA_KEYS)}
 # integer counters a caller may reset to 0 and read back
 LAUNCHES = {"recon": 0}
 PLAIN_RUNS = {"recon": 0}
+# launches by the wavefront's instance: units of at most 32 a side, or
+# the 64-edge instance of maxs-64 calls (csrc/recon.cu wave_kernel<MX>)
+EDGE_LAUNCHES = {32: 0, 64: 0}
 
 
 def _check_ipos(intra: dict, n_units: int, n_mc: int) -> None:
-  """Every CIIP unit's tile index lies in the MC batch."""
-  ciip = intra["mat_host"][_K["ciipw"], :n_units] > 0
+  """Every CIIP unit's tile rows (its first row `ipos` and, for a unit
+  above MC_TILE a side, the blocks after it) lie in the MC batch."""
+  rows = intra["mat_host"]
+  ciip = rows[_K["ciipw"], :n_units] > 0
   ipos = intra["ipos_host"][:n_units][ciip]
-  if ipos.size and (ipos.min() < 0 or ipos.max() >= n_mc):
+  last = ipos + mc_tiles.n_blocks(rows[_K["w"], :n_units][ciip],
+                                  rows[_K["h"], :n_units][ciip]) - 1
+  if ipos.size and (ipos.min() < 0 or last.max() >= n_mc):
     raise ValueError(f"recon: CIIP tile index out of range [0, {n_mc}): "
-                     f"{ipos.min()}..{ipos.max()}")
+                     f"{ipos.min()}..{last.max()}")
 
 
-# edge of a readiness cell in samples: the host's dependency granularity
-# (decode.cc `g`) for frames without ISP, which the port refuses
+# edge in samples of a readiness cell where every unit is 2-aligned
 CELL = 2
 
 
-def _wait_rects(x0, y0, avail_l, avail_t, cand_up_left, r):
+def readiness_cell(rows: np.ndarray) -> int:
+  """Edge in samples of the recon kernel's readiness cells for a call's
+  (len(INTRA_KEYS), n) intra rows: 2, unless a unit is not aligned to 2
+  samples (the 1- and 2-sample ISP sub-partitions), then 1.  Every unit
+  then covers whole cells, so each cell has one writer (decode.cc's `g`
+  is 1 on every ISP frame, 2 otherwise; at 2 where every unit is
+  2-aligned, the writers of a stencil are the same)."""
+  xywh = rows[[_K["x0"], _K["y0"], _K["w"], _K["h"]]]
+  return 1 if (xywh % CELL).any() else CELL
+
+
+def _wait_rects(x0, y0, avail_l, avail_t, cand_up_left, r, C=CELL):
   """The cells a unit waits for before it builds its edges, as
-  half-open (row0, row1, col0, col1) ranges of CELL x CELL cells: the top
+  half-open (row0, row1, col0, col1) ranges of C x C cells: the top
   run [x0, x0 + avail_t) on rows y0-1-r .. y0-1, the left run [y0, y0 +
   avail_l) on columns x0-1-r .. x0-1, and the corner when cand_up_left is
   set.  r is the MRL reference line (0 for chroma).  This is decode.cc's
   chunk stencil (derive, "wavefront chunk") and the twin of
   csrc/recon.cu `wait_rects`: change the three together."""
-  C = CELL
   yt, xl = max(0, (y0 - 1 - r) // C), max(0, (x0 - 1 - r) // C)
   rects = []
   if avail_t > 0:
@@ -81,12 +97,14 @@ def _wait_rects(x0, y0, avail_l, avail_t, cand_up_left, r):
 def dependency_levels(intra: dict, n_units: int, *, is_chroma: bool):
   """Each intra unit's level in the dataflow wavefront: 1 + the largest
   level among the intra units that write the cells it waits for
-  (`_wait_rects`; cells no intra unit writes are ready from the start,
-  level 0).  Units are visited in layout order, which is topological:
-  a unit's writers lie in strictly earlier chunks.  The largest level is
-  the critical path of the recon kernel's wavefront launch.  Returns
-  (n_units,) int64."""
+  (`_wait_rects` at the kernel's readiness_cell for these rows;
+  cells no intra unit writes are ready from the start, level 0).  Units
+  are visited in layout order, which is topological: a unit's writers
+  lie in strictly earlier chunks.  The largest level is the critical
+  path of the recon kernel's wavefront launch.  Returns (n_units,)
+  int64."""
   rows = intra["mat_host"][:, :n_units].astype(np.int64)
+  C = readiness_cell(rows)
   x0, y0, w, h = (rows[_K[k]] for k in ("x0", "y0", "w", "h"))
   avl, avt, cul = (rows[_K[k]] for k in ("avail_l", "avail_t",
                                          "cand_up_left"))
@@ -94,17 +112,17 @@ def dependency_levels(intra: dict, n_units: int, *, is_chroma: bool):
   level = np.zeros(n_units, np.int64)
   if not n_units:
     return level
-  cells = np.zeros((int((y0 + np.maximum(h, avl)).max()) // CELL + 1,
-                    int((x0 + np.maximum(w, avt)).max()) // CELL + 1),
+  cells = np.zeros((int((y0 + np.maximum(h, avl)).max()) // C + 1,
+                    int((x0 + np.maximum(w, avt)).max()) // C + 1),
                    np.int64)
   for i in range(n_units):
     dep = 0
     for a, b, c, d in _wait_rects(int(x0[i]), int(y0[i]), int(avl[i]),
-                                  int(avt[i]), int(cul[i]), int(mrl[i])):
+                                  int(avt[i]), int(cul[i]), int(mrl[i]), C):
       dep = max(dep, int(cells[a:b, c:d].max()))
     level[i] = dep + 1
-    cells[y0[i] // CELL:(y0[i] + h[i]) // CELL,
-          x0[i] // CELL:(x0[i] + w[i]) // CELL] = dep + 1
+    cells[y0[i] // C:(y0[i] + h[i]) // C,
+          x0[i] // C:(x0[i] + w[i]) // C] = dep + 1
   return level
 
 
@@ -205,9 +223,8 @@ def _intra_units(plane, res_plane, c, present, *, maxs, is_chroma, bit_depth,
                                    maxv), pred)
   if present["ciip"]:
     # CIIP blend (put_ciip, vvc_inter_template.c:60-76) with the unit's
-    # MC tile
-    ipos = c["ipos"].clamp(0, tiles.shape[0] - 1).long()
-    mcb = tiles[ipos, :maxs, :maxs]
+    # MC tile (its blocks, for a unit above MC_TILE a side)
+    mcb = mc_tiles.ciip_blocks(tiles, c["ipos"], w, maxs)
     cw = c["ciipw"][:, None, None]
     pred = torch.where(cw > 0, (pred * cw + mcb * (4 - cw) + 2) >> 2, pred)
   res = _slice_block(res_plane, c["y0"], c["x0"], maxs)
@@ -315,7 +332,7 @@ def _get_kernel():
         p, i, i,            # dsy (Hd, Wd)
         p, i, i,            # luma (Hl, Wl)
         p, p, p,            # luma filter, MIP bank, CCLM div table
-        i, i, i,            # maxs, is_chroma, bit_depth
+        i, i, i, i,         # maxs, is_chroma, bit_depth, readiness cell
         p,                  # scratch: readiness maps + ticket
         i,                  # stage: 0 placement, 1 wavefront
         p]                  # stream
@@ -337,13 +354,6 @@ def _check(t, name, shape=None, dtype=torch.int32):
                      f"expected {tuple(shape)}")
 
 
-def _check_cells(rows: np.ndarray, Hp: int, Wp: int) -> None:
-  """Every intra unit covers whole CELL x CELL cells of the readiness
-  map, so that each cell has one writer."""
-  xywh = rows[[_K["x0"], _K["y0"], _K["w"], _K["h"]]]
-  if (xywh % CELL).any() or Hp % CELL or Wp % CELL:
-    raise ValueError(f"recon: an intra unit is not aligned to the "
-                     f"{CELL}x{CELL} readiness cells")
 
 
 def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
@@ -359,9 +369,15 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
   _check(res, "res")
   _check(mat, "ctrl", (len(INTRA_KEYS), ucap))
   _check(intra["ipos"], "ipos", (ucap,))
-  _check_cells(intra["mat_host"][:, :n_units], Hp, Wp)
-  if maxs not in (16, 32):
-    raise ValueError(f"recon: maxs {maxs} not in (16, 32)")
+  # readiness cells: every unit covers whole cells (readiness_cell)
+  cell = readiness_cell(intra["mat_host"][:, :n_units])
+  if Hp % cell or Wp % cell:
+    raise ValueError(f"recon: a {Hp}x{Wp} plane is not whole {cell}x{cell} "
+                     "readiness cells")
+  if maxs not in (16, 32, 64) or (maxs == 64 and is_chroma):
+    raise ValueError(f"recon: maxs {maxs} not in (16, 32), or 64 for luma")
+  if n_units and intra["mat_host"][[_K["w"], _K["h"]], :n_units].max() > maxs:
+    raise ValueError(f"recon: an intra unit exceeds maxs {maxs}")
   n_mc, n_inter = inter["n_mc"], inter["n_inter"]
   _check(inter["mat"], "MC batch ctrl", (len(INTER_KEYS), n_mc))
   if n_mc:
@@ -381,9 +397,9 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
   ftab = I._const("luma_filter", I.INTRA_LUMA_FILTER, dev)
   bank = I._const("mip_bank", I.MIP_BANK, dev)
   div = I._const("cclm_div", I.CCLM_DIV_SIG, dev)
-  # per channel a readiness map of (Hp/CELL, Wp/CELL) cells, 0 = ready;
+  # per channel a readiness map of (Hp/cell, Wp/cell) cells, 0 = ready;
   # then the ticket counter
-  scratch = torch.zeros(nch * (Hp // CELL) * (Wp // CELL) + 1,
+  scratch = torch.zeros(nch * (Hp // cell) * (Wp // cell) + 1,
                         dtype=torch.int32, device=dev)
   lib = _get_kernel()
   args = (mat.data_ptr(), len(INTRA_KEYS), ucap, n_units,
@@ -394,7 +410,7 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
           res.data_ptr(), plane.data_ptr(), nch, Hp, Wp,
           dsy_ptr, Hd, Wd, luma_ptr, Hl, Wl,
           ftab.data_ptr(), bank.data_ptr(), div.data_ptr(),
-          maxs, int(is_chroma), bit_depth, scratch.data_ptr())
+          maxs, int(is_chroma), bit_depth, cell, scratch.data_ptr())
   stream = torch.cuda.current_stream(dev).cuda_stream
   for stage in (0, 1):
     if mark is not None:
@@ -404,6 +420,8 @@ def _recon_cuda(res, intra, n_chunks, inter, tiles, *, maxs, is_chroma,
       raise RuntimeError("recon kernel launch failed: "
                          f"{lib.recon_error_string(rc).decode()}")
   LAUNCHES["recon"] += 1
+  if n_units:
+    EDGE_LAUNCHES[64 if maxs > 32 else 32] += 1
   return plane
 
 

@@ -6,11 +6,21 @@ transform `vvcdsp.c:94-117`): TUs arrive grouped by (w, h) size class,
 each class is one batched dequant + two matrix products, and the
 results are placed into a residual plane.
 
+Besides the 2-D classes of 2..32 a side, three kinds of classes exist
+on the frames that carry their tools (inputs.py adds them per frame):
+the 1-D classes of ISP sub-partitions (1 or 2 samples wide or high: one
+transform pass, shift 6 + 15 - bd, no intermediate clip), the 64-point
+classes of TB-64 frames (DCT2 only, with the high-frequency zero-out:
+levels arrive as the coded (min(h, 32), min(w, 32)) corner and the basis
+columns are sliced to it), and both at once.  Explicit scaling lists
+replace the flat dequant factor 16 with a per-coefficient factor.
+
 CUDA torch has no integer matrix product, so the products run in
 float64.  That is exact: every basis value is at most 90 in magnitude,
-every input below 2^15 and every sum has at most 32 terms, which stays
-far below 2^53.  Everything else is int32, with the C reference's
-wraparound on the dequant multiply and arithmetic `>>` on negatives.
+every input below 2^15 and every sum has at most 32 coded terms (the
+64-point zero-out keeps 32), so |sum| < 32 * 90 * 2^15 < 2^27, far below
+2^53.  Everything else is int32, with the C reference's wraparound on
+the dequant multiply and arithmetic `>>` on negatives.
 """
 from __future__ import annotations
 
@@ -153,20 +163,62 @@ def bucket_view(bucket: dict) -> dict:
   return d
 
 
+def _zo(d: int) -> int:
+  """Coded extent of a transform dimension: the 64-point DCT2 zeroes out
+  all but its low 32 coefficients."""
+  return min(d, 32)
+
+
+def _scaling_factors(b: dict, w: int, h: int, sl: dict) -> torch.Tensor:
+  """Per-coefficient dequant factors m of explicit scaling lists
+  (derive_scale_m, vvc_intra.c:340-385) over the coded (zh, zw) region:
+  the TU's 8x8 ScalingMatrixRec (row `slid`) upsampled by index shifts,
+  position (0, 0) overridden by ScalingMatrixDcRec for ids >= 14, and
+  the flat 16 where slid < 0.  Returns (n, zh, zw) int32."""
+  dev = b["lv"].device
+  slid = b["slid"].long()
+  mx = max(w, h)
+  l2m = 1 if mx == 2 else (2 if mx == 4 else 3)
+  log2w, log2h = w.bit_length() - 1, h.bit_length() - 1
+  iy = np.minimum((np.arange(_zo(h)) << l2m) >> log2h, (1 << l2m) - 1)
+  ix = np.minimum((np.arange(_zo(w)) << l2m) >> log2w, (1 << l2m) - 1)
+  m = sl["rec"][slid.clamp(min=0)][:, _idx(iy, dev)][:, :, _idx(ix, dev)]
+  if mx >= 16:
+    dc = sl["dc"][(slid - 14).clamp(0, 13)]
+    m[:, 0, 0] = torch.where(slid >= 14, dc, m[:, 0, 0])
+  return torch.where(slid[:, None, None] < 0, 16, m)
+
+
+def _pass_basis(kind_row, n: int, zn: int, dev, mts_max: int):
+  """The inverse basis of one transform pass over n outputs from zn
+  coded inputs: per TU (DCT2/DST7/DCT8 by its kind row, (N, n, n)) for 4
+  <= n <= mts_max, else DCT2 with its columns sliced to the coded region
+  ((n, zn), shared)."""
+  if 4 <= n <= mts_max:
+    return _basis_stack(n, dev)[kind_row.long()]
+  return _dct2(n, dev)[:, :zn]
+
+
 def bucket_residuals(b: dict, w: int, h: int, bit_depth: int,
-                     is_chroma: bool, chroma_scale=None) -> torch.Tensor:
+                     is_chroma: bool, chroma_scale=None,
+                     sl=None) -> torch.Tensor:
   """Dequant + inverse transform of one (w, h) size class -> (n, h, w)
-  int32 residual blocks (bucket_view rows in, live rows only).
+  int32 residual blocks (bucket_view rows in, live rows only; the level
+  blocks are the coded (min(h, 32), min(w, 32)) corner).
   chroma_scale, when given, is the flat per-VPDU LMCS scale array
   (ops/lmcs.py lmcs_vpdu_scales), applied to chroma TBs of more than 4
-  samples by their `vpdu` row (itransform, vvc_intra.c:449-475)."""
-  if w > 32 or h > 32 or w == 1 or h == 1:
-    raise NotImplementedError(
-        f"{w}x{h} transform blocks (TB-64 / ISP): ROADMAP 'Still to "
-        "port' #2")
+  samples by their `vpdu` row (itransform, vvc_intra.c:449-475).
+  sl: the frame's explicit scaling lists {"rec": (28, 8, 8), "dc": (14,)}
+  int32, or None (flat)."""
   dev = b["lv"].device
   levels = b["lv"]
-  scale16 = (b["scale"] * 16)[:, None, None]
+  zw, zh = _zo(w), _zo(h)
+  if sl is not None:
+    # int32 products in the JAX order (scale * m, then * level), so that
+    # any wrap is the same wrap
+    scale16 = b["scale"][:, None, None] * _scaling_factors(b, w, h, sl)
+  else:
+    scale16 = (b["scale"] * 16)[:, None, None]
   sh = b["shift"][:, None, None]
   off = (1 << sh) >> 1
   deq = (levels * scale16 + off) >> sh
@@ -174,23 +226,36 @@ def bucket_residuals(b: dict, w: int, h: int, bit_depth: int,
                     deq.clamp(-(1 << 15), (1 << 15) - 1))
   if not is_chroma and w >= 4 and h >= 4:
     deq = apply_lfnst(deq, b, w, h)
+  # transform skip, where the block is not zeroed out: the dequantized
+  # levels ARE the residual (never signalled for 64-point TBs)
+  ts = (zw, zh) == (w, h)
+  if w == 1 or h == 1:
+    # 1-D TBs (ISP sub-partitions): one pass with shift 6 + 15 - bd and no
+    # intermediate clip (itx_1d, vvcdsp.c:119-138); DST7/DCT8 for 4..16
+    if h == 1:
+      m = _pass_basis(b["trh"], w, zw, dev, 16)
+      out = torch.einsum("nyk,nxk->nyx" if m.dim() == 3 else "nyk,xk->nyx",
+                         deq.double(), m)
+    else:
+      m = _pass_basis(b["trv"], h, zh, dev, 16)
+      out = torch.einsum("nyk,nkx->nyx" if m.dim() == 3 else "yk,nkx->nyx",
+                         m, deq.double())
+    shift1 = 6 + 15 - bit_depth
+    out = (out.to(torch.int32) + (1 << (shift1 - 1))) >> shift1
+    return torch.where(b["ts"][:, None, None] > 0, deq, out) if ts else out
   # per-TU transform kind (0=DCT2 1=DST7 2=DCT8, spec 8.7.4 / MTS);
-  # DST7/DCT8 exist for 4..32 only — smaller sizes are always DCT2
-  if h >= 4:
-    mv = _basis_stack(h, dev)[b["trv"].long()]         # (n, h, h)
-    tmp = torch.einsum("nyk,nkx->nyx", mv, deq.double())
-  else:
-    tmp = torch.einsum("yk,nkx->nyx", _dct2(h, dev), deq.double())
+  # DST7/DCT8 exist for 4..32 only, other sizes are always DCT2
+  mv = _pass_basis(b["trv"], h, zh, dev, 32)
+  tmp = torch.einsum("nyk,nkx->nyx" if mv.dim() == 3 else "yk,nkx->nyx", mv,
+                     deq.double())
   tmp = ((tmp.to(torch.int32) + 64) >> 7).clamp(-(1 << 15), (1 << 15) - 1)
-  if w >= 4:
-    mh = _basis_stack(w, dev)[b["trh"].long()]         # (n, w, w)
-    out = torch.einsum("nyk,nxk->nyx", tmp.double(), mh)
-  else:
-    out = torch.einsum("nyk,xk->nyx", tmp.double(), _dct2(w, dev))
+  mh = _pass_basis(b["trh"], w, zw, dev, 32)
+  out = torch.einsum("nyk,nxk->nyx" if mh.dim() == 3 else "nyk,xk->nyx",
+                     tmp.double(), mh)
   shift2 = 5 + 15 - bit_depth
   out = (out.to(torch.int32) + (1 << (shift2 - 1))) >> shift2
-  # transform skip: the dequantized levels ARE the residual
-  out = torch.where(b["ts"][:, None, None] > 0, deq, out)
+  if ts:
+    out = torch.where(b["ts"][:, None, None] > 0, deq, out)
   if is_chroma:
     # joint-CbCr derived residual: (r * c_sign) >> shift applied to
     # the post-ITX samples (add_residual_joint, vvcdsp_template.c:48)
@@ -208,17 +273,18 @@ def bucket_residuals(b: dict, w: int, h: int, bit_depth: int,
 
 
 def residual_plane(buckets: dict, Hp: int, Wp: int, bit_depth: int, sizes,
-                   is_chroma: bool, device, chroma_scale=None) -> torch.Tensor:
+                   is_chroma: bool, device, chroma_scale=None,
+                   sl=None) -> torch.Tensor:
   """(Hp, Wp) int32 residual plane of one component: every size class's
-  blocks placed at their TU origins (TUs never overlap).  chroma_scale:
-  as in bucket_residuals."""
+  blocks placed at their TU origins (TUs never overlap).  chroma_scale,
+  sl: as in bucket_residuals."""
   res = torch.zeros((Hp, Wp), dtype=torch.int32, device=device)
   for (w, h) in sizes:
     bucket = buckets[(w, h)]
     if not bucket["n"]:
       continue
     b = bucket_view(bucket)
-    out = bucket_residuals(b, w, h, bit_depth, is_chroma, chroma_scale)
+    out = bucket_residuals(b, w, h, bit_depth, is_chroma, chroma_scale, sl)
     yy = b["y0"].long()[:, None, None] + torch.arange(h, device=device)[
         None, :, None]
     xx = b["x0"].long()[:, None, None] + torch.arange(w, device=device)[

@@ -5,11 +5,27 @@ device unless `--device cpu` is given; without a CUDA device the
 default refuses to start rather than fall back.
 
   python -m ffmpeg_tpu_torch.tools.decode stream.vvc [--device cpu]
+
+The input must be an annex-B byte stream; anything else (an MP4/ISO-BMFF
+file among them) is refused with an error rather than decoded to
+nothing.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+_START_CODES = (b"\x00\x00\x01", b"\x00\x00\x00\x01")
+
+
+def check_annexb(data: bytes, path: str) -> None:
+  """Refuse input that does not open with an annex-B start code."""
+  if data.startswith(_START_CODES):
+    return
+  what = ("an MP4/ISO-BMFF file" if data[4:8] == b"ftyp"
+          else "not an annex-B stream")
+  raise SystemExit(f"{path}: {what}; MP4/ISO-BMFF input is not supported "
+                   "yet (ROADMAP A4): give an annex-B .vvc stream")
 
 
 def main(argv=None) -> int:
@@ -28,6 +44,7 @@ def main(argv=None) -> int:
 
   with open(args.input, "rb") as f:
     data = f.read()
+  check_annexb(data, args.input)
   dec = VVCDecoder(device=args.device, config=DecoderConfig(
       errors="raise" if args.strict else "contain"))
   yuv = open(args.yuv, "wb") if args.yuv else None

@@ -1,11 +1,14 @@
 """End to end: the PyTorch port decodes intra and P/B streams, with LMCS,
-ALF/CC-ALF and DMVR, to the JAX package's frame MD5s, and refuses what its
-slices do not cover.
+ALF/CC-ALF, DMVR, ISP, 64-sample transform blocks (CTU-128) and explicit
+scaling lists, to the JAX package's frame MD5s, and refuses what the JAX
+package refuses too (4:2:2, 4:4:4).
 
 The JAX MD5s of the small cases live in
-ffmpeg_tpu_torch/testdata/intra_cases.md5.json, inter_cases.md5.json and
-tools_cases.md5.json (a JAX decode per case costs a minute of XLA compile
-on the CPU); regenerate them with
+ffmpeg_tpu_torch/testdata/intra_cases.md5.json, inter_cases.md5.json,
+tools_cases.md5.json and coding_cases.md5.json (a JAX decode per case
+costs a minute of XLA compile on the CPU); the coding cases' CPU tests
+are in test_torch_decode_tb64.py and test_torch_decode_isp_sl.py.
+Regenerate them with
 
   python tests/test_torch_decode.py
 
@@ -30,6 +33,7 @@ TESTDATA = os.path.join(ROOT, "ffmpeg_tpu_torch", "testdata")
 CASES_JSON = os.path.join(TESTDATA, "intra_cases.md5.json")
 INTER_JSON = os.path.join(TESTDATA, "inter_cases.md5.json")
 TOOLS_JSON = os.path.join(TESTDATA, "tools_cases.md5.json")
+CODING_JSON = os.path.join(TESTDATA, "coding_cases.md5.json")
 
 torch.set_num_threads(2)
 
@@ -248,16 +252,54 @@ TOOL_CASES = {
                    deblock=True, sao=True, max_mv=48),
 }
 
-# one stream per refused feature: (config, what the refusal names)
-REFUSED = {
-    "isp": (dict(width=96, height=96, seed=3501, qp=30, isp=True,
-                 split_prob=0.8), "ISP"),
-    "tb64": (dict(width=128, height=128, seed=3701, qp=30, ctu_log2=6,
-                  tb64=True, min_qt_size=64, max_mtt_depth=0,
-                  split_prob=0.3), "TB-64"),
-    "scaling-lists": (dict(width=96, height=96, seed=7002, qp=28,
-                           scaling_lists=True, mts=True, joint_cbcr=True),
-                      "scaling lists"),
+# the ISP, TB-64/CTU-128 and scaling-list cases of tests/test_conformance.py
+# (same ids and configs), and ciip64: CTU-64 B frames whose CIIP units
+# reach 64x64 (the luma units' edge is 64 without TB-64)
+CODING_CASES = {
+    "tb64": dict(width=128, height=128, seed=3701, qp=30, ctu_log2=6,
+                 tb64=True, min_qt_size=64, max_mtt_depth=0, split_prob=0.3),
+    "tb64-filters": dict(width=192, height=128, seed=3702, qp=28, ctu_log2=6,
+                         tb64=True, min_qt_size=32, max_mtt_depth=1,
+                         max_bt_size=64, max_tt_size=64, deblock=True,
+                         sao=True, split_prob=0.4),
+    "tb64-lfnst": dict(width=128, height=128, seed=3703, qp=30, ctu_log2=6,
+                       tb64=True, min_qt_size=32, max_mtt_depth=0,
+                       lfnst=True, split_prob=0.4),
+    "ctu128": dict(width=256, height=192, seed=3704, qp=30, ctu_log2=7,
+                   tb64=True, min_qt_size=64, max_mtt_depth=0,
+                   split_prob=0.4),
+    "ctu128-inter": dict(width=256, height=192, seed=3705, qp=32, ctu_log2=7,
+                         tb64=True, min_qt_size=32, max_mtt_depth=1,
+                         max_bt_size=64, max_tt_size=64, inter=True,
+                         b_slices=True, deblock=True, sao=True, max_mv=64,
+                         n_frames=4, split_prob=0.4),
+    "ctu128-tools-ra": dict(width=256, height=192, seed=3706, qp=32,
+                            ctu_log2=7, tb64=True, min_qt_size=32,
+                            max_mtt_depth=1, max_bt_size=64, max_tt_size=64,
+                            inter=True, b_slices=True, ra=True, tmvp=True,
+                            n_frames=5, deblock=True, sao=True, alf=True,
+                            lmcs=True, mip=True, max_mv=64, split_prob=0.4),
+    "isp": dict(width=96, height=96, seed=3501, qp=30, isp=True,
+                split_prob=0.8),
+    "isp-lfnst": dict(width=96, height=64, seed=3504, qp=30, isp=True,
+                      lfnst=True, mts_implicit=True),
+    "isp-dualtree": dict(width=96, height=64, seed=3506, qp=30, isp=True,
+                         dual_tree=True, cclm=True, mip=True, mrl=True),
+    "isp-10bit-filters": dict(width=96, height=64, seed=3508, qp=32, isp=True,
+                              bit_depth=10, deblock=True, sao=True),
+    "isp-inter": dict(width=96, height=64, seed=3509, qp=30, isp=True,
+                      inter=True, b_slices=True, n_frames=4, deblock=True),
+    "scaling-mts-jcbcr": dict(width=96, height=96, seed=7002, qp=28,
+                              scaling_lists=True, mts=True, joint_cbcr=True),
+    "scaling-lfnst-ts": dict(width=96, height=64, seed=7003, qp=30,
+                             scaling_lists=True, lfnst=True,
+                             transform_skip=True),
+    "scaling-inter": dict(width=96, height=64, seed=7005, qp=30,
+                          scaling_lists=True, inter=True, b_slices=True,
+                          n_frames=4, deblock=True),
+    "ciip64": dict(width=128, height=128, seed=5222, qp=30, ctu_log2=6,
+                   min_qt_size=64, max_mtt_depth=0, inter=True, b_slices=True,
+                   n_frames=3, ciip=True, deblock=True),
 }
 
 
@@ -362,17 +404,80 @@ def test_cli_cpu(capsys):
   assert lines[0].startswith("0, 0, 256x128, ")
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_refused_stream_raises(case):
-  """Outside the slice: NotImplementedError naming the ROADMAP item,
-  even in the default error-containing mode — never a wrong frame."""
+def _host_frames(data):
+  """The port's parser on each access unit of a stream, on one handle
+  pool of one: [FrameSyntax]."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.host import ColStore, HostDecoder
+
+  hd = HostDecoder(ColStore())
+  out = []
+  for _, epoch, au in VVCDecoder(device="cpu")._split_aus(data):
+    fs = hd.decode_au(au, epoch)
+    if fs is not None:
+      out.append(fs)
+  return out, hd
+
+
+@pytest.mark.parametrize("chroma_format_idc", [2, 3])
+def test_refused_stream_raises(chroma_format_idc):
+  """Outside the port, as outside the JAX package: a 4:2:2 or 4:4:4
+  frame raises NotImplementedError naming its chroma format, never a
+  wrong frame.  The generator makes no legal 4:2:2 stream, so the check
+  runs on a parsed frame with its chroma format changed."""
+  import dataclasses
+
+  from ffmpeg_tpu_torch.models.vvc.inputs import check_supported
+
+  fs = _host_frames(_read("ai256x128_10b"))[0][0]
+  check_supported(fs)
+  bad = dataclasses.replace(fs, chroma_format_idc=chroma_format_idc)
+  with pytest.raises(NotImplementedError, match="JAX package") as e:
+    check_supported(bad)
+  assert f"chroma_format_idc {chroma_format_idc}" in str(e.value)
+
+
+def test_cli_refuses_mp4(tmp_path):
+  """An MP4 (ISO-BMFF) input is refused with an error that names it, not
+  decoded to nothing."""
+  from ffmpeg_tpu.formats.isobmff import annexb_to_mp4
+  from ffmpeg_tpu_torch.tools.decode import main
+
+  path = tmp_path / "t.mp4"
+  path.write_bytes(annexb_to_mp4(_read("ai256x128_10b")))
+  with pytest.raises(SystemExit, match="MP4/ISO-BMFF") as e:
+    main([str(path), "--device", "cpu"])
+  assert e.value.code != 0
+
+
+def test_parser_flags_do_not_stick():
+  """A parser handle that parsed an ISP or TB-64 frame is not reused:
+  the next frame it parses, from a stream without either tool, has
+  has_isp and has_tb64 0."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
 
-  kw, what = REFUSED[case]
-  dec = VVCDecoder(device="cpu")
-  with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-    list(dec.decode(_stream(kw)))
-  assert what in str(e.value)
+  plain = VVCDecoder(device="cpu")._split_aus(_stream(INTRA_CASES["64x64"]))
+  for case, flag in (("isp", "has_isp"), ("tb64", "has_tb64")):
+    frames, hd = _host_frames(_stream(CODING_CASES[case]))
+    assert getattr(frames[0], flag) == 1
+    fs = hd.decode_au(plain[0][2], plain[0][1])
+    assert (fs.has_isp, fs.has_tb64) == (0, 0), case
+
+
+def test_session_decodes_coding_tools_then_plain():
+  """One session decodes an ISP stream, a TB-64 stream, then a stream
+  with neither, each to the JAX MD5s."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import DecoderConfig, VVCDecoder
+
+  with open(CODING_JSON) as f:
+    coding = json.load(f)
+  with open(CASES_JSON) as f:
+    intra = json.load(f)
+  dec = VVCDecoder(device="cpu", config=DecoderConfig(errors="raise"))
+  for kw, want in ((CODING_CASES["isp"], coding["isp"]["md5"]),
+                   (CODING_CASES["tb64"], coding["tb64"]["md5"]),
+                   (INTRA_CASES["64x64"], intra["64x64"]["md5"])):
+    assert [f.md5() for f in dec.decode(_stream(kw))] == want
 
 
 def test_ciip_tile_index_checked_by_recon():
@@ -481,11 +586,53 @@ def cuda():
   return torch.device("cuda")
 
 
-def _kernels_vs_plain(data, device, n_frames=None, repeats=1):
+def unit_kinds(kw) -> set:
+  """The unit kinds of one recon call that the 64-edge and ISP paths
+  add: luma units 64 a side ("edge64"), 1 or 2 samples high ("high1",
+  "high2"), CIIP ("ciip64") and MIP ("mip64") units of 64x64, and calls
+  at readiness cell 1 ("cell1")."""
+  from ffmpeg_tpu_torch.models.vvc.inputs import INTRA_KEYS
+  from ffmpeg_tpu_torch.models.vvc.recon import MC_MIP
+  from ffmpeg_tpu_torch.ops.recon import readiness_cell
+
+  intra = kw["intra"]
+  n = int(intra["iend_host"][-1]) if kw["n_chunks"] else 0
+  r = {k: intra["mat_host"][INTRA_KEYS.index(k), :n]
+       for k in ("w", "h", "ciipw", "mode_class")}
+  big = (r["w"] == 64) & (r["h"] == 64)
+  kinds = {"edge64": bool(((r["w"] == 64) | (r["h"] == 64)).any()),
+           "high1": bool((r["h"] == 1).any()),
+           "high2": bool((r["h"] == 2).any() and not kw["is_chroma"]),
+           "ciip64": bool((big & (r["ciipw"] > 0)).any()),
+           "mip64": bool((big & (r["mode_class"] == MC_MIP)).any()),
+           "cell1": readiness_cell(intra["mat_host"][:, :n]) == 1}
+  return {k for k, v in kinds.items() if v}
+
+
+def make_mip64(rows: dict, n: int) -> np.ndarray:
+  """Turn every 64x64 non-CIIP intra unit among the first n of a luma
+  layout's rows (INTRA_KEYS -> numpy row, edited in place) into a MIP unit
+  of size id 2 (matrix 24 + u % 6, transposed for odd u).  The generator
+  makes no MIP unit above 32 a side, so a 64x64 MIP unit is made this
+  way; MIP reads only the unfiltered top and left runs, which the unit's
+  waits cover.  Returns the edited units."""
+  from ffmpeg_tpu_torch.models.vvc.recon import MC_MIP
+
+  big = np.flatnonzero((rows["w"][:n] == 64) & (rows["h"][:n] == 64)
+                       & (rows["ciipw"][:n] == 0))
+  for k, v in (("mode_class", MC_MIP), ("mip_sz", 2), ("smooth", 0),
+               ("proj_v", 0), ("proj_h", 0), ("do_pdpc", 0), ("mrl", 0)):
+    rows[k][big] = v
+  rows["mip_id"][big] = 24 + big % 6
+  rows["mip_t"][big] = big & 1
+  return big
+
+
+def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   """Walk a stream's frames through the frame program on the card,
   holding every kernel call, launched `repeats` times, against its plain
   version on the same card tensors.  Returns the names of the kernels
-  called."""
+  called; `kinds`, a set, gathers the recon calls' unit_kinds."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
   from ffmpeg_tpu_torch.ops import inter as P
@@ -510,6 +657,8 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1):
       assert torch.equal(got, want), f"{name} {label} launch {i}"
     assert launches[name][name] == before + repeats * per_call(name, kw)
     called.add(name)
+    if kinds is not None and name == "recon":
+      kinds.update(unit_kinds(kw))
     return got
 
   aus = VVCDecoder(device=device)._split_aus(data)[:n_frames]
@@ -698,7 +847,7 @@ def _counts_zeroed():
   from ffmpeg_tpu_torch.ops import recon as R
 
   for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
-            R.PLAIN_RUNS):
+            R.EDGE_LAUNCHES, R.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R
@@ -742,14 +891,112 @@ def test_tool_case_decodes_on_card(cuda, case):
   assert P.PLAIN_RUNS["inter_pred"] == 0 and R.PLAIN_RUNS["recon"] == 0
 
 
+# coding cases held kernel by kernel on the card, and the unit kinds each
+# must reach
+CODING_ON_CARD = {"tb64": {"edge64"}, "ctu128-tools-ra": {"edge64"},
+                  "isp": {"high2"}, "isp-dualtree": {"high1", "cell1"},
+                  "isp-inter": {"high1", "cell1"}, "ciip64": {"ciip64"},
+                  "scaling-inter": set()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CODING_ON_CARD))
+def test_kernels_match_plain_on_card_coding(cuda, case):
+  """Both kernels (recon alone on intra-only cases) against their plain
+  versions on every frame of the ISP, TB-64 and scaling-list cases,
+  each recon call launched 5 times (the race check at cell 1 and in the
+  64-edge instance): 64-edge luma units, 1-high ISP sub-partitions, a
+  64x64 CIIP unit from its four MC rows."""
+  kinds = set()
+  called = _kernels_vs_plain(_stream(CODING_CASES[case]), cuda, repeats=5,
+                             kinds=kinds)
+  assert "recon" in called
+  assert ("inter_pred" in called) == bool(CODING_CASES[case].get("inter"))
+  assert CODING_ON_CARD[case] <= kinds, kinds
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_card_ctu128_1080(cuda):
+  """Both kernels on the ctu128_1080 fixture's I frame (ISP at cell 1,
+  64-edge luma units, MIP) and first B frame, each call launched 3
+  times."""
+  kinds = set()
+  assert _kernels_vs_plain(_read("ctu128_1080"), cuda, n_frames=2, repeats=3,
+                           kinds=kinds) == {"inter_pred", "recon"}
+  assert {"edge64", "high1", "cell1"} <= kinds, kinds
+
+
+@pytest.mark.gpu
+def test_recon_kernel_mip64_on_card(cuda):
+  """The 64-edge wavefront against the plain version on the tb64 case's
+  luma with its 64x64 units turned into MIP units (make_mip64), 5
+  launches."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.inputs import INTRA_KEYS
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+
+  edited = []
+
+  def check(name, label, kw):
+    kernel, plain = KERNELS[name]
+    if name == "recon" and label == "luma":
+      intra = dict(kw["intra"])
+      mh = intra["mat_host"].copy()
+      n = int(intra["iend_host"][-1])
+      edited.append(len(make_mip64(
+          {k: mh[i] for i, k in enumerate(INTRA_KEYS)}, n)))
+      intra["mat_host"], intra["mat"] = mh, torch.from_numpy(mh).to(cuda)
+      intra.update({k: intra["mat"][i] for i, k in enumerate(INTRA_KEYS)})
+      mip = dict(kw, intra=intra)
+      assert kw["maxs"] == 64
+      want = plain(**mip)
+      for _ in range(5):
+        assert torch.equal(kernel(**mip), want)
+    return kernel(**kw)
+
+  aus = VVCDecoder(device=cuda)._split_aus(_stream(CODING_CASES["tb64"]))
+  for _ in walk_frames(aus, cuda, check):
+    pass
+  assert edited and min(edited) > 0
+
+
+@pytest.mark.gpu
+def test_recon_wave_instance(cuda):
+  """Frames without 64-edge units keep the 32-edge wavefront: full1080's
+  first frame launches only it; ctu128_1080's luma launches the 64-edge
+  instance."""
+  from ffmpeg_tpu_torch.ops import recon as R
+
+  for name, want in (("full1080", {32}), ("ctu128_1080", {32, 64})):
+    _counts_zeroed()
+    _kernels_vs_plain(_read(name), cuda, n_frames=1)
+    assert {k for k, v in R.EDGE_LAUNCHES.items() if v} == want, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CODING_CASES))
+def test_coding_case_decodes_on_card(cuda, case):
+  """Every ISP, TB-64/CTU-128, scaling-list and CIIP-64 case through the
+  kernels to the JAX MD5s."""
+  with open(CODING_JSON) as f:
+    want = json.load(f)[case]["md5"]
+  P, R = _counts_zeroed()
+  assert _port_md5s(_stream(CODING_CASES[case]), device=cuda) == want
+  assert R.LAUNCHES["recon"] > 0
+  assert (P.LAUNCHES["inter_pred"] > 0) == bool(
+      CODING_CASES[case].get("inter"))
+  assert P.PLAIN_RUNS["inter_pred"] == 0 and R.PLAIN_RUNS["recon"] == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720", "ra1080",
-                                  "full1080"])
+                                  "full1080", "ctu128_1080", "ciip64"])
 def test_fixture_decodes_on_card(cuda, name):
   P, R = _counts_zeroed()
   assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
   assert R.LAUNCHES["recon"] > 0
-  assert (P.LAUNCHES["inter_pred"] > 0) == name.endswith("1080")
+  assert (P.LAUNCHES["inter_pred"] > 0) == (name.endswith("1080")
+                                            or name == "ciip64")
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
 
 
@@ -793,6 +1040,32 @@ def test_full1080_fixture_regenerates():
 
 
 @pytest.mark.slow
+def test_ctu128_1080_fixture_regenerates():
+  """The committed CTU-128 1080p fixture is the generator's output for
+  its config (bench.py FULL_KW with 5 frames, seed 29, CTU-128, TB-64,
+  ISP, scaling lists and LFNST; CIIP and GPM off), and its MD5s are the
+  JAX package's decode (~5 min)."""
+  from bench import FULL_KW
+
+  with open(os.path.join(TESTDATA, "ctu128_1080.md5.json")) as f:
+    fixture = json.load(f)
+  assert fixture["config"] == dict(
+      FULL_KW, n_frames=5, seed=29, ctu_log2=7, tb64=True, min_qt_size=32,
+      max_mtt_depth=1, max_bt_size=64, max_tt_size=64, isp=True,
+      scaling_lists=True, lfnst=True, ciip=False, gpm=False)
+  data = _stream(fixture["config"])
+  assert data == _read("ctu128_1080")
+  assert _jax_md5s(data) == fixture["md5"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", list(CODING_CASES))
+def test_coding_case_jax_live(case):
+  data = _stream(CODING_CASES[case])
+  assert _port_md5s(data) == _jax_md5s(data)
+
+
+@pytest.mark.slow
 @pytest.mark.parametrize("case", list(TOOL_CASES))
 def test_tool_case_jax_live(case):
   data = _stream(TOOL_CASES[case])
@@ -825,13 +1098,13 @@ def _missing_ref_entry():
 
 def main():
   """Regenerate intra_cases.md5.json, inter_cases.md5.json (with the
-  missing-ref entry) and tools_cases.md5.json with the JAX package's
-  decoder, one decode at a time."""
+  missing-ref entry), tools_cases.md5.json and coding_cases.md5.json
+  with the JAX package's decoder, one decode at a time."""
   import jax
 
   jax.config.update("jax_platforms", "cpu")
   for cases, path in ((INTRA_CASES, CASES_JSON), (INTER_CASES, INTER_JSON),
-                      (TOOL_CASES, TOOLS_JSON)):
+                      (TOOL_CASES, TOOLS_JSON), (CODING_CASES, CODING_JSON)):
     out = {}
     for case, kw in sorted(cases.items()):
       out[case] = {"config": kw, "md5": _jax_md5s(_stream(kw))}

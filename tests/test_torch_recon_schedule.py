@@ -217,10 +217,9 @@ def test_level_order_matches_jax(case, tag):
   assert n_units > 0
 
 
-def _owners(ct, Hp, Wp):
-  """Per CELL x CELL cell of the plane: the layout index of the intra
-  unit that writes it, -1 for a pure inter unit, -2 for none."""
-  C = TR.CELL
+def _owners(ct, Hp, Wp, C=TR.CELL):
+  """Per C x C cell of the plane: the layout index of the intra unit
+  that writes it, -1 for a pure inter unit, -2 for none."""
   own = np.full((Hp // C, Wp // C), -2, np.int64)
   mc = ct["inter"]["mat_host"]
   for u in range(ct["inter"]["n_inter"]):

@@ -164,12 +164,24 @@ def test_kernel_control_rows_match_layout():
 
 
 def test_kernel_readiness_cell_matches_twin():
-  """The recon kernel's readiness cell is the one its Python twin
-  (ops/recon.py dependency_levels, _wait_rects) counts in."""
-  from ffmpeg_tpu_torch.ops.recon import CELL
+  """The recon kernel's readiness cells are the ones its Python twin
+  (ops/recon.py readiness_cell, dependency_levels, _wait_rects) counts
+  in: the wrapper passes readiness_cell's edge, 2 (CELL) on layouts of
+  2-aligned units and 1 otherwise, and the kernel takes exactly those two
+  edges, as the shift log2(cell)."""
+  from ffmpeg_tpu_torch.models.vvc.inputs import INTRA_KEYS
+  from ffmpeg_tpu_torch.ops.recon import CELL, readiness_cell
 
   with open(os.path.join(PORT, "csrc", "recon.cu")) as f:
-    assert re.search(r"#define CELL (\d+)", f.read()).group(1) == str(CELL)
+    src = f.read()
+  assert "(cell != 1 && cell != 2)" in src
+  assert "const int cl2 = cell == 2," in src
+  rows = np.zeros((len(INTRA_KEYS), 3), np.int32)
+  xywh = [INTRA_KEYS.index(k) for k in ("x0", "y0", "w", "h")]
+  rows[xywh] = [[0, 8, 4], [0, 4, 6], [8, 4, 8], [4, 2, 2]]
+  assert CELL == 2 and readiness_cell(rows) == CELL
+  rows[xywh[3], 2] = 1  # a 1-high ISP sub-partition
+  assert readiness_cell(rows) == 1
 
 
 def _kernel_enum(name):
