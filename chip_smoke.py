@@ -19,7 +19,10 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     64-edge wavefront) and ISP's 1-high sub-partitions (readiness cell
     1);
   - ciip64: 3 frames of 128x128 with CTU 64 whose B frames hold 64x64
-    CIIP units (their MC prediction in four 32x32 MC rows).
+    CIIP units (their MC prediction in four 32x32 MC rows);
+  - gop720: 9 frames of 1280x720 with full1080's toolset but DMVR, a
+    GOP-4 pyramid whose dependency waves hold up to 3 frames: the wave
+    path (parallel/gop.py), with ra1080.
 Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
@@ -47,7 +50,10 @@ Phases, one JSON line each:
               of the path launched, the plain versions never ran
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
-              with the fetch, full1080 per-stage ms (the DMVR round trip
+              with the fetch, full1080 fps at host_threads 1, 4 and 8,
+              twice each in the order 1, 4, 8, 8, 4, 1 (the session's
+              parse pool; os.cpu_count() beside it),
+              full1080 per-stage ms (the DMVR round trip
               per DMVR frame among them), the device ms of the LMCS, ALF
               and DMVR torch ops per call and per frame (CUDA events
               around each call, queued behind a held card), kernel vs
@@ -67,6 +73,18 @@ Phases, one JSON line each:
   6. profile  torch.profiler over a full1080 decode: device busy share,
               device time by kernel and by stage (the trace spans as
               profiler ranges)
+  7. parallel the wave path (decode_gop_mesh) on ra1080 and gop720 at 1,
+              2 and 4 CUDA streams: its dependency waves, the committed
+              MD5s at each width, counts zeroed just before each run
+              (both kernels launched, no plain version), every kernel
+              call of a width-4 run against its plain version (recon 3
+              times: the race check with other streams in flight), fps
+              per width, the card's busy ms and stream concurrency of
+              the waves (profiler); full1080 (DMVR) refused; the
+              band-split deblock, SAO and ALF (parallel/spatial.py) at
+              1920x1088 in 4 bands equal to the whole-plane ops, with
+              card ms; tools/decode.py on an MP4 of ra1080 made by the
+              port's muxer, to the annex-B MD5s
 
 then the kernel table line and, last, the result line.  Exits non-zero
 with no result line when CUDA is unavailable or any phase fails
@@ -90,12 +108,16 @@ MAIN = "full1080"
 CTU128 = "ctu128_1080"
 # the coding-tool frames the kernels and timing phases hold apart
 TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
-FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64")
+FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
+            "gop720")
 KERNELS = ("inter_pred", "recon")
 # the kernels each fixture's path must launch
 PATH_KERNELS = {MAIN: KERNELS, "ra1080": KERNELS, "ai720": ("recon",),
                 "ai256x128_10b": ("recon",), CTU128: KERNELS,
-                "ciip64": KERNELS}
+                "ciip64": KERNELS, "gop720": KERNELS}
+# the wave path (parallel/gop.py): its fixtures and stream widths
+GOP_FIXTURES = ("ra1080", "gop720")
+GOP_WIDTHS = (1, 2, 4)
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and the non-tensor
 # 32-bit rate, used for the kernels' least-time bounds
@@ -606,14 +628,15 @@ def _events_ms(fn, torch, reps):
   return start.elapsed_time(end) / reps
 
 
-def _fps(name, torch, traced=False):
+def _fps(name, torch, traced=False, host_threads=None):
   """fps with frames left on the card and with the fetch, after a
-  warm-up decode; with traced, also the traced stage ms per frame."""
+  warm-up decode, on a session of `host_threads` parse lanes (default
+  DecoderConfig's); with traced, also the traced stage ms per frame."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.utils import trace
 
   data = _read(name)
-  dec = VVCDecoder(device="cuda")
+  dec = VVCDecoder(device="cuda", host_threads=host_threads)
   list(dec.decode(data))            # warm-up (allocator, caches)
   n_frames = 0
   t0 = time.perf_counter()
@@ -808,6 +831,17 @@ def phase_timing(torch, card, calls, levels):
   out = {"phase": "timing", "card": card, "sm_clocks_before": _sm_clocks(),
          MAIN: _fps(MAIN, torch, traced=True),
          "ai720": _fps("ai720", torch), CTU128: _fps(CTU128, torch)}
+  # the session option host_threads (the parse pool's width), each width
+  # twice, in the order 1, 4, 8, 8, 4, 1
+  sweep: dict = {}
+  for ht in (1, 4, 8, 8, 4, 1):
+    sweep.setdefault(ht, []).append(_fps(MAIN, torch, host_threads=ht))
+  out["host_threads"] = {"cpu_count": os.cpu_count(), "fixture": MAIN,
+                         **sweep}
+  print(f"chip_smoke: timing {MAIN} fps on the card at host_threads "
+        + ", ".join(f"{ht}: {[r['fps_on_device'] for r in rr]}"
+                    for ht, rr in sweep.items())
+        + f" ({os.cpu_count()} CPUs)", flush=True)
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
   for name, label, kw in calls[MAIN]:
@@ -865,6 +899,16 @@ def phase_timing(torch, card, calls, levels):
   return kern, plain, recon, inter, tools
 
 
+def _union_us(work):
+  """The length of the union of sorted (start, end, ...) intervals."""
+  busy, end = 0.0, float("-inf")
+  for s0, s1, *_ in work:
+    if s1 > end:
+      busy += s1 - max(s0, end)
+      end = s1
+  return busy
+
+
 def phase_profile(torch, card):
   """torch.profiler over a warm full1080 decode (frames left on the card).
   Device busy share = union of the kernels' and copies' device time over
@@ -909,11 +953,7 @@ def phase_profile(torch, card):
     by_stage[m.name[6:]] = by_stage.get(m.name[6:], 0.0) + t
   lo = min(e.time_range.start for e in events)
   hi = max(e.time_range.end for e in events)
-  busy, end = 0.0, lo
-  for s0, s1, _ in work:
-    if s1 > end:
-      busy += s1 - max(s0, end)
-      end = s1
+  busy = _union_us(work)
   by_name: dict = {}
   for s0, s1, name in work:
     by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
@@ -926,6 +966,242 @@ def phase_profile(torch, card):
                                          for k, v in sorted(by_stage.items())},
         "device_ms_per_frame_by_kernel": {k[:80]: v / 1e3 / n
                                           for k, v in top}})
+
+
+def _wave_check(out, fixture, torch):
+  """A call hook for the wave path that holds each kernel call against
+  its plain version on the same card tensors, on the frame's own stream
+  while other streams' frames are in flight; recon launched 3 times
+  (the race check).  Records each call in out["cases"]."""
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS
+
+  def check(name, label, kw):
+    kernel, plain = KERNELS[name]
+    want = plain(**kw)
+    for _ in range(3 if name == "recon" else 1):
+      got = kernel(**kw)
+      equal = torch.equal(got, want)
+      err = int((got - want).abs().max().item()) if got.numel() else 0
+      out["cases"].append({"fixture": fixture, "kernel": name,
+                           "plane": label, "equal": equal,
+                           "max_abs_err": err})
+      if not equal:
+        emit(out)
+        fail("parallel", f"{fixture} wave path {name} {label}: kernel != "
+             f"plain (max err {err})")
+    return got
+  return check
+
+
+def _device_window(fn, torch):
+  """torch.profiler over fn(): the card's busy ms (the union of its
+  kernels' and copies' intervals), the sum of their ms (above the busy
+  ms where streams ran at once), their ratio, the idle share of the
+  window, and the caching allocator's new device segments (cudaMalloc
+  calls) during fn."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  torch.cuda.synchronize()
+  segments = torch.cuda.memory_stats()["segment.all.allocated"]
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  segments = torch.cuda.memory_stats()["segment.all.allocated"] - segments
+  events = list(prof.events())
+  work = sorted((e.time_range.start, e.time_range.end) for e in events
+                if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("stage/"))
+  lo = min(e.time_range.start for e in events)
+  hi = max(e.time_range.end for e in events)
+  busy = _union_us(work)
+  total = sum(w[1] - w[0] for w in work)
+  return {"window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+          "device_ms_sum": total / 1e3, "allocator_segments_new": segments,
+          "concurrency": total / max(busy, 1e-9),
+          "device_idle_share": 1 - busy / max(hi - lo, 1e-9)}
+
+
+def _tiled_filters(torch):
+  """The band-split filter ops (parallel/spatial.py) at 1920x1088 in
+  T = 4 row bands on cuda:0, each equal to the whole-plane op on the same
+  seeded inputs (tolerance 0): deblock's luma vertical pass, SAO and ALF
+  luma (classify + filter); the card ms of each, whole and split (CUDA
+  events, mean of 5 calls queued behind a held card)."""
+  import numpy as np
+
+  from ffmpeg_tpu_torch.ops.alf import (TRANSPOSE_IDX, alf_classify,
+                                        alf_filter_luma)
+  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_luma
+  from ffmpeg_tpu_torch.ops.sao import sao_plane
+  from ffmpeg_tpu_torch.parallel import spatial
+  from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+
+  mesh = make_mesh(devices=["cuda:0"] * 4, frame_axis=1)
+  rng = np.random.default_rng(77)
+
+  def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to("cuda:0")
+
+  Hp, Wp, H, ctb, bd = 1088, 1920, 1080, 64, 8
+  plane = t(rng.integers(0, 256, (Hp, Wp), dtype=np.int32))
+  S, E = Hp // 4, Wp // 4
+  bs = rng.integers(0, 3, (S, E), dtype=np.int32)
+  bs[:, 0] = 0
+  db = [t(a) for a in (bs, rng.integers(18, 45, (S, E), dtype=np.int32),
+                       rng.choice([1, 3, 7], (S, E)).astype(np.int32),
+                       rng.choice([1, 3, 7], (S, E)).astype(np.int32),
+                       np.zeros((S, E), np.int32))]
+  dkw = dict(bit_depth=bd, beta_off=2, tc_off=-2)
+  cbh, cbw = -(-Hp // ctb), Wp // ctb
+  sao = [t(rng.integers(0, 3, (cbh, cbw), dtype=np.int32)),
+         t(rng.integers(0, 28, (cbh, cbw), dtype=np.int32)),
+         t(rng.integers(-12, 13, (cbh, cbw, 5), dtype=np.int32)),
+         t(rng.integers(0, 4, (cbh, cbw), dtype=np.int32))]
+  ly0 = plane[:H].contiguous()
+  nby = -(-H // ctb)
+  bank = t(rng.integers(0, 16, (nby, cbw), dtype=np.int32))
+  flag = t(rng.integers(0, 2, (nby, cbw), dtype=np.int32))
+  bco = t(rng.integers(-32, 33, (16, 25, 12), dtype=np.int32))
+  bcl = t(rng.choice([256, 32, 8, 2], (16, 25, 12)).astype(np.int32))
+  tidx = t(TRANSPOSE_IDX).long()
+
+  def alf_whole():
+    cls, tr = alf_classify(ly0, ctb, bd)
+    cb_y = (torch.arange(H // 4, device="cuda:0") * 4) // ctb
+    cb_x = (torch.arange(Wp // 4, device="cuda:0") * 4) // ctb
+    bank44 = bank[cb_y[:, None], cb_x[None, :]].long()
+    flag44 = flag[cb_y[:, None], cb_x[None, :]]
+    perm = tidx[tr.long()]
+    c12 = torch.gather(bco[bank44, cls.long()], -1, perm)
+    k12 = torch.gather(bcl[bank44, cls.long()], -1, perm)
+    return alf_filter_luma(ly0, c12, k12, ctb, flag44 > 0, bd)
+
+  ops = {
+      "deblock_luma_vertical": (
+          lambda: deblock_vertical_luma(plane, *db, **dkw),
+          lambda: spatial.deblock_vertical_tiled(plane, *db, mesh=mesh,
+                                                 **dkw)),
+      "sao": (
+          lambda: sao_plane(plane, *sao, Wp, H, ctb=ctb, bit_depth=bd),
+          lambda: spatial.sao_plane_tiled(plane, *sao, Wp, H, ctb=ctb,
+                                          bit_depth=bd, mesh=mesh)),
+      "alf_luma": (
+          alf_whole,
+          lambda: spatial.alf_luma_tiled(ly0, bank, flag, bco, bcl, ctb=ctb,
+                                         bit_depth=bd, mesh=mesh)),
+  }
+  res = {}
+  for name, (whole, tiled) in ops.items():
+    equal = torch.equal(whole(), tiled())
+    res[name] = {"equal": equal, "whole_ms": _events_ms(whole, torch, 5),
+                 "tiled_ms": _events_ms(tiled, torch, 5)}
+    if not equal:
+      fail("parallel", f"tiled {name} != the whole-plane op")
+  return {"shape": [Hp, Wp], "bands": 4, "ctb": ctb, "tolerance": 0,
+          "ops": res}
+
+
+def _mp4_cli():
+  """tools/decode.py, the user's CLI on its default device (cuda), on an
+  MP4 that the port's own muxer made from ra1080.vvc: the annex-B
+  fixture's MD5s."""
+  import contextlib
+  import io
+
+  from ffmpeg_tpu_torch.formats.isobmff import annexb_to_mp4
+  from ffmpeg_tpu_torch.tools.decode import main
+  from ffmpeg_tpu_torch.utils.build import BUILD_DIR
+
+  path = os.path.join(BUILD_DIR, "ra1080.mp4")
+  with open(path, "wb") as f:
+    f.write(annexb_to_mp4(_read("ra1080")))
+  buf = io.StringIO()
+  with contextlib.redirect_stdout(buf):
+    rc = main([path, "--strict"])
+  got = [ln.split(", ")[-1] for ln in buf.getvalue().splitlines()]
+  with open(os.path.join(TESTDATA, "ra1080.md5.json")) as f:
+    want = json.load(f)["md5"]
+  if rc != 0 or got != want:
+    fail("parallel", f"MP4 CLI decode of ra1080: rc {rc}, MD5s {got} != "
+         f"{want}")
+  return {"fixture": "ra1080", "mp4_bytes": os.path.getsize(path),
+          "frames": len(got), "md5_equal": True}
+
+
+def phase_parallel(torch, card):
+  """The wave path (parallel/gop.py decode_gop_mesh) on ra1080 and gop720
+  at stream widths 1, 2 and 4, one card: each width's MD5s equal the
+  committed JAX MD5s, counts zeroed just before each run and read just
+  after (every kernel of the path launched, no plain version run); every
+  kernel call of a width-4 run against its plain version; fps per width
+  (measure_scaling, widths 1, 2, 4 and then 4, 2, 1), the card's busy
+  ms, stream concurrency and new allocator segments of the
+  waves at widths 1 and 4 (profiler); full1080 (DMVR) refused; the
+  band-split filters; the MP4 CLI.  Returns each wave path's launches."""
+  from ffmpeg_tpu_torch.parallel import gop
+  from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+
+  mesh = make_mesh(1, frame_axis=1)
+  out = {"phase": "parallel", "card": card, "fixtures": {}, "cases": []}
+  launches = {}
+  for name in GOP_FIXTURES:
+    data = _read(name)
+    with open(os.path.join(TESTDATA, f"{name}.md5.json")) as f:
+      want = json.load(f)["md5"]
+    frames, inputs = gop._prepare(data, mesh)
+    waves = [[frames[i].poc for i in w] for w in gop.plan_waves(frames)]
+    print(f"chip_smoke: parallel {name}: waves (POC) {waves}", flush=True)
+    rec = out["fixtures"][name] = {"waves": waves, "widths": {}}
+    for width in GOP_WIDTHS:
+      _zero_counts()
+      got = [m for _, m, _ in gop.decode_gop_mesh(data, mesh, streams=width)]
+      counts = _counts()
+      key = f"gop:{name}:w{width}"
+      launches[key] = {k: m.LAUNCHES[k] for k, m in counts.items()}
+      plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
+      rec["widths"][width] = {"md5_equal": got == want,
+                              "launches": launches[key],
+                              "plain_runs": plain}
+      if got != want or any(plain.values()) or not all(
+          launches[key][k] > 0 for k in KERNELS):
+        emit(out)
+        fail("parallel", f"{key}: MD5s equal {got == want}, launches "
+             f"{launches[key]}, plain runs {plain}")
+    got = gop.decode_gop_mesh(data, mesh, streams=max(GOP_WIDTHS),
+                              call=_wave_check(out, name, torch))
+    if [m for _, m, _ in got] != want:
+      emit(out)
+      fail("parallel", f"{name}: the checked wave run's MD5s differ")
+    # fps per width, in the order 1, 2, 4, then 4, 2, 1
+    rec["scaling"] = [gop.measure_scaling(data, order, reps=2, mesh=mesh)
+                      for order in (GOP_WIDTHS, GOP_WIDTHS[::-1])]
+    if not all(sc["md5_equal"] for sc in rec["scaling"]):
+      emit(out)
+      fail("parallel", f"{name}: MD5s differ across stream widths")
+    rec["device"] = {w: _device_window(
+        lambda w=w: gop._run_waves(frames, inputs, mesh, streams=w), torch)
+        for w in (1, max(GOP_WIDTHS))}
+    print(f"chip_smoke: parallel {name}: fps " + ", ".join(
+        f"w{w} {[sc[w]['fps'] for sc in rec['scaling']]} (waves "
+        f"{[sc[w]['wave_fps'] for sc in rec['scaling']]})"
+        for w in GOP_WIDTHS) + "; concurrency " + ", ".join(
+        f"w{w} {d['concurrency']}" for w, d in rec["device"].items()),
+        flush=True)
+  out["calls_checked"] = len(out["cases"])
+  try:
+    gop.decode_gop_mesh(_read(MAIN), mesh)
+  except RuntimeError as e:
+    if "DMVR" not in str(e):
+      fail("parallel", f"{MAIN} refused for another reason: {e}")
+    out["refused"] = {MAIN: str(e)}
+  else:
+    fail("parallel", f"the wave path decoded {MAIN}, which has DMVR units")
+  out["tiled"] = _tiled_filters(torch)
+  out["mp4_cli"] = _mp4_cli()
+  emit(out)
+  return launches
 
 
 def _bound(name, calls):
@@ -978,13 +1254,15 @@ def main() -> int:
   kern, plain, recon, inter, tools = phase_timing(torch, card, calls,
                                                   levels)
   phase_profile(torch, card)
+  launches.update(phase_parallel(torch, card))
+  paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
   rows = []
   for name in KERNELS:
     src, replaces = KERNEL_INFO[name]
     rows.append({
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[MAIN][name],
-        "launches_by_path": {f: launches[f][name] for f in FIXTURES},
+        "launches_by_path": {f: launches[f][name] for f in paths},
         "max_abs_err": worst[name],
         "ms": sum(v for k, v in kern.items() if k.startswith(name + "/")),
         "plain_ms": sum(v for k, v in plain.items()

@@ -33,14 +33,14 @@ log = logging.getLogger("ffmpeg_tpu_torch.vvc.decoder")
 
 # frames fetched per device->host transfer; also the dispatch-ahead depth
 FETCH_BATCH = 8
-# parallel host CABAC parse lanes (the reference's executor width,
-# vvcdec.c:937-954)
-HOST_THREADS = 4
 
 
 @dataclass
 class DecoderConfig:
-    """Runtime decoder options (the AVOption analog)."""
+    """Runtime decoder options (the AVOption analog; the reference maps
+    thread_count to its executor width, vvcdec.c:937-954)."""
+    host_threads: int = 4      # parallel host CABAC parse lanes
+    fetch_batch: int = FETCH_BATCH  # frames per device->host transfer
     errors: str = "contain"    # "contain": log + skip bad AUs;
     #                            "raise": propagate (strict/test mode).
     #                            Unsupported streams raise either way.
@@ -94,7 +94,7 @@ class Frame:
 def _fetch_group(packed_list):
     """Bring a group of packed frame buffers to the host: CUDA buffers
     go with non-blocking copies into one pinned buffer and a single
-    stream synchronisation."""
+    synchronisation of each device's current stream."""
     with trace.span("fetch"):
         if all(p.device.type == "cpu" for p in packed_list):
             return [_host_view(p) for p in packed_list]
@@ -106,7 +106,8 @@ def _fetch_group(packed_list):
             dst.copy_(p, non_blocking=True)
             views.append(dst)
             off += nb
-        torch.cuda.current_stream(packed_list[0].device).synchronize()
+        for dev in {p.device for p in packed_list}:
+            torch.cuda.current_stream(dev).synchronize()
         return [_host_view(v) for v in views]
 
 
@@ -134,21 +135,25 @@ class VVCDecoder:
     frame-parallel entropy threading (vvc_thread.c PARSE stage).
     """
 
-    def __init__(self, device="cuda",
+    def __init__(self, device="cuda", host_threads: int | None = None,
                  config: DecoderConfig | None = None) -> None:
+        import dataclasses
         import queue
         from concurrent.futures import ThreadPoolExecutor
 
         from .host import ColStore
 
         self.device = resolve_device(device)
-        self.config = config or DecoderConfig()
+        cfg = config or DecoderConfig()
+        if host_threads is not None:
+            cfg = dataclasses.replace(cfg, host_threads=host_threads)
+        self.config = cfg
         self._colstore = ColStore()  # session-scoped TMVP exchange
         self._hosts: queue.Queue = queue.Queue()
-        for _ in range(HOST_THREADS):
+        for _ in range(cfg.host_threads):
             self._hosts.put(HostDecoder(self._colstore))
-        self._exec = ThreadPoolExecutor(max_workers=HOST_THREADS)
-        self._parse_ahead = 2 * HOST_THREADS
+        self._exec = ThreadPoolExecutor(max_workers=cfg.host_threads)
+        self._parse_ahead = 2 * cfg.host_threads
         self._dpb: dict[int, list] = {}  # poc -> [Y, Cb, Cr] device planes
         self._epoch_base = 0  # monotone across decode() calls (TMVP keys)
         # open-GOP / gradual-recovery output state (decode_recovery_flag
@@ -172,10 +177,10 @@ class VVCDecoder:
         self._last_eos = True
         self._no_out_before_rec = False
         self._recovery_poc = None
-        hosts = []
+        # re-bind the pooled host parsers to the fresh colstore
         while not self._hosts.empty():
-            hosts.append(self._hosts.get_nowait())
-        for _ in hosts:
+            self._hosts.get_nowait()
+        for _ in range(self.config.host_threads):
             self._hosts.put(HostDecoder(self._colstore))
 
     def _gray_planes(self, fs):
@@ -292,7 +297,7 @@ class VVCDecoder:
             if not fetch:
                 return [frame]
             window.append(frame)
-            if len(window) >= FETCH_BATCH:
+            if len(window) >= self.config.fetch_batch:
                 return flush()
             return []
 

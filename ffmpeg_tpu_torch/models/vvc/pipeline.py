@@ -213,12 +213,13 @@ def _zero_plane(shape, device):
   return _ZEROS[key]
 
 
-def resolve_refs(fs: FrameSyntax, dpb: dict, device) -> list:
+def resolve_refs(fs: FrameSyntax, dpb: dict, device, missing=None) -> list:
   """Per component, the frame's reference planes [L0..., L1...] (at
   least one per list, so a unit's unused hypothesis always has a plane
-  to read): the DPB's device planes of the listed POCs, a shared zero
-  plane for list entries that do not exist (`resolve_refs` of the JAX
-  frame program).  Empty for intra frames, which read no reference."""
+  to read): the DPB's device planes of the listed POCs, and for list
+  entries that do not exist `missing`'s plane of the component, or a
+  shared zero plane (`resolve_refs` of the JAX frame program).  Empty
+  for intra frames, which read no reference."""
   if fs.slice_type == 2:
     return []
   shapes = _padded_plane_shapes(fs.width, fs.height, fs.ctb_log2)
@@ -232,6 +233,8 @@ def resolve_refs(fs: FrameSyntax, dpb: dict, device) -> list:
       for k in range(max(1, len(pocs))):
         if k < len(pocs) and pocs[k] in dpb:
           planes.append(dpb[pocs[k]][c_idx])
+        elif missing is not None:
+          planes.append(missing[c_idx])
         else:
           planes.append(_zero_plane(shape, device))
     out.append(planes)
@@ -256,15 +259,16 @@ def prepare_frame(fs: FrameSyntax):
     return build_host_inputs(fs)
 
 
-def submit_frame(host_inp, fs: FrameSyntax, device, dpb: dict, call=None):
+def submit_frame(host_inp, fs: FrameSyntax, device, dpb: dict, call=None,
+                 missing=None):
   """Main-thread half: move the inputs to `device` and run the frame
-  program against the DPB's planes (poc -> per-component planes).
-  call: as in frame_program.  Returns (packed, planes), both on
-  `device`."""
+  program against the DPB's planes (poc -> per-component planes), on
+  the device's current stream.  call: as in frame_program; missing: as
+  in resolve_refs.  Returns (packed, planes), both on `device`."""
   with trace.span("h2d", _sync_for(device)):
     inp = inputs_from_numpy(host_inp, device)
-  out = frame_program(inp, resolve_refs(fs, dpb, device), device=device,
-                      call=call, **frame_geometry(fs))
+  out = frame_program(inp, resolve_refs(fs, dpb, device, missing),
+                      device=device, call=call, **frame_geometry(fs))
   return out["packed"], out["planes"]
 
 

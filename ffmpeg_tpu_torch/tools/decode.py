@@ -1,31 +1,19 @@
-"""CLI decoder: annex-B VVC in, frame hashes / raw YUV out.
+"""CLI decoder: VVC (annex-B or MP4) in, frame hashes / raw YUV out.
 
-The port's `ffmpeg -i x.vvc -f framemd5 -` analog.  Runs on the CUDA
-device unless `--device cpu` is given; without a CUDA device the
-default refuses to start rather than fall back.
+The port's `ffmpeg -i x.vvc -f framemd5 -` analog.  The input container
+is probed (formats/probe.py): MP4/ISO-BMFF samples go through the
+vvcC/mp4toannexb conversion; input that is neither annex-B nor MP4
+exits non-zero with a message.  Runs on the CUDA device unless
+`--device cpu` is given; without a CUDA device the default refuses to
+start rather than fall back.
 
   python -m ffmpeg_tpu_torch.tools.decode stream.vvc [--device cpu]
-
-The input must be an annex-B byte stream; anything else (an MP4/ISO-BMFF
-file among them) is refused with an error rather than decoded to
-nothing.
+  python -m ffmpeg_tpu_torch.tools.decode stream.mp4 [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-_START_CODES = (b"\x00\x00\x01", b"\x00\x00\x00\x01")
-
-
-def check_annexb(data: bytes, path: str) -> None:
-  """Refuse input that does not open with an annex-B start code."""
-  if data.startswith(_START_CODES):
-    return
-  what = ("an MP4/ISO-BMFF file" if data[4:8] == b"ftyp"
-          else "not an annex-B stream")
-  raise SystemExit(f"{path}: {what}; MP4/ISO-BMFF input is not supported "
-                   "yet (ROADMAP A4): give an annex-B .vvc stream")
 
 
 def main(argv=None) -> int:
@@ -40,11 +28,13 @@ def main(argv=None) -> int:
                  help="torch device to decode on: cuda (default) or cpu")
   args = p.parse_args(argv)
 
+  from ..formats import open_input
   from ..models.vvc.decoder import DecoderConfig, VVCDecoder
 
-  with open(args.input, "rb") as f:
-    data = f.read()
-  check_annexb(data, args.input)
+  try:
+    data, _info = open_input(args.input)
+  except ValueError as e:
+    raise SystemExit(f"{args.input}: {e}")
   dec = VVCDecoder(device=args.device, config=DecoderConfig(
       errors="raise" if args.strict else "contain"))
   yuv = open(args.yuv, "wb") if args.yuv else None

@@ -13,7 +13,8 @@ Regenerate them with
   python tests/test_torch_decode.py
 
 The `slow` tests rerun the JAX side live; the `gpu` tests need a CUDA
-card and skip here.  On the card, which has no JAX (so the JAX-importing
+card and skip here (among them the wave path of parallel/gop.py, whose
+CPU tests are in test_torch_parallel.py).  On the card, which has no JAX (so the JAX-importing
 conftest stays out):
 
   python -m pytest --noconftest -m gpu tests/test_torch_decode.py
@@ -437,15 +438,29 @@ def test_refused_stream_raises(chroma_format_idc):
   assert f"chroma_format_idc {chroma_format_idc}" in str(e.value)
 
 
-def test_cli_refuses_mp4(tmp_path):
-  """An MP4 (ISO-BMFF) input is refused with an error that names it, not
-  decoded to nothing."""
-  from ffmpeg_tpu.formats.isobmff import annexb_to_mp4
+def test_cli_decodes_mp4(tmp_path, capsys):
+  """An MP4 (ISO-BMFF) input, made by the port's own muxer, decodes to
+  the annex-B stream's MD5s."""
+  from ffmpeg_tpu_torch.formats.isobmff import annexb_to_mp4
   from ffmpeg_tpu_torch.tools.decode import main
 
   path = tmp_path / "t.mp4"
   path.write_bytes(annexb_to_mp4(_read("ai256x128_10b")))
-  with pytest.raises(SystemExit, match="MP4/ISO-BMFF") as e:
+  assert main([str(path), "--device", "cpu", "--strict"]) == 0
+  lines = capsys.readouterr().out.strip().splitlines()
+  assert [ln.split(", ")[-1] for ln in lines] == _fixture_md5s(
+      "ai256x128_10b")
+
+
+def test_cli_refuses_unknown_input(tmp_path):
+  """Input that is neither annex-B nor MP4 exits non-zero with a
+  message, not with "decoded 0 frames"."""
+  from ffmpeg_tpu_torch.tools.decode import main
+
+  path = tmp_path / "junk.bin"
+  path.write_bytes(bytes(np.random.default_rng(9).integers(
+      4, 255, 4096, dtype=np.uint8)))
+  with pytest.raises(SystemExit, match="unrecognized input format") as e:
     main([str(path), "--device", "cpu"])
   assert e.value.code != 0
 
@@ -990,14 +1005,145 @@ def test_coding_case_decodes_on_card(cuda, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720", "ra1080",
-                                  "full1080", "ctu128_1080", "ciip64"])
+                                  "full1080", "ctu128_1080", "ciip64",
+                                  "gop720"])
 def test_fixture_decodes_on_card(cuda, name):
   P, R = _counts_zeroed()
   assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
   assert R.LAUNCHES["recon"] > 0
-  assert (P.LAUNCHES["inter_pred"] > 0) == (name.endswith("1080")
-                                            or name == "ciip64")
+  assert (P.LAUNCHES["inter_pred"] > 0) == (not name.startswith("ai"))
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
+
+
+# DMVR-free single-IRAP-period cases for the wave path on the card:
+# (config, the JSON of their JAX MD5s)
+GOP_ON_CARD = {"alf-lmcs-ra": (TOOL_CASES["alf-lmcs-ra"], TOOLS_JSON),
+               "gpm-tools-ra": (TOOL_CASES["gpm-tools-ra"], TOOLS_JSON),
+               "tmvp-ra": (INTER_CASES["tmvp-ra"], INTER_JSON)}
+
+
+def _gop_case(case):
+  """(stream, JAX MD5s) of a GOP_ON_CARD case."""
+  kw, path = GOP_ON_CARD[case]
+  with open(path) as f:
+    return _stream(kw), json.load(f)[case]["md5"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(GOP_ON_CARD))
+def test_gop_decode_on_card(cuda, case, streams):
+  """The wave path (parallel/gop.py) on the card at stream widths 1, 2
+  and 4: the JAX package's sequential MD5s, through both kernels."""
+  from ffmpeg_tpu_torch.parallel.gop import decode_gop_mesh
+  from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+
+  data, want = _gop_case(case)
+  P, R = _counts_zeroed()
+  got = decode_gop_mesh(data, make_mesh(frame_axis=1), streams=streams)
+  assert [md5 for _, md5, _ in got] == want
+  assert P.LAUNCHES["inter_pred"] > 0 and R.LAUNCHES["recon"] > 0
+  assert P.PLAIN_RUNS["inter_pred"] == 0 and R.PLAIN_RUNS["recon"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame_axis", [2, 4])
+def test_gop_decode_across_cards(cuda, frame_axis):
+  """The wave path over `frame_axis` cards: the pool split across them,
+  a frame's reads of another card's slots and its write into one copied
+  between cards; the JAX MD5s, as on one card."""
+  from ffmpeg_tpu_torch.parallel.gop import decode_gop_mesh
+  from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+
+  if torch.cuda.device_count() < frame_axis:
+    pytest.skip(f"needs {frame_axis} CUDA cards")
+  mesh = make_mesh(frame_axis, frame_axis=frame_axis)
+  for case in sorted(GOP_ON_CARD):
+    data, want = _gop_case(case)
+    got = decode_gop_mesh(data, mesh, streams=2)
+    assert [md5 for _, md5, _ in got] == want, case
+  got = decode_gop_mesh(_read("gop720"), mesh)
+  assert [md5 for _, md5, _ in got] == _fixture_md5s("gop720")
+
+
+@pytest.mark.gpu
+def test_tiled_filters_across_cards(cuda):
+  """The band-split deblock, SAO and ALF with one band per card equal the
+  whole-plane ops on the first card."""
+  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_luma
+  from ffmpeg_tpu_torch.ops.sao import sao_plane
+  from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+  from ffmpeg_tpu_torch.parallel.spatial import (alf_luma_tiled,
+                                                 deblock_vertical_tiled,
+                                                 sao_plane_tiled)
+
+  n = torch.cuda.device_count()
+  if n < 2:
+    pytest.skip("needs 2 or more CUDA cards")
+  mesh = make_mesh(n, frame_axis=1)
+  rng = np.random.default_rng(31)
+
+  def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+  H, W, ctb = 256, 192, 32
+  plane = t(rng.integers(0, 256, (H, W), dtype=np.int32))
+  S, E = H // 4, W // 4
+  bs = rng.integers(0, 3, (S, E), dtype=np.int32)
+  bs[:, 0] = 0
+  db = [t(a) for a in (bs, rng.integers(18, 45, (S, E), dtype=np.int32),
+                       rng.choice([1, 3, 7], (S, E)).astype(np.int32),
+                       rng.choice([1, 3, 7], (S, E)).astype(np.int32),
+                       np.zeros((S, E), np.int32))]
+  assert torch.equal(
+      deblock_vertical_tiled(plane, *db, bit_depth=8, mesh=mesh),
+      deblock_vertical_luma(plane, *db, bit_depth=8))
+  cb = (H // ctb, W // ctb)
+  sao = [t(rng.integers(0, 3, cb, dtype=np.int32)),
+         t(rng.integers(0, 28, cb, dtype=np.int32)),
+         t(rng.integers(-12, 13, cb + (5,), dtype=np.int32)),
+         t(rng.integers(0, 4, cb, dtype=np.int32))]
+  assert torch.equal(
+      sao_plane_tiled(plane, *sao, W - 8, H - 8, ctb=ctb, bit_depth=8,
+                      mesh=mesh),
+      sao_plane(plane, *sao, W - 8, H - 8, ctb=ctb, bit_depth=8))
+  bank = t(rng.integers(0, 16, cb, dtype=np.int32))
+  flag = t(rng.integers(0, 2, cb, dtype=np.int32))
+  bco = t(rng.integers(-32, 33, (16, 25, 12), dtype=np.int32))
+  bcl = t(rng.choice([256, 32, 8, 2], (16, 25, 12)).astype(np.int32))
+  one = make_mesh(1, frame_axis=1)
+  assert torch.equal(
+      alf_luma_tiled(plane, bank, flag, bco, bcl, ctb=ctb, bit_depth=8,
+                     mesh=mesh),
+      alf_luma_tiled(plane, bank, flag, bco, bcl, ctb=ctb, bit_depth=8,
+                     mesh=one))
+
+
+@pytest.mark.gpu
+def test_gop_kernels_match_plain_on_card(cuda):
+  """Every kernel call of the wave path at width 4, on its own stream,
+  against its plain version on the same card tensors; each recon call
+  launched 5 times (the race check, with other streams' launches in
+  flight)."""
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS
+  from ffmpeg_tpu_torch.parallel.gop import decode_gop_mesh
+  from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+
+  checked = []
+
+  def check(name, label, kw):
+    kernel, plain = KERNELS[name]
+    want = plain(**kw)
+    for _ in range(5 if name == "recon" else 1):
+      got = kernel(**kw)
+      assert torch.equal(got, want), f"{name} {label}"
+    checked.append(name)
+    return got
+
+  data, want = _gop_case("alf-lmcs-ra")
+  got = decode_gop_mesh(data, make_mesh(frame_axis=1), streams=4, call=check)
+  assert [md5 for _, md5, _ in got] == want
+  assert checked.count("recon") == 2 * len(got)
 
 
 # ---- the JAX side live (slow) ----------------------------------------------
@@ -1056,6 +1202,27 @@ def test_ctu128_1080_fixture_regenerates():
   data = _stream(fixture["config"])
   assert data == _read("ctu128_1080")
   assert _jax_md5s(data) == fixture["md5"]
+
+
+@pytest.mark.slow
+def test_gop720_fixture_regenerates():
+  """The committed 720p wave-path fixture is the generator's output for
+  its config (bench.py FULL_KW at 1280x720, 9 frames, DMVR off), its
+  MD5s are the JAX package's sequential decode, and the JAX wave path
+  gives them too (~10 min)."""
+  from bench import FULL_KW
+  from ffmpeg_tpu.parallel.gop import decode_gop_mesh
+  from ffmpeg_tpu.parallel.mesh import make_mesh
+
+  with open(os.path.join(TESTDATA, "gop720.md5.json")) as f:
+    fixture = json.load(f)
+  assert fixture["config"] == dict(FULL_KW, dmvr=False, width=1280,
+                                   height=720, n_frames=9)
+  data = _stream(fixture["config"])
+  assert data == _read("gop720")
+  assert _jax_md5s(data) == fixture["md5"]
+  assert [m for _, m, _ in decode_gop_mesh(data, make_mesh(
+      2, frame_axis=2))] == fixture["md5"]
 
 
 @pytest.mark.slow
