@@ -9,7 +9,7 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     with the full toolset (bench.py FULL_KW: B slices with TMVP,
     affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
     with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
-    both kernels;
+    the three kernels (inter_pred, recon, deblock);
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra;
@@ -32,12 +32,13 @@ Phases, one JSON line each:
   3. kernels  each kernel call of the frame program (recorded through
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
-              (all-integer arithmetic): both kernels on the first B frame
+              (all-integer arithmetic): every kernel (the deblock
+              kernel's four passes among them) on the first B frame
               of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
               and DMVR units under LMCS with ALF-on CTBs (the inter calls
               carry DMVR windows and the luma forward map; its real,
               LMCS-mapped DPB references) and on such a frame of ra1080
-              without the new tools, and the recon kernel on frame 0 of
+              without the new tools, and recon and deblock on frame 0 of
               the intra fixtures (luma, then chroma with CCLM); the B
               frames' unit counts, small and large MC units, and the
               largest frame's MC tile bytes (models/vvc/mc_tiles.py);
@@ -66,8 +67,11 @@ Phases, one JSON line each:
               into its placement and wavefront launches, its critical path
               (dependency levels) and us per level on that frame and on
               ai720's frame 0, and on ctu128_1080's I and B frames (its
-              recon levels and us per level, its inter kernel); every
-              timed launch of both kernels held
+              recon levels and us per level, its inter kernel); the
+              deblock kernel's ms per pass (luma V and H, chroma V and
+              H), its launch apart from the copy, on the full1080 B
+              frame and the coding-tool frames; every
+              timed launch of the kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
   6. profile  torch.profiler over a full1080 decode: device busy share,
@@ -81,9 +85,10 @@ Phases, one JSON line each:
               times: the race check with other streams in flight), fps
               per width, the card's busy ms and stream concurrency of
               the waves (profiler); full1080 (DMVR) refused; the
-              band-split deblock, SAO and ALF (parallel/spatial.py) at
-              1920x1088 in 4 bands equal to the whole-plane ops, with
-              card ms; tools/decode.py on an MP4 of ra1080 made by the
+              band-split deblock (the kernel on each band), SAO and ALF
+              (parallel/spatial.py) at 1920x1088 in 4 bands equal to the
+              whole-plane ops, with card ms; tools/decode.py on an MP4 of
+              ra1080 made by the
               port's muxer, to the annex-B MD5s
 
 then the kernel table line and, last, the result line.  Exits non-zero
@@ -110,10 +115,12 @@ CTU128 = "ctu128_1080"
 TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
 FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
             "gop720")
-KERNELS = ("inter_pred", "recon")
-# the kernels each fixture's path must launch
-PATH_KERNELS = {MAIN: KERNELS, "ra1080": KERNELS, "ai720": ("recon",),
-                "ai256x128_10b": ("recon",), CTU128: KERNELS,
+KERNELS = ("inter_pred", "recon", "deblock")
+# the kernels each fixture's path must launch (every fixture has deblock
+# on)
+PATH_KERNELS = {MAIN: KERNELS, "ra1080": KERNELS,
+                "ai720": ("recon", "deblock"),
+                "ai256x128_10b": ("recon", "deblock"), CTU128: KERNELS,
                 "ciip64": KERNELS, "gop720": KERNELS}
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
@@ -141,9 +148,9 @@ def _read(name):
 
 def _counts():
   """The launch and plain-run counters of every kernel wrapper."""
-  from ffmpeg_tpu_torch.ops import inter, recon
+  from ffmpeg_tpu_torch.ops import deblock, inter, recon
 
-  return {"inter_pred": inter, "recon": recon}
+  return {"inter_pred": inter, "recon": recon, "deblock": deblock}
 
 
 def _zero_counts():
@@ -173,7 +180,7 @@ def phase_device(torch):
 
 def phase_build():
   from ffmpeg_tpu_torch.models.vvc import host
-  from ffmpeg_tpu_torch.ops import inter, recon
+  from ffmpeg_tpu_torch.ops import deblock, inter, recon
   from ffmpeg_tpu_torch.utils.build import BUILD_LOG
 
   errors = []
@@ -190,7 +197,7 @@ def phase_build():
   # one thread per library: each runs its own make / nvcc process
   threads = [threading.Thread(target=run, args=a) for a in (
       ("vvc_host", host._get_lib), ("recon", recon._get_kernel),
-      ("inter_pred", inter._get_kernel))]
+      ("inter_pred", inter._get_kernel), ("deblock", deblock._get_kernel))]
   t0 = time.perf_counter()
   for t in threads:
     t.start()
@@ -321,6 +328,9 @@ def _bytes_moved(name, kw):
   samples (mc_tiles)."""
   from ffmpeg_tpu_torch.models.vvc.mc_tiles import nbytes
 
+  if name == "deblock":   # each plane in and out, each grid in
+    return sum(p.numel() * 4 * 2 for p in kw["planes"]) + sum(
+        t.numel() * 4 for g in kw["grids"] for t in g)
   inter = kw["inter"]
   toff = inter["toff_host"]
   if name == "inter_pred":
@@ -431,9 +441,20 @@ def _ops(name, kw):
   recon: per written intra sample the prediction (at most a 4-tap filter
   plus PDPC: about 32 operations) and the residual add and clip, per
   unit the edge build and filtering (about 8 operations per edge lane),
-  and 3 per placed inter sample."""
+  and 3 per placed inter sample.
+  deblock: per segment with bs > 0 its decision (about 150 operations
+  for luma, 60 for chroma) and per line its filter (at most about 120:
+  the large filter's 7 taps a side; chroma 40); per segment with bs 0,
+  4 (the load and the test)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
+  if name == "deblock":
+    lines, decide, per_line = (2, 60, 40) if kw["chroma"] else (4, 150, 120)
+    total = 0
+    for g in kw["grids"]:
+      act = int((g[0] > 0).sum().item())
+      total += 4 * (g[0].numel() - act) + act * (decide + lines * per_line)
+    return total
   inter = kw["inter"]
   if name == "inter_pred":
     rows = inter["mat_host"]
@@ -593,6 +614,7 @@ def phase_decode(torch):
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
         "launches": launches[name], "plain_runs": plain,
+        "deblock_launches_per_frame": launches[name]["deblock"] / len(got),
         "peak_device_bytes": torch.cuda.max_memory_allocated()}
     if got != want:
       emit(res)
@@ -805,6 +827,51 @@ def _time_inter(kw, torch, reps, rounds):
           "calls_unequal": sum(r[3] for r in runs)}
 
 
+def _deblock_runs(kw, want, torch, reps):
+  """reps calls of the deblock wrapper on one call's inputs, queued behind
+  _hold_card and timed with CUDA events: per call the wrapper's card time
+  (the copy of the planes, then the launch), and apart its launch (the
+  wrapper's mark hook records an event just before it).  Every output is
+  held against `want`, the plain version's: the atomics' order differs
+  between launches.  Returns (ms per call, launch ms, calls that
+  differ)."""
+  from ffmpeg_tpu_torch.ops.deblock import _deblock_cuda
+
+  ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        for _ in range(reps)]
+  outs = []
+  _hold_card(torch)
+  for e in ev:
+    e[0].record()
+    outs.append(_deblock_cuda(**kw, mark=e[1].record))
+    e[2].record()
+  torch.cuda.synchronize()
+  total = ev[0][0].elapsed_time(ev[-1][2]) / reps
+  launch = sum(e[1].elapsed_time(e[2]) for e in ev) / reps
+  return total, launch, sum(not torch.equal(o, want) for o in outs)
+
+
+def _time_deblock(kw, torch, reps, rounds):
+  """One deblock pass: ms per call (mean of `rounds` rounds of `reps`
+  calls), its launch alone, and the calls that differ from the plain
+  version."""
+  want = _plain("deblock", kw)
+  runs = [_deblock_runs(kw, want, torch, reps) for _ in range(rounds)]
+  return {"ms": sum(r[0] for r in runs) / rounds,
+          "launch_ms": sum(r[1] for r in runs) / rounds,
+          "calls_checked": reps * rounds,
+          "calls_unequal": sum(r[2] for r in runs)}
+
+
+def _time_call(name, label, kw, levels, torch, reps, rounds):
+  """One kernel call timed by its kernel's own helper."""
+  if name == "recon":
+    return _time_recon(kw, levels[label], torch, reps, rounds)
+  if name == "deblock":
+    return _time_deblock(kw, torch, reps, rounds)
+  return _time_inter(kw, torch, reps, rounds)
+
+
 def _time_recon(kw, levels, torch, reps, rounds):
   """One recon call: ms per launch (mean of `rounds` rounds of `reps`
   launches), placement and wavefront ms, us per dependency level of the
@@ -844,41 +911,40 @@ def phase_timing(torch, card, calls, levels):
         + f" ({os.cpu_count()} CPUs)", flush=True)
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
+  deblock = {}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
-    if name == "recon":
-      recon[MAIN][label] = _time_recon(kw, levels[MAIN][label], torch, 20, 2)
-      kern[f"{name}/{label}"] = recon[MAIN][label]["ms"]
-    else:
-      inter[label] = _time_inter(kw, torch, 20, 2)
-      kern[f"{name}/{label}"] = inter[label]["ms"]
+    r = _time_call(name, label, kw, levels[MAIN], torch, 20, 2)
+    {"recon": recon[MAIN], "deblock": deblock}.get(name, inter)[label] = r
+    kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
+  print(f"chip_smoke: timing {MAIN} deblock ms per pass: " + ", ".join(
+      f"{label} {r['ms']} (launch {r['launch_ms']})"
+      for label, r in deblock.items()), flush=True)
   for name, label, kw in calls["ai720"]:
-    recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
-                                        20, 1)
+    if name == "recon":
+      recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
+                                          20, 1)
   # the coding-tool frames: the recon kernel's 64-edge wavefront at cell 1
   # (ctu128_1080's I frame), its B frame, the CIIP-64 frame; both kernels,
   # each call also through its plain version once
   tools = {}
   for key in TOOL_FRAMES:
-    t = tools[key] = {"recon": {}, "inter_pred": {}, "plain_ms": {}}
+    t = tools[key] = {**{k: {} for k in KERNELS}, "plain_ms": {}}
     for name, label, kw in calls[key]:
-      if name == "recon":
-        t[name][label] = _time_recon(kw, levels[key][label], torch, 20, 1)
-      else:
-        t[name][label] = _time_inter(kw, torch, 20, 1)
+      t[name][label] = _time_call(name, label, kw, levels[key], torch, 20, 1)
       t["plain_ms"][f"{name}/{label}"] = _events_ms(
           lambda: _plain(name, kw), torch, 1)
     print(f"chip_smoke: timing {key}: " + ", ".join(
         f"recon {label} {r['ms']} ms ({r['levels']} levels, "
         f"{r['us_per_level']} us per level)"
         for label, r in t["recon"].items()) + "".join(
-        f", inter_pred {label} {r['ms']} ms" for label, r in
-        t["inter_pred"].items()), flush=True)
+        f", {name} {label} {r['ms']} ms" for name in ("inter_pred", "deblock")
+        for label, r in t[name].items()), flush=True)
   out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
-  out["inter"], out["recon"] = inter, recon
+  out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
@@ -886,17 +952,18 @@ def phase_timing(torch, card, calls, levels):
   bad = {f"recon {f} {label}": r["launches_unequal"]
          for f, rr in recon.items() for label, r in rr.items()
          if r["launches_unequal"]}
-  bad.update({f"inter_pred {label}": r["calls_unequal"]
-              for label, r in inter.items() if r["calls_unequal"]})
+  for name, rr in (("inter_pred", inter), ("deblock", deblock)):
+    bad.update({f"{name} {label}": r["calls_unequal"]
+                for label, r in rr.items() if r["calls_unequal"]})
   for key, t in tools.items():
     bad.update({f"recon {key} {label}": r["launches_unequal"]
                 for label, r in t["recon"].items() if r["launches_unequal"]})
-    bad.update({f"inter_pred {key} {label}": r["calls_unequal"]
-                for label, r in t["inter_pred"].items()
-                if r["calls_unequal"]})
+    for name in ("inter_pred", "deblock"):
+      bad.update({f"{name} {key} {label}": r["calls_unequal"]
+                  for label, r in t[name].items() if r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
-  return kern, plain, recon, inter, tools
+  return kern, plain, recon, inter, deblock, tools
 
 
 def _union_us(work):
@@ -1026,14 +1093,15 @@ def _device_window(fn, torch):
 def _tiled_filters(torch):
   """The band-split filter ops (parallel/spatial.py) at 1920x1088 in
   T = 4 row bands on cuda:0, each equal to the whole-plane op on the same
-  seeded inputs (tolerance 0): deblock's luma vertical pass, SAO and ALF
-  luma (classify + filter); the card ms of each, whole and split (CUDA
+  seeded inputs (tolerance 0): deblock's luma vertical pass (the deblock
+  kernel on the whole plane, and once on each band), SAO and ALF luma
+  (classify + filter); the card ms of each, whole and split (CUDA
   events, mean of 5 calls queued behind a held card)."""
   import numpy as np
 
   from ffmpeg_tpu_torch.ops.alf import (TRANSPOSE_IDX, alf_classify,
                                         alf_filter_luma)
-  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_luma
+  from ffmpeg_tpu_torch.ops import deblock
   from ffmpeg_tpu_torch.ops.sao import sao_plane
   from ffmpeg_tpu_torch.parallel import spatial
   from ffmpeg_tpu_torch.parallel.mesh import make_mesh
@@ -1080,7 +1148,9 @@ def _tiled_filters(torch):
 
   ops = {
       "deblock_luma_vertical": (
-          lambda: deblock_vertical_luma(plane, *db, **dkw),
+          lambda: deblock.deblock_pass(
+              [plane], [tuple(db)], chroma=False, horizontal=False,
+              bit_depth=bd, beta_off=(2,), tc_off=(-2,))[0],
           lambda: spatial.deblock_vertical_tiled(plane, *db, mesh=mesh,
                                                  **dkw)),
       "sao": (
@@ -1094,11 +1164,19 @@ def _tiled_filters(torch):
   }
   res = {}
   for name, (whole, tiled) in ops.items():
-    equal = torch.equal(whole(), tiled())
+    want = whole()
+    n = deblock.LAUNCHES["deblock"]
+    equal = torch.equal(want, tiled())
+    n = deblock.LAUNCHES["deblock"] - n
     res[name] = {"equal": equal, "whole_ms": _events_ms(whole, torch, 5),
                  "tiled_ms": _events_ms(tiled, torch, 5)}
     if not equal:
       fail("parallel", f"tiled {name} != the whole-plane op")
+    if name.startswith("deblock"):
+      res[name]["band_launches"] = n
+      if n != 4:
+        fail("parallel", f"the band-split deblock launched the kernel {n} "
+             "times, not once per band")
   return {"shape": [Hp, Wp], "bands": 4, "ctb": ctb, "tolerance": 0,
           "ops": res}
 
@@ -1226,7 +1304,8 @@ def _tool_row(name, calls, timed):
           **_bound(name, calls),
           "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
               "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
-              "small_ms", "large_ms", "small_units", "large_units")}
+              "small_ms", "large_ms", "small_units", "large_units",
+              "launch_ms")}
               for label, r in timed[name].items()}}
 
 
@@ -1236,6 +1315,10 @@ KERNEL_INFO = {
                    "over _inter_pred_unit; XLA, not Pallas)"),
     "recon": ("ffmpeg_tpu_torch/csrc/recon.cu",
               "ffmpeg_tpu/ops/recon_pallas.py:734"),
+    "deblock": ("ffmpeg_tpu_torch/csrc/deblock.cu",
+                "ffmpeg_tpu/ops/deblock.py:67,300 (deblock_vertical_luma, "
+                "deblock_vertical_chroma, run by loopfilters at "
+                "ffmpeg_tpu/models/vvc/pipeline.py:1315; XLA, not Pallas)"),
 }
 
 
@@ -1251,8 +1334,8 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon, inter, tools = phase_timing(torch, card, calls,
-                                                  levels)
+  kern, plain, recon, inter, deblock, tools = phase_timing(torch, card,
+                                                           calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
   paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
@@ -1277,6 +1360,9 @@ def main() -> int:
           for label, r in recon[MAIN].items()}
       rows[-1]["launches_by_edge"] = {
           f: launches[f]["recon_by_edge"] for f in FIXTURES}
+    elif name == "deblock":
+      rows[-1]["split_ms"] = {label: {k: r[k] for k in ("ms", "launch_ms")}
+                              for label, r in deblock.items()}
     else:
       rows[-1]["launches_by_class"] = {
           f: launches[f]["inter_pred_by_class"] for f in FIXTURES}

@@ -12,8 +12,8 @@ form), stage by stage on one device:
   chroma buckets ──dequant+ITX, scaled──> Cb, Cr residual planes
   tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
                                          reconstructed luma)
-  luma ──LMCS inverse──> edge grids ──> deblock V, then H (transposed)
-       ──> SAO ──> ALF + CC-ALF ──> packed planar bytes
+  luma ──LMCS inverse──> edge grids ──deblock kernel──> V, then H (on
+       the transposed view) ──> SAO ──> ALF + CC-ALF ──> packed bytes
 
 DMVR frames first run their refinement (ops/dmvr.py, `refine_dmvr`)
 against the DPB, which the session does in decode order.
@@ -27,7 +27,7 @@ import torch
 
 from ...ops import intra as I
 from ...ops.alf import alf_pass
-from ...ops.deblock import deblock_vertical_chroma, deblock_vertical_luma
+from ...ops.deblock import deblock_pass, deblock_pass_plain
 from ...ops.dmvr import refine_frame
 from ...ops.inter import inter_pred, inter_pred_plain_kind
 from ...ops.lmcs import lmcs_inv, lmcs_vpdu_scales
@@ -50,11 +50,21 @@ def _sync_for(device):
 # each kernel of the frame program: (wrapper, its plain version, which
 # takes the same arguments and returns the same result)
 KERNELS = {"inter_pred": (inter_pred, inter_pred_plain_kind),
-           "recon": (recon_plane, recon_plane_plain_kind)}
+           "recon": (recon_plane, recon_plane_plain_kind),
+           "deblock": (deblock_pass, deblock_pass_plain)}
 
 
 def _launch(name, label, kw):
   return KERNELS[name][0](**kw)
+
+
+def _deblock_grids(d, c, o):
+  """Component c's per-edge grids for the o ("v" or "h") pass, in
+  deblock_pass's order."""
+  if c == 0:
+    return tuple(d[f"y{k}_{o}"] for k in ("bs", "qp", "mp", "mq")) + (
+        d["yhor0" if o == "v" else "yhor"],)
+  return tuple(d[f"c{c}{k}_{o}"] for k in ("bs", "qp", "mp", "mq"))
 
 
 def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
@@ -73,8 +83,9 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   dbo/dto: effective deblock beta/tc offsets per component.
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
   of KERNELS, in order: inter_pred of luma then chroma (P/B frames),
-  recon of luma then chroma.  The default runs the wrapper; a check
-  passes its own to hold each call against the plain version.
+  recon of luma then chroma, deblock's passes luma/v, luma/h, chroma/v,
+  chroma/h (frames with deblock on).  The default runs the wrapper; a
+  check passes its own to hold each call against the plain version.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits)}."""
   bd = bit_depth
@@ -142,25 +153,22 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
       planes[0] = lmcs_inv(planes[0], lm, bd)
 
   if "deblock" in inp:
+    d = inp["deblock"]
+    # vertical edges, then horizontal edges on the result: luma, then Cb
+    # and Cr in one call; the horizontal pass's grids are laid out for
+    # the transposed plane, which the kernel reads through its strides
+    comps = [("luma", (0,))] + ([] if mono else [("chroma", (1, 2))])
     with trace.span("deblock", sync):
-      d = inp["deblock"]
-      y = deblock_vertical_luma(planes[0], d["ybs_v"], d["yqp_v"],
-                                d["ymp_v"], d["ymq_v"], d["yhor0"],
-                                bit_depth=bd, beta_off=dbo[0],
-                                tc_off=dto[0])
-      planes[0] = deblock_vertical_luma(
-          y.T.contiguous(), d["ybs_h"], d["yqp_h"], d["ymp_h"], d["ymq_h"],
-          d["yhor"], bit_depth=bd, beta_off=dbo[0],
-          tc_off=dto[0]).T.contiguous()
-      for c in range(1, n_comp):
-        pc = deblock_vertical_chroma(planes[c], d[f"c{c}bs_v"],
-                                     d[f"c{c}qp_v"], d[f"c{c}mp_v"],
-                                     d[f"c{c}mq_v"], bit_depth=bd,
-                                     beta_off=dbo[c], tc_off=dto[c])
-        planes[c] = deblock_vertical_chroma(
-            pc.T.contiguous(), d[f"c{c}bs_h"], d[f"c{c}qp_h"],
-            d[f"c{c}mp_h"], d[f"c{c}mq_h"], bit_depth=bd, beta_off=dbo[c],
-            tc_off=dto[c]).T.contiguous()
+      for label, cs in comps:
+        for o in ("v", "h"):
+          out = call("deblock", f"{label}/{o}", dict(
+              planes=[planes[c] for c in cs],
+              grids=[_deblock_grids(d, c, o) for c in cs],
+              chroma=label == "chroma", horizontal=o == "h", bit_depth=bd,
+              beta_off=tuple(dbo[c] for c in cs),
+              tc_off=tuple(dto[c] for c in cs)))
+          for c, pl in zip(cs, out):
+            planes[c] = pl
 
   if "sao" in inp:
     with trace.span("sao", sync):

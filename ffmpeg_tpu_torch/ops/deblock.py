@@ -1,23 +1,39 @@
-"""Deblocking filter as full-plane int32 torch passes.
+"""Deblocking filter: the deblock kernel and its plain versions.
 
 Spec 8.8.3: all vertical edges of the picture are filtered first, then
 all horizontal edges — a pair of full-plane passes; the horizontal pass
-runs the vertical kernel on the transposed plane.  Bit-exact port of
-the JAX package's deblock ops (decision and filter math of
-`vvc_filter_template.c:466-760` and `h2656_deblock_template.c`: luma
-weak/strong/large, chroma weak/strong/one-sided), driven by per-edge
-parameter grids (bs, qp, max filter lengths) built on the host
-(models/vvc/deblock_ctrl.py).
+is the vertical one on the transposed plane.  The decision and filter
+math is the JAX package's deblock ops' (`vvc_filter_template.c:466-760`
+and `h2656_deblock_template.c`: luma weak/strong/large, chroma
+weak/strong/one-sided), driven by per-edge parameter grids (bs, qp, max
+filter lengths) built on the host (models/vvc/deblock_ctrl.py).
 
 Layout: for the vertical pass, edges sit at x = G*e; each 4-row (luma)
 or 2-row (4:2:0 chroma) segment of each edge has its own parameters.
+
+`deblock_pass` is the entry point: one pass over a luma plane, or over
+Cb and Cr together.  A CUDA tensor launches the kernel (csrc/deblock.cu:
+one thread per segment and edge, the horizontal pass on the transposed
+view through its strides, so no plane is transposed in memory); a CPU
+tensor runs `deblock_pass_plain`, which runs the single-plane plain
+versions `deblock_vertical_luma_plain` / `deblock_vertical_chroma_plain`
+(the ports of the JAX functions, and the kernel's oracle) on each plane
+or its transposed view.
 """
 from __future__ import annotations
+
+import ctypes
+import os
 
 import numpy as np
 import torch
 
 from .tables import on_device
+
+# launches of the CUDA kernel, and runs of the plain version: plain
+# integer counters a caller may reset to 0 and read back
+LAUNCHES = {"deblock": 0}
+PLAIN_RUNS = {"deblock": 0}
 
 TCTABLE = np.array([
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
@@ -83,20 +99,25 @@ def _windows(plane, E, grid, width):
 
 
 def _scatter_delta(plane, rows, xs, delta):
-  """Add each window's change back into the plane (edge write regions
-  never overlap, so only one window changes any sample)."""
+  """Add each window's change back into the plane.  Where windows
+  overlap the changes add up: two neighbouring edges' long filters can
+  both change a sample, and at the plane's border several clamped window
+  positions name the same last column (tests/test_torch_deblock.py holds
+  the JAX function's scatter-add to the same sums there)."""
   out = plane.clone()
   out.index_put_((rows.expand_as(delta), xs.expand_as(delta)), delta,
                  accumulate=True)
   return out
 
 
-def deblock_vertical_luma(plane, bs, qp, maxp, maxq, hor_ctu_edge, *,
-                          grid: int = 4, bit_depth: int = 8,
-                          beta_off: int = 0, tc_off: int = 0):
-  """One luma deblock pass over vertical edges.
+def deblock_vertical_luma_plain(plane, bs, qp, maxp, maxq, hor_ctu_edge, *,
+                                grid: int = 4, bit_depth: int = 8,
+                                beta_off: int = 0, tc_off: int = 0):
+  """One luma deblock pass over vertical edges (the port of JAX
+  deblock_vertical_luma).
 
-  plane: (H, W) int32, H % 4 == 0, W % grid == 0.
+  plane: (H, W) int32 (any strides: a transposed view runs the
+  horizontal pass), H % 4 == 0, W % grid == 0.
   bs/qp/maxp/maxq/hor_ctu_edge: (S, E) int32, S = H//4 segments,
     E = W//grid edges (edge e at x = grid*e; edge 0 must have bs 0).
     qp is the raw averaged QP; beta_off/tc_off are the effective
@@ -317,9 +338,11 @@ def deblock_vertical_luma(plane, bs, qp, maxp, maxq, hor_ctu_edge, *,
   return _scatter_delta(plane, rows, xs, new_win - win)
 
 
-def deblock_vertical_chroma(plane, bs, qp, maxp, maxq, *, bit_depth: int = 8,
-                            beta_off: int = 0, tc_off: int = 0):
-  """One 4:2:0 chroma deblock pass over vertical edges.
+def deblock_vertical_chroma_plain(plane, bs, qp, maxp, maxq, *,
+                                  bit_depth: int = 8, beta_off: int = 0,
+                                  tc_off: int = 0):
+  """One 4:2:0 chroma deblock pass over vertical edges (the port of JAX
+  deblock_vertical_chroma).
 
   plane: (H, W) int32 chroma plane, H % 2 == 0, W % 8 == 0.
   bs/qp/maxp/maxq: (S, E) int32; S = H//2 two-row segments, E = W//8
@@ -429,3 +452,138 @@ def deblock_vertical_chroma(plane, bs, qp, maxp, maxq, *, bit_depth: int = 8,
   for k, val, sel in upd:
     new_win[..., k] = torch.where(sel, val, new_win[..., k])
   return _scatter_delta(plane, rows, xs, new_win - win)
+
+
+# ----------------------------------------------------------------------
+# one pass: the entry point, its plain version and the CUDA kernel
+# (csrc/deblock.cu), built with nvcc at first use and bound with ctypes
+# ----------------------------------------------------------------------
+
+def _check_pass(planes, grids, chroma, horizontal, beta_off, tc_off):
+  """Shapes and types the kernel takes, on every device: 1 luma or 1-2
+  chroma (H, W) int32 contiguous planes of one shape and device, and
+  per plane its (S, E) int32 contiguous grids for the pass's view."""
+  nch = len(planes)
+  if not 1 <= nch <= (2 if chroma else 1):
+    raise ValueError(f"deblock: {nch} planes for a "
+                     f"{'chroma' if chroma else 'luma'} pass")
+  if not (len(grids) == len(beta_off) == len(tc_off) == nch):
+    raise ValueError("deblock: one grid tuple and one offset pair per plane")
+  H, W = planes[0].shape
+  rows, cols = (W, H) if horizontal else (H, W)
+  seg, grid = (2, 8) if chroma else (4, 4)
+  if rows % seg or cols % grid:
+    raise ValueError(f"deblock: a {H}x{W} plane is not whole {seg}-line "
+                     f"segments and {grid}-sample edges")
+  S, E = rows // seg, cols // grid
+  dev = planes[0].device
+  for pl, g in zip(planes, grids):
+    if len(g) != (4 if chroma else 5):
+      raise ValueError(f"deblock: {len(g)} grids per plane")
+    for t, shape in ((pl, (H, W)), *((x, (S, E)) for x in g)):
+      if t.dtype != torch.int32 or not t.is_contiguous() \
+          or tuple(t.shape) != shape or t.device != dev:
+        raise ValueError(
+            f"deblock: expected contiguous int32 {shape} on {dev}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def deblock_pass(planes, grids, *, chroma: bool, horizontal: bool,
+                 bit_depth: int, beta_off, tc_off):
+  """One deblock pass over the vertical (or, with horizontal, the
+  horizontal) edges of a luma plane or of the Cb and Cr planes.
+
+  planes: [luma], or [Cb, Cr] (or one chroma plane), (H, W) int32
+  contiguous.
+  grids: per plane (bs, qp, maxp, maxq, hor_ctu_edge) for luma or (bs,
+  qp, maxp, maxq) for chroma, (S, E) int32, laid out for the plane (the
+  vertical pass) or its transpose (the horizontal pass): luma (H/4, W/4)
+  or (W/4, H/4), chroma (H/2, W/8) or (W/2, H/8).
+  beta_off, tc_off: per plane, the effective offsets (already x2).
+  Returns the filtered planes, (nch, H, W) int32.  A CUDA tensor
+  launches the kernel; a CPU tensor runs the plain version; nothing falls
+  back from one to the other."""
+  _check_pass(planes, grids, chroma, horizontal, beta_off, tc_off)
+  dev = planes[0].device
+  if dev.type == "cuda":
+    return _deblock_cuda(planes, grids, chroma=chroma, horizontal=horizontal,
+                         bit_depth=bit_depth, beta_off=beta_off,
+                         tc_off=tc_off)
+  if dev.type != "cpu":
+    raise ValueError(f"deblock: unsupported device {dev}")
+  return deblock_pass_plain(planes, grids, chroma=chroma,
+                            horizontal=horizontal, bit_depth=bit_depth,
+                            beta_off=beta_off, tc_off=tc_off)
+
+
+def deblock_pass_plain(planes, grids, *, chroma: bool, horizontal: bool,
+                       bit_depth: int, beta_off, tc_off):
+  """deblock_pass's plain version, with its arguments and result: the
+  single-plane plain pass on each plane, or on its transposed view."""
+  PLAIN_RUNS["deblock"] += 1
+  fn = deblock_vertical_chroma_plain if chroma else deblock_vertical_luma_plain
+  out = []
+  for pl, g, bo, to in zip(planes, grids, beta_off, tc_off):
+    r = fn(pl.T if horizontal else pl, *g, bit_depth=bit_depth, beta_off=bo,
+           tc_off=to)
+    out.append(r.T if horizontal else r)
+  return torch.stack(out)
+
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "deblock.cu")
+_lib = None
+
+
+def _get_kernel():
+  global _lib
+  if _lib is None:
+    from ..utils.build import build_cuda
+
+    lib = ctypes.CDLL(build_cuda("deblock", [_SRC]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.deblock_launch.restype = ctypes.c_int
+    lib.deblock_launch.argtypes = [
+        p, p, i, i, i,      # src pointers (nch,), dst, nch, H, W
+        i, i,               # chroma, horizontal
+        p, i, i,            # grid pointers (nch x 4 or 5), S, E
+        p, p, i,            # beta_off, tc_off (nch,), bit_depth
+        p, p, p, p, p,      # TCTABLE, BETATABLE, LARGE_COEF_M/R, TC_MULT
+        p]                  # stream
+    lib.deblock_error_string.restype = ctypes.c_char_p
+    lib.deblock_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+  return _lib
+
+
+def _deblock_cuda(planes, grids, *, chroma, horizontal, bit_depth, beta_off,
+                  tc_off, mark=None):
+  """dst = a copy of the planes, then one launch on the plane's device's
+  current stream, which adds each filtered sample's change to dst.
+  mark(), if given, is called just before the launch, to record a CUDA
+  event and time the copy and the launch apart."""
+  nch = len(planes)
+  H, W = planes[0].shape
+  dev = planes[0].device
+  S, E = grids[0][0].shape
+  lib = _get_kernel()
+  dst = torch.stack(planes)
+  ptr = ctypes.c_longlong * (nch * len(grids[0]))
+  ints = ctypes.c_int * nch
+  tabs = [_const(n, a, dev).data_ptr() for n, a in (
+      ("tc", TCTABLE), ("beta", BETATABLE), ("lcm", LARGE_COEF_M),
+      ("lcr", LARGE_COEF_R), ("ltc", LARGE_TC_MULT))]
+  if mark is not None:
+    mark()
+  with torch.cuda.device(dev):
+    rc = lib.deblock_launch(
+        (ctypes.c_longlong * nch)(*(pl.data_ptr() for pl in planes)),
+        dst.data_ptr(), nch, H, W, int(chroma), int(horizontal),
+        ptr(*(t.data_ptr() for g in grids for t in g)), S, E,
+        ints(*beta_off), ints(*tc_off), bit_depth, *tabs,
+        torch.cuda.current_stream(dev).cuda_stream)
+  if rc != 0:
+    raise RuntimeError("deblock kernel launch failed: "
+                       f"{lib.deblock_error_string(rc).decode()}")
+  LAUNCHES["deblock"] += 1
+  return dst

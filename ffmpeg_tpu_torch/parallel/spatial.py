@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as Fn
 
 from ..ops.alf import TRANSPOSE_IDX, alf_classify, alf_filter_luma
-from ..ops.deblock import deblock_vertical_chroma, deblock_vertical_luma
+from ..ops.deblock import deblock_pass
 from ..ops.sao import sao_rows
 
 
@@ -41,19 +41,22 @@ def _gather(bands, device, n):
 
 
 def deblock_vertical_tiled(plane, bs, qp, maxp, maxq, hor_ctu_edge, *,
-                           grid: int = 4, bit_depth: int, mesh,
-                           axis: str = "tile", beta_off: int = 0,
-                           tc_off: int = 0, chroma: bool = False,
-                           seg: int = 4):
-  """Bit-exact deblock_vertical_{luma,chroma}, split into row bands over
-  `axis`.  Vertical-edge filtering only reads and writes samples within
-  each `seg`-row segment, so the bands need NO halo.  The caller applies
-  the horizontal pass by transposing, exactly like the whole-plane op.
+                           bit_depth: int, mesh, axis: str = "tile",
+                           beta_off: int = 0, tc_off: int = 0,
+                           chroma: bool = False):
+  """Bit-exact deblock_pass over one plane's vertical edges, split into
+  row bands over `axis`, each band through deblock_pass on its own
+  device (the kernel on a card).  Vertical-edge filtering only reads and
+  writes samples within each segment of 4 (luma) or 2 (chroma) rows, so
+  the bands need NO halo.  The caller applies the horizontal pass by
+  transposing, exactly like the whole-plane op.
 
-  plane: (Hp, Wp) int32; bs/qp/maxp/maxq: (S, E) with S = Hp // seg.
+  plane: (Hp, Wp) int32; bs/qp/maxp/maxq (and hor_ctu_edge, luma only;
+  None for chroma): (S, E) with S = Hp // 4 (luma) or Hp // 2 (chroma).
   """
   devs = mesh.axis_devices(axis)
   T = len(devs)
+  seg = 2 if chroma else 4
   Hp = plane.shape[0]
   S = bs.shape[0]
   # band height: a multiple of seg rows covering the plane across T
@@ -64,16 +67,10 @@ def deblock_vertical_tiled(plane, bs, qp, maxp, maxq, hor_ctu_edge, *,
   grids = [_bands(_pad_rows(g, pad), segs_per, devs)
            for g in ((bs, qp, maxp, maxq) if chroma
                      else (bs, qp, maxp, maxq, hor_ctu_edge))]
-  out = []
-  for k in range(T):
-    g = [gr[k] for gr in grids]
-    if chroma:
-      out.append(deblock_vertical_chroma(pl[k], *g, bit_depth=bit_depth,
-                                         beta_off=beta_off, tc_off=tc_off))
-    else:
-      out.append(deblock_vertical_luma(pl[k], *g, grid=grid,
-                                       bit_depth=bit_depth,
-                                       beta_off=beta_off, tc_off=tc_off))
+  out = [deblock_pass([pl[k]], [tuple(gr[k] for gr in grids)],
+                      chroma=chroma, horizontal=False, bit_depth=bit_depth,
+                      beta_off=(beta_off,), tc_off=(tc_off,))[0]
+         for k in range(T)]
   return _gather(out, plane.device, Hp)
 
 

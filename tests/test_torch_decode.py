@@ -650,16 +650,18 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   called; `kinds`, a set, gathers the recon calls' unit_kinds."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+  from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
 
-  launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES}
+  launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES,
+              "deblock": D.LAUNCHES}
   called = set()
 
   def per_call(name, kw):
-    """Launches counted per call: recon 1; inter_pred 1 per size class
-    that has units."""
-    if name == "recon":
+    """Launches counted per call: recon and deblock 1; inter_pred 1 per
+    size class that has units."""
+    if name != "inter_pred":
       return 1
     return sum(len(kw["inter"][k + "_host"]) > 0 for k in ("small", "large"))
 
@@ -685,7 +687,8 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720"])
 def test_recon_kernel_matches_plain_on_card(cuda, name):
-  assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {"recon"}
+  assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {"recon",
+                                                              "deblock"}
 
 
 @pytest.mark.gpu
@@ -821,7 +824,7 @@ def test_recon_race_check_catches_a_broken_stencil(cuda, tmp_path,
   aus = VVCDecoder(device=cuda)._split_aus(_read(name))[:n_frames]
   for _ in walk_frames(aus, cuda, record):
     pass
-  last = [kw for kernel, kw in calls[-2:] if kernel == "recon"]
+  last = [kw for kernel, kw in calls if kernel == "recon"][-2:]
   want = [KERNELS["recon"][1](**kw) for kw in last]
   with open(R._SRC) as f:
     src = f.read()
@@ -841,10 +844,11 @@ def test_recon_race_check_catches_a_broken_stencil(cuda, tmp_path,
                                   "bdof-affine-ra", "wraparound-ra",
                                   "12bit-inter", "mono-inter"])
 def test_kernels_match_plain_on_card_inter(cuda, case):
-  """Both kernels against their plain versions on every frame of a P/B
+  """Every kernel against its plain version on every frame of a P/B
   case, with the frame's real references."""
-  assert _kernels_vs_plain(_stream(INTER_CASES[case]), cuda) == {
-      "inter_pred", "recon"}
+  called = _kernels_vs_plain(_stream(INTER_CASES[case]), cuda)
+  assert called - {"deblock"} == {"inter_pred", "recon"}
+  assert "deblock" in called or not INTER_CASES[case].get("deblock")
 
 
 @pytest.mark.gpu
@@ -853,16 +857,18 @@ def test_kernels_match_plain_on_card_tools(cuda, case):
   """Both kernels against their plain versions on every frame of a stream
   with DMVR (its search and the refined controls run in the walk) or with
   LMCS and ALF, with the frame's real references."""
-  assert _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda) == {
-      "inter_pred", "recon"}
+  called = _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda)
+  assert called - {"deblock"} == {"inter_pred", "recon"}
+  assert "deblock" in called or not TOOL_CASES[case].get("deblock")
 
 
 def _counts_zeroed():
+  from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
 
   for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
-            R.EDGE_LAUNCHES, R.PLAIN_RUNS):
+            R.EDGE_LAUNCHES, R.PLAIN_RUNS, D.LAUNCHES, D.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R
@@ -937,7 +943,7 @@ def test_kernels_match_plain_on_card_ctu128_1080(cuda):
   times."""
   kinds = set()
   assert _kernels_vs_plain(_read("ctu128_1080"), cuda, n_frames=2, repeats=3,
-                           kinds=kinds) == {"inter_pred", "recon"}
+                           kinds=kinds) == {"inter_pred", "recon", "deblock"}
   assert {"edge64", "high1", "cell1"} <= kinds, kinds
 
 
@@ -1008,11 +1014,14 @@ def test_coding_case_decodes_on_card(cuda, case):
                                   "full1080", "ctu128_1080", "ciip64",
                                   "gop720"])
 def test_fixture_decodes_on_card(cuda, name):
+  from ffmpeg_tpu_torch.ops import deblock as D
+
   P, R = _counts_zeroed()
   assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
-  assert R.LAUNCHES["recon"] > 0
+  assert R.LAUNCHES["recon"] > 0 and D.LAUNCHES["deblock"] > 0
   assert (P.LAUNCHES["inter_pred"] > 0) == (not name.startswith("ai"))
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
+  assert D.PLAIN_RUNS["deblock"] == 0
 
 
 # DMVR-free single-IRAP-period cases for the wave path on the card:
@@ -1070,7 +1079,7 @@ def test_gop_decode_across_cards(cuda, frame_axis):
 def test_tiled_filters_across_cards(cuda):
   """The band-split deblock, SAO and ALF with one band per card equal the
   whole-plane ops on the first card."""
-  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_luma
+  from ffmpeg_tpu_torch.ops.deblock import deblock_pass
   from ffmpeg_tpu_torch.ops.sao import sao_plane
   from ffmpeg_tpu_torch.parallel.mesh import make_mesh
   from ffmpeg_tpu_torch.parallel.spatial import (alf_luma_tiled,
@@ -1097,7 +1106,8 @@ def test_tiled_filters_across_cards(cuda):
                        np.zeros((S, E), np.int32))]
   assert torch.equal(
       deblock_vertical_tiled(plane, *db, bit_depth=8, mesh=mesh),
-      deblock_vertical_luma(plane, *db, bit_depth=8))
+      deblock_pass([plane], [tuple(db)], chroma=False, horizontal=False,
+                   bit_depth=8, beta_off=(0,), tc_off=(0,))[0])
   cb = (H // ctb, W // ctb)
   sao = [t(rng.integers(0, 3, cb, dtype=np.int32)),
          t(rng.integers(0, 28, cb, dtype=np.int32)),
@@ -1144,6 +1154,7 @@ def test_gop_kernels_match_plain_on_card(cuda):
   got = decode_gop_mesh(data, make_mesh(frame_axis=1), streams=4, call=check)
   assert [md5 for _, md5, _ in got] == want
   assert checked.count("recon") == 2 * len(got)
+  assert checked.count("deblock") == 4 * len(got)
 
 
 # ---- the JAX side live (slow) ----------------------------------------------

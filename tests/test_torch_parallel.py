@@ -168,7 +168,7 @@ def test_deblock_tiled_matches_whole_plane_and_jax():
   import jax.numpy as jnp
 
   from ffmpeg_tpu.ops.deblock import deblock_vertical_luma as jax_luma
-  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_luma
+  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_luma_plain
   from ffmpeg_tpu_torch.parallel.spatial import deblock_vertical_tiled
 
   rng = np.random.default_rng(3)
@@ -184,7 +184,7 @@ def test_deblock_tiled_matches_whole_plane_and_jax():
   kw = dict(bit_depth=8, beta_off=2, tc_off=-2)
   want = np.asarray(jax_luma(*map(jnp.asarray, arrs), **kw))
   t = [torch.from_numpy(a) for a in arrs]
-  whole = deblock_vertical_luma(*t, **kw).numpy()
+  whole = deblock_vertical_luma_plain(*t, **kw).numpy()
   got = deblock_vertical_tiled(*t, mesh=_cpu_mesh(8, frame_axis=2),
                                **kw).numpy()
   np.testing.assert_array_equal(whole, want)
@@ -194,7 +194,7 @@ def test_deblock_tiled_matches_whole_plane_and_jax():
 def test_deblock_tiled_chroma_matches_whole_plane():
   """The chroma pass in 2-row segments over 4 bands, with a plane whose
   height does not split into whole bands."""
-  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_chroma
+  from ffmpeg_tpu_torch.ops.deblock import deblock_vertical_chroma_plain
   from ffmpeg_tpu_torch.parallel.spatial import deblock_vertical_tiled
 
   rng = np.random.default_rng(4)
@@ -208,8 +208,8 @@ def test_deblock_tiled_chroma_matches_whole_plane():
       rng.choice([1, 3], (S, E)).astype(np.int32),
       rng.choice([1, 3], (S, E)).astype(np.int32))]
   kw = dict(bit_depth=10, beta_off=-2, tc_off=4)
-  whole = deblock_vertical_chroma(plane, *grids, **kw)
-  got = deblock_vertical_tiled(plane, *grids, None, chroma=True, seg=2,
+  whole = deblock_vertical_chroma_plain(plane, *grids, **kw)
+  got = deblock_vertical_tiled(plane, *grids, None, chroma=True,
                                mesh=_cpu_mesh(4, frame_axis=1), **kw)
   assert torch.equal(got, whole)
 
