@@ -33,7 +33,9 @@ Phases, one JSON line each:
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
               (all-integer arithmetic): every kernel (the deblock
-              kernel's four passes among them) on the first B frame
+              kernel's two calls, both passes in one launch, and each
+              call's passes alone in its one-pass mode) on the first B
+              frame
               of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
               and DMVR units under LMCS with ALF-on CTBs (the inter calls
               carry DMVR windows and the luma forward map; its real,
@@ -48,7 +50,8 @@ Phases, one JSON line each:
   4. decode   each fixture decoded on the card; frame MD5s must equal
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
-              of the path launched, the plain versions never ran
+              of the path launched, the plain versions never ran, the
+              deblock kernel launched twice a frame (luma; Cb and Cr)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
               with the fetch, full1080 fps at host_threads 1, 4 and 8,
@@ -68,9 +71,9 @@ Phases, one JSON line each:
               (dependency levels) and us per level on that frame and on
               ai720's frame 0, and on ctu128_1080's I and B frames (its
               recon levels and us per level, its inter kernel); the
-              deblock kernel's ms per pass (luma V and H, chroma V and
-              H), its launch apart from the copy, on the full1080 B
-              frame and the coding-tool frames; every
+              deblock kernel's ms per launch (luma, then Cb and Cr; the
+              launch is the whole call), on the full1080 B frame and
+              the coding-tool frames; every
               timed launch of the kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
@@ -328,9 +331,9 @@ def _bytes_moved(name, kw):
   samples (mc_tiles)."""
   from ffmpeg_tpu_torch.models.vvc.mc_tiles import nbytes
 
-  if name == "deblock":   # each plane in and out, each grid in
+  if name == "deblock":   # each plane in and out, each pass's grids in
     return sum(p.numel() * 4 * 2 for p in kw["planes"]) + sum(
-        t.numel() * 4 for g in kw["grids"] for t in g)
+        t.numel() * 4 for g in kw["grids_v"] + kw["grids_h"] for t in g)
   inter = kw["inter"]
   toff = inter["toff_host"]
   if name == "inter_pred":
@@ -442,16 +445,16 @@ def _ops(name, kw):
   plus PDPC: about 32 operations) and the residual add and clip, per
   unit the edge build and filtering (about 8 operations per edge lane),
   and 3 per placed inter sample.
-  deblock: per segment with bs > 0 its decision (about 150 operations
-  for luma, 60 for chroma) and per line its filter (at most about 120:
-  the large filter's 7 taps a side; chroma 40); per segment with bs 0,
-  4 (the load and the test)."""
+  deblock: per segment with bs > 0 of each pass its decision (about 150
+  operations for luma, 60 for chroma) and per line its filter (at most
+  about 120: the large filter's 7 taps a side; chroma 40); per segment
+  with bs 0, 4 (the load and the test)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
   if name == "deblock":
     lines, decide, per_line = (2, 60, 40) if kw["chroma"] else (4, 150, 120)
     total = 0
-    for g in kw["grids"]:
+    for g in kw["grids_v"] + kw["grids_h"]:
       act = int((g[0] > 0).sum().item())
       total += 4 * (g[0].numel() - act) + act * (decide + lines * per_line)
     return total
@@ -515,6 +518,32 @@ def _check_calls(fixture, calls, out, torch):
       emit(out)
       fail("kernels", f"{fixture} {name} {label}: kernel != plain "
            f"(max err {err})")
+    if name == "deblock":
+      _check_deblock_passes(fixture, label, kw, out, torch)
+
+
+def _check_deblock_passes(fixture, label, kw, out, torch):
+  """The deblock kernel's one-pass mode (deblock_pass) on a frame
+  program call's inputs: the vertical pass, then the horizontal pass on
+  its result, each against the plain version, tolerance 0."""
+  from ffmpeg_tpu_torch.ops.deblock import deblock_pass, deblock_pass_plain
+
+  base = {k: v for k, v in kw.items() if k not in ("grids_v", "grids_h")}
+  for o in ("v", "h"):
+    a = dict(base, grids=kw[f"grids_{o}"], horizontal=o == "h")
+    got = deblock_pass(**a)
+    torch.cuda.synchronize()
+    want = deblock_pass_plain(**a)
+    err = int((got - want).abs().max().item())
+    out["cases"].append({"fixture": fixture, "kernel": "deblock",
+                         "plane": f"{label}/{o}", "mode": "one pass",
+                         "equal": bool(torch.equal(got, want)),
+                         "max_abs_err": err})
+    if not torch.equal(got, want):
+      emit(out)
+      fail("kernels", f"{fixture} deblock {label}/{o} (one pass): kernel "
+           f"!= plain (max err {err})")
+    base["planes"] = list(got)
 
 
 def phase_kernels(torch):
@@ -626,6 +655,10 @@ def phase_decode(torch):
     if any(plain.values()):
       emit(res)
       fail("decode", f"{name}: a plain version ran: {plain}")
+    if res["fixtures"][name]["deblock_launches_per_frame"] != 2:
+      emit(res)
+      fail("decode", f"{name}: the deblock kernel was not launched twice a "
+           "frame (luma; Cb and Cr)")
   emit(res)
   return launches
 
@@ -829,38 +862,31 @@ def _time_inter(kw, torch, reps, rounds):
 
 def _deblock_runs(kw, want, torch, reps):
   """reps calls of the deblock wrapper on one call's inputs, queued behind
-  _hold_card and timed with CUDA events: per call the wrapper's card time
-  (the copy of the planes, then the launch), and apart its launch (the
-  wrapper's mark hook records an event just before it).  Every output is
-  held against `want`, the plain version's: the atomics' order differs
-  between launches.  Returns (ms per call, launch ms, calls that
-  differ)."""
-  from ffmpeg_tpu_torch.ops.deblock import _deblock_cuda
-
-  ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        for _ in range(reps)]
+  _hold_card and timed with CUDA events: the launch is the whole call
+  (the output is a fresh tensor, no copy).  Every output is held against
+  `want`, the plain version's: the shared-memory atomics' order differs
+  between launches.  Returns (ms per call, calls that differ)."""
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
   outs = []
   _hold_card(torch)
-  for e in ev:
-    e[0].record()
-    outs.append(_deblock_cuda(**kw, mark=e[1].record))
-    e[2].record()
+  start.record()
+  for _ in range(reps):
+    outs.append(_kernel("deblock", kw))
+  end.record()
   torch.cuda.synchronize()
-  total = ev[0][0].elapsed_time(ev[-1][2]) / reps
-  launch = sum(e[1].elapsed_time(e[2]) for e in ev) / reps
-  return total, launch, sum(not torch.equal(o, want) for o in outs)
+  return (start.elapsed_time(end) / reps,
+          sum(not torch.equal(o, want) for o in outs))
 
 
 def _time_deblock(kw, torch, reps, rounds):
-  """One deblock pass: ms per call (mean of `rounds` rounds of `reps`
-  calls), its launch alone, and the calls that differ from the plain
-  version."""
+  """One deblock call: ms per call (mean of `rounds` rounds of `reps`
+  calls), and the calls that differ from the plain version."""
   want = _plain("deblock", kw)
   runs = [_deblock_runs(kw, want, torch, reps) for _ in range(rounds)]
   return {"ms": sum(r[0] for r in runs) / rounds,
-          "launch_ms": sum(r[1] for r in runs) / rounds,
           "calls_checked": reps * rounds,
-          "calls_unequal": sum(r[2] for r in runs)}
+          "calls_unequal": sum(r[1] for r in runs)}
 
 
 def _time_call(name, label, kw, levels, torch, reps, rounds):
@@ -919,9 +945,8 @@ def phase_timing(torch, card, calls, levels):
     kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
-  print(f"chip_smoke: timing {MAIN} deblock ms per pass: " + ", ".join(
-      f"{label} {r['ms']} (launch {r['launch_ms']})"
-      for label, r in deblock.items()), flush=True)
+  print(f"chip_smoke: timing {MAIN} deblock ms per launch: " + ", ".join(
+      f"{label} {r['ms']}" for label, r in deblock.items()), flush=True)
   for name, label, kw in calls["ai720"]:
     if name == "recon":
       recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
@@ -1304,8 +1329,7 @@ def _tool_row(name, calls, timed):
           **_bound(name, calls),
           "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
               "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
-              "small_ms", "large_ms", "small_units", "large_units",
-              "launch_ms")}
+              "small_ms", "large_ms", "small_units", "large_units")}
               for label, r in timed[name].items()}}
 
 
@@ -1361,7 +1385,7 @@ def main() -> int:
       rows[-1]["launches_by_edge"] = {
           f: launches[f]["recon_by_edge"] for f in FIXTURES}
     elif name == "deblock":
-      rows[-1]["split_ms"] = {label: {k: r[k] for k in ("ms", "launch_ms")}
+      rows[-1]["split_ms"] = {label: {"ms": r["ms"]}
                               for label, r in deblock.items()}
     else:
       rows[-1]["launches_by_class"] = {

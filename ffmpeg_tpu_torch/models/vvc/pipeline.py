@@ -12,8 +12,9 @@ form), stage by stage on one device:
   chroma buckets ──dequant+ITX, scaled──> Cb, Cr residual planes
   tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
                                          reconstructed luma)
-  luma ──LMCS inverse──> edge grids ──deblock kernel──> V, then H (on
-       the transposed view) ──> SAO ──> ALF + CC-ALF ──> packed bytes
+  luma ──LMCS inverse──> edge grids ──deblock kernel──> V, then H (one
+       launch for luma, one for Cb+Cr) ──> SAO ──> ALF + CC-ALF ──> packed
+       bytes
 
 DMVR frames first run their refinement (ops/dmvr.py, `refine_dmvr`)
 against the DPB, which the session does in decode order.
@@ -27,7 +28,7 @@ import torch
 
 from ...ops import intra as I
 from ...ops.alf import alf_pass
-from ...ops.deblock import deblock_pass, deblock_pass_plain
+from ...ops.deblock import deblock_planes, deblock_planes_plain
 from ...ops.dmvr import refine_frame
 from ...ops.inter import inter_pred, inter_pred_plain_kind
 from ...ops.lmcs import lmcs_inv, lmcs_vpdu_scales
@@ -51,7 +52,7 @@ def _sync_for(device):
 # takes the same arguments and returns the same result)
 KERNELS = {"inter_pred": (inter_pred, inter_pred_plain_kind),
            "recon": (recon_plane, recon_plane_plain_kind),
-           "deblock": (deblock_pass, deblock_pass_plain)}
+           "deblock": (deblock_planes, deblock_planes_plain)}
 
 
 def _launch(name, label, kw):
@@ -60,7 +61,7 @@ def _launch(name, label, kw):
 
 def _deblock_grids(d, c, o):
   """Component c's per-edge grids for the o ("v" or "h") pass, in
-  deblock_pass's order."""
+  deblock_planes's order."""
   if c == 0:
     return tuple(d[f"y{k}_{o}"] for k in ("bs", "qp", "mp", "mq")) + (
         d["yhor0" if o == "v" else "yhor"],)
@@ -83,8 +84,8 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   dbo/dto: effective deblock beta/tc offsets per component.
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
   of KERNELS, in order: inter_pred of luma then chroma (P/B frames),
-  recon of luma then chroma, deblock's passes luma/v, luma/h, chroma/v,
-  chroma/h (frames with deblock on).  The default runs the wrapper; a
+  recon of luma then chroma, deblock of luma then chroma (frames with
+  deblock on).  The default runs the wrapper; a
   check passes its own to hold each call against the plain version.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits)}."""
@@ -154,21 +155,21 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
 
   if "deblock" in inp:
     d = inp["deblock"]
-    # vertical edges, then horizontal edges on the result: luma, then Cb
-    # and Cr in one call; the horizontal pass's grids are laid out for
-    # the transposed plane, which the kernel reads through its strides
+    # vertical edges, then horizontal edges on the result, in one call:
+    # luma, then Cb and Cr together; the horizontal pass's grids are laid
+    # out for the transposed plane
     comps = [("luma", (0,))] + ([] if mono else [("chroma", (1, 2))])
     with trace.span("deblock", sync):
       for label, cs in comps:
-        for o in ("v", "h"):
-          out = call("deblock", f"{label}/{o}", dict(
-              planes=[planes[c] for c in cs],
-              grids=[_deblock_grids(d, c, o) for c in cs],
-              chroma=label == "chroma", horizontal=o == "h", bit_depth=bd,
-              beta_off=tuple(dbo[c] for c in cs),
-              tc_off=tuple(dto[c] for c in cs)))
-          for c, pl in zip(cs, out):
-            planes[c] = pl
+        out = call("deblock", label, dict(
+            planes=[planes[c] for c in cs],
+            grids_v=[_deblock_grids(d, c, "v") for c in cs],
+            grids_h=[_deblock_grids(d, c, "h") for c in cs],
+            chroma=label == "chroma", bit_depth=bd,
+            beta_off=tuple(dbo[c] for c in cs),
+            tc_off=tuple(dto[c] for c in cs)))
+        for c, pl in zip(cs, out):
+          planes[c] = pl
 
   if "sao" in inp:
     with trace.span("sao", sync):

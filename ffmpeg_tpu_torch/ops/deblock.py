@@ -11,14 +11,17 @@ filter lengths) built on the host (models/vvc/deblock_ctrl.py).
 Layout: for the vertical pass, edges sit at x = G*e; each 4-row (luma)
 or 2-row (4:2:0 chroma) segment of each edge has its own parameters.
 
-`deblock_pass` is the entry point: one pass over a luma plane, or over
-Cb and Cr together.  A CUDA tensor launches the kernel (csrc/deblock.cu:
-one thread per segment and edge, the horizontal pass on the transposed
-view through its strides, so no plane is transposed in memory); a CPU
-tensor runs `deblock_pass_plain`, which runs the single-plane plain
-versions `deblock_vertical_luma_plain` / `deblock_vertical_chroma_plain`
-(the ports of the JAX functions, and the kernel's oracle) on each plane
-or its transposed view.
+`deblock_planes` is the frame program's entry point: both passes over a
+luma plane, or over Cb and Cr together; `deblock_pass` runs one of them
+(the band split of parallel/spatial.py).  A CUDA tensor launches the
+kernel (csrc/deblock.cu: one launch, tiles of TILE x TILE samples with
+their halo in shared memory, both passes there, each tile written once);
+a CPU tensor runs the plain version (`deblock_planes_plain`,
+`deblock_pass_plain`), the single-plane passes
+`deblock_vertical_luma_plain` / `deblock_vertical_chroma_plain` (the
+ports of the JAX functions, and the kernel's oracle) on each plane and
+on the transposed view of its result.  `deblock_tiled_plain` is the
+kernel's tiling run on the CPU.
 """
 from __future__ import annotations
 
@@ -455,79 +458,184 @@ def deblock_vertical_chroma_plain(plane, bs, qp, maxp, maxq, *,
 
 
 # ----------------------------------------------------------------------
-# one pass: the entry point, its plain version and the CUDA kernel
+# the entry points, their plain versions, and the CUDA kernel
 # (csrc/deblock.cu), built with nvcc at first use and bound with ctypes
 # ----------------------------------------------------------------------
 
-def _check_pass(planes, grids, chroma, horizontal, beta_off, tc_off):
+# The kernel's tiles: a thread block owns TILE x TILE output samples of
+# one plane and reads them with a halo of HALO[kind] samples on each side
+# (csrc/deblock.cu gets both at build time; deblock_tiled_plain is its
+# algorithm on the CPU).  A halo is a multiple of the kind's edge
+# spacing and covers the windows of the edges that write into the tile.
+TILE = 48
+HALO = {"luma": 12, "chroma": 8}
+# per kind: edge spacing, lines per segment, window samples read on each
+# side of an edge, and the samples written before it and from it on
+# less one (the kernel's Kind<C>::G, SEG, N / 2, WP, WQ)
+_GEOM = {"luma": (4, 4, 8, 7, 6), "chroma": (8, 2, 4, 3, 2)}
+
+
+def _check(planes, grids_v, grids_h, chroma, beta_off, tc_off):
   """Shapes and types the kernel takes, on every device: 1 luma or 1-2
-  chroma (H, W) int32 contiguous planes of one shape and device, and
-  per plane its (S, E) int32 contiguous grids for the pass's view."""
+  chroma (H, W) int32 contiguous planes of one shape and device, and per
+  plane the (S, E) int32 contiguous grids of each pass that runs: the
+  vertical pass's laid out for the plane, the horizontal pass's for its
+  transpose."""
   nch = len(planes)
   if not 1 <= nch <= (2 if chroma else 1):
     raise ValueError(f"deblock: {nch} planes for a "
-                     f"{'chroma' if chroma else 'luma'} pass")
-  if not (len(grids) == len(beta_off) == len(tc_off) == nch):
+                     f"{'chroma' if chroma else 'luma'} call")
+  if grids_v is None and grids_h is None:
+    raise ValueError("deblock: no pass to run")
+  if not (len(beta_off) == len(tc_off) == nch) or any(
+      g is not None and len(g) != nch for g in (grids_v, grids_h)):
     raise ValueError("deblock: one grid tuple and one offset pair per plane")
   H, W = planes[0].shape
-  rows, cols = (W, H) if horizontal else (H, W)
   seg, grid = (2, 8) if chroma else (4, 4)
-  if rows % seg or cols % grid:
-    raise ValueError(f"deblock: a {H}x{W} plane is not whole {seg}-line "
-                     f"segments and {grid}-sample edges")
-  S, E = rows // seg, cols // grid
   dev = planes[0].device
-  for pl, g in zip(planes, grids):
-    if len(g) != (4 if chroma else 5):
-      raise ValueError(f"deblock: {len(g)} grids per plane")
-    for t, shape in ((pl, (H, W)), *((x, (S, E)) for x in g)):
-      if t.dtype != torch.int32 or not t.is_contiguous() \
-          or tuple(t.shape) != shape or t.device != dev:
-        raise ValueError(
-            f"deblock: expected contiguous int32 {shape} on {dev}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+  for grids, (rows, cols) in ((grids_v, (H, W)), (grids_h, (W, H))):
+    if grids is None:
+      continue
+    if rows % seg or cols % grid:
+      raise ValueError(f"deblock: a {rows}x{cols} view is not whole "
+                       f"{seg}-line segments and {grid}-sample edges")
+    S, E = rows // seg, cols // grid
+    for pl, g in zip(planes, grids):
+      if len(g) != (4 if chroma else 5):
+        raise ValueError(f"deblock: {len(g)} grids per plane")
+      for t, shape in ((pl, (H, W)), *((x, (S, E)) for x in g)):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+            or tuple(t.shape) != shape or t.device != dev:
+          raise ValueError(
+              f"deblock: expected contiguous int32 {shape} on {dev}, got "
+              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def deblock_planes(planes, grids_v, grids_h, *, chroma: bool, bit_depth: int,
+                   beta_off, tc_off):
+  """Deblock a luma plane, or the Cb and Cr planes: the vertical edges,
+  then the horizontal edges of the result, in one launch.
+
+  planes: [luma], or [Cb, Cr] (or one chroma plane), (H, W) int32
+  contiguous.
+  grids_v, grids_h: per plane (bs, qp, maxp, maxq, hor_ctu_edge) for luma
+  or (bs, qp, maxp, maxq) for chroma, (S, E) int32: the vertical pass's
+  laid out for the plane, luma (H/4, W/4) or chroma (H/2, W/8), the
+  horizontal pass's for its transpose, luma (W/4, H/4) or chroma (W/2,
+  H/8); None for a pass that does not run (deblock_pass).
+  beta_off, tc_off: per plane, the effective offsets (already x2).
+  Returns the filtered planes, (nch, H, W) int32, a new tensor.  A CUDA
+  tensor launches the kernel; a CPU tensor runs the plain version;
+  nothing falls back from one to the other."""
+  _check(planes, grids_v, grids_h, chroma, beta_off, tc_off)
+  dev = planes[0].device
+  kw = dict(chroma=chroma, bit_depth=bit_depth, beta_off=beta_off,
+            tc_off=tc_off)
+  if dev.type == "cuda":
+    return _deblock_cuda(planes, grids_v, grids_h, **kw)
+  if dev.type != "cpu":
+    raise ValueError(f"deblock: unsupported device {dev}")
+  return deblock_planes_plain(planes, grids_v, grids_h, **kw)
+
+
+def deblock_planes_plain(planes, grids_v, grids_h, *, chroma: bool,
+                         bit_depth: int, beta_off, tc_off):
+  """deblock_planes's plain version, with its arguments and result: the
+  single-plane passes on each plane, vertical, then horizontal on the
+  transposed view of its result."""
+  PLAIN_RUNS["deblock"] += 1
+  fn = deblock_vertical_chroma_plain if chroma else deblock_vertical_luma_plain
+  out = []
+  for c, (pl, bo, to) in enumerate(zip(planes, beta_off, tc_off)):
+    kw = dict(bit_depth=bit_depth, beta_off=bo, tc_off=to)
+    if grids_v is not None:
+      pl = fn(pl, *grids_v[c], **kw)
+    if grids_h is not None:
+      pl = fn(pl.T, *grids_h[c], **kw).T
+    out.append(pl)
+  return torch.stack(out)
 
 
 def deblock_pass(planes, grids, *, chroma: bool, horizontal: bool,
                  bit_depth: int, beta_off, tc_off):
-  """One deblock pass over the vertical (or, with horizontal, the
-  horizontal) edges of a luma plane or of the Cb and Cr planes.
-
-  planes: [luma], or [Cb, Cr] (or one chroma plane), (H, W) int32
-  contiguous.
-  grids: per plane (bs, qp, maxp, maxq, hor_ctu_edge) for luma or (bs,
-  qp, maxp, maxq) for chroma, (S, E) int32, laid out for the plane (the
-  vertical pass) or its transpose (the horizontal pass): luma (H/4, W/4)
-  or (W/4, H/4), chroma (H/2, W/8) or (W/2, H/8).
-  beta_off, tc_off: per plane, the effective offsets (already x2).
-  Returns the filtered planes, (nch, H, W) int32.  A CUDA tensor
-  launches the kernel; a CPU tensor runs the plain version; nothing falls
-  back from one to the other."""
-  _check_pass(planes, grids, chroma, horizontal, beta_off, tc_off)
-  dev = planes[0].device
-  if dev.type == "cuda":
-    return _deblock_cuda(planes, grids, chroma=chroma, horizontal=horizontal,
-                         bit_depth=bit_depth, beta_off=beta_off,
-                         tc_off=tc_off)
-  if dev.type != "cpu":
-    raise ValueError(f"deblock: unsupported device {dev}")
-  return deblock_pass_plain(planes, grids, chroma=chroma,
-                            horizontal=horizontal, bit_depth=bit_depth,
-                            beta_off=beta_off, tc_off=tc_off)
+  """One pass of deblock_planes: the vertical (or, with horizontal, the
+  horizontal) edges alone, grids laid out for that pass as there; the
+  same kernel in a one-pass mode.  Returns (nch, H, W) int32."""
+  return deblock_planes(planes, None if horizontal else grids,
+                        grids if horizontal else None, chroma=chroma,
+                        bit_depth=bit_depth, beta_off=beta_off,
+                        tc_off=tc_off)
 
 
 def deblock_pass_plain(planes, grids, *, chroma: bool, horizontal: bool,
                        bit_depth: int, beta_off, tc_off):
-  """deblock_pass's plain version, with its arguments and result: the
-  single-plane plain pass on each plane, or on its transposed view."""
-  PLAIN_RUNS["deblock"] += 1
+  """deblock_pass's plain version, with its arguments and result."""
+  return deblock_planes_plain(planes, None if horizontal else grids,
+                              grids if horizontal else None, chroma=chroma,
+                              bit_depth=bit_depth, beta_off=beta_off,
+                              tc_off=tc_off)
+
+
+def _edge_range(a, n_edges, kind):
+  """The edges [lo, hi] whose written samples reach [a, a + TILE) of an
+  axis with n_edges edges (the kernel's edge_range)."""
+  G, _, _, WP, WQ = _GEOM[kind]
+  return max(0, -((WQ - a) // G)), min(n_edges - 1, (a + TILE - 1 + WP) // G)
+
+
+def _tile_grids(grids, seg, grid, y0, y1, x0, x1, segs, edges):
+  """grids of a pass cut to the sub-plane [y0, y1) x [x0, x1) of its
+  view, with bs 0 outside segments [segs) and edges [edges]."""
+  out = [g[y0 // seg:y1 // seg, x0 // grid:x1 // grid] for g in grids]
+  keep = torch.zeros_like(out[0], dtype=torch.bool)
+  keep[segs[0] - y0 // seg:segs[1] - y0 // seg,
+       edges[0] - x0 // grid:edges[1] + 1 - x0 // grid] = True
+  return (out[0].where(keep, 0),) + tuple(out[1:])
+
+
+def deblock_tiled_plain(planes, grids_v, grids_h, *, chroma: bool,
+                        bit_depth: int, beta_off, tc_off):
+  """The kernel's algorithm on the CPU: deblock_planes (or one pass, with
+  the other's grids None) tile by tile.  Each TILE x TILE tile is cut
+  from the plane with its halo (clipped to the plane), the plain passes
+  run on that sub-plane with the grids cut to it, the edges kept that
+  the kernel filters (the others set to bs 0), and the tile's interior
+  is kept.  Equal to the whole-plane passes when the halo and the
+  kernel's edge and row ranges suffice (tests/test_torch_deblock.py)."""
+  kind = "chroma" if chroma else "luma"
+  G, SEG, R, _, _ = _GEOM[kind]
+  h = HALO[kind]
   fn = deblock_vertical_chroma_plain if chroma else deblock_vertical_luma_plain
-  out = []
-  for pl, g, bo, to in zip(planes, grids, beta_off, tc_off):
-    r = fn(pl.T if horizontal else pl, *g, bit_depth=bit_depth, beta_off=bo,
-           tc_off=to)
-    out.append(r.T if horizontal else r)
-  return torch.stack(out)
+  H, W = planes[0].shape
+  out = torch.empty((len(planes), H, W), dtype=torch.int32)
+  for r0 in range(0, H, TILE):
+    r1 = min(H, r0 + TILE)
+    for c0 in range(0, W, TILE):
+      c1 = min(W, c0 + TILE)
+      y0, y1 = (max(0, r0 - h), min(H, r1 + h)) if grids_h is not None \
+          else (r0, r1)
+      x0, x1 = (max(0, c0 - h), min(W, c1 + h)) if grids_v is not None \
+          else (c0, c1)
+      if grids_h is not None:
+        eh = _edge_range(r0, H // G, kind)
+        sh = (c0 // SEG, -(-c1 // SEG))
+      for c, (pl, bo, to) in enumerate(zip(planes, beta_off, tc_off)):
+        kw = dict(bit_depth=bit_depth, beta_off=bo, tc_off=to)
+        sub = pl[y0:y1, x0:x1]
+        if grids_v is not None:
+          # the rows the horizontal pass reads, or the tile's own
+          v0, v1 = (max(0, min(r0, G * eh[0] - R)), min(H, max(r1, G * eh[1]
+                                                              + R))) \
+              if grids_h is not None else (r0, r1)
+          g = _tile_grids(grids_v[c], SEG, G, y0, y1, x0, x1,
+                          (v0 // SEG, -(-v1 // SEG)),
+                          _edge_range(c0, W // G, kind))
+          sub = fn(sub, *g, **kw)
+        if grids_h is not None:
+          g = _tile_grids(grids_h[c], SEG, G, x0, x1, y0, y1, sh, eh)
+          sub = fn(sub.T, *g, **kw).T
+        out[c, r0:r1, c0:c1] = sub[r0 - y0:r1 - y0, c0 - x0:c1 - x0]
+  return out
 
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -540,13 +648,15 @@ def _get_kernel():
   if _lib is None:
     from ..utils.build import build_cuda
 
-    lib = ctypes.CDLL(build_cuda("deblock", [_SRC]))
+    lib = ctypes.CDLL(build_cuda("deblock", [_SRC], defines=(
+        ("DEBLOCK_TILE", TILE), ("DEBLOCK_HALO_LUMA", HALO["luma"]),
+        ("DEBLOCK_HALO_CHROMA", HALO["chroma"]))))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.deblock_launch.restype = ctypes.c_int
     lib.deblock_launch.argtypes = [
-        p, p, i, i, i,      # src pointers (nch,), dst, nch, H, W
-        i, i,               # chroma, horizontal
-        p, i, i,            # grid pointers (nch x 4 or 5), S, E
+        p, p, i, i, i, i,   # src pointers (nch,), dst, nch, H, W, chroma
+        p, i, i,            # vertical grid pointers (nch x 4 or 5), S, E
+        p, i, i,            # horizontal grid pointers, S, E
         p, p, i,            # beta_off, tc_off (nch,), bit_depth
         p, p, p, p, p,      # TCTABLE, BETATABLE, LARGE_COEF_M/R, TC_MULT
         p]                  # stream
@@ -556,31 +666,32 @@ def _get_kernel():
   return _lib
 
 
-def _deblock_cuda(planes, grids, *, chroma, horizontal, bit_depth, beta_off,
-                  tc_off, mark=None):
-  """dst = a copy of the planes, then one launch on the plane's device's
-  current stream, which adds each filtered sample's change to dst.
-  mark(), if given, is called just before the launch, to record a CUDA
-  event and time the copy and the launch apart."""
+def _deblock_cuda(planes, grids_v, grids_h, *, chroma, bit_depth, beta_off,
+                  tc_off):
+  """One launch on the planes' device's current stream into a new
+  (nch, H, W) tensor, which every thread block writes its tile of."""
   nch = len(planes)
   H, W = planes[0].shape
   dev = planes[0].device
-  S, E = grids[0][0].shape
   lib = _get_kernel()
-  dst = torch.stack(planes)
-  ptr = ctypes.c_longlong * (nch * len(grids[0]))
+  dst = torch.empty((nch, H, W), dtype=torch.int32, device=dev)
+
+  def ptrs(grids):
+    if grids is None:
+      return None, 0, 0
+    flat = [t.data_ptr() for g in grids for t in g]
+    return ((ctypes.c_longlong * len(flat))(*flat),
+            *grids[0][0].shape)
+
   ints = ctypes.c_int * nch
   tabs = [_const(n, a, dev).data_ptr() for n, a in (
       ("tc", TCTABLE), ("beta", BETATABLE), ("lcm", LARGE_COEF_M),
       ("lcr", LARGE_COEF_R), ("ltc", LARGE_TC_MULT))]
-  if mark is not None:
-    mark()
   with torch.cuda.device(dev):
     rc = lib.deblock_launch(
         (ctypes.c_longlong * nch)(*(pl.data_ptr() for pl in planes)),
-        dst.data_ptr(), nch, H, W, int(chroma), int(horizontal),
-        ptr(*(t.data_ptr() for g in grids for t in g)), S, E,
-        ints(*beta_off), ints(*tc_off), bit_depth, *tabs,
+        dst.data_ptr(), nch, H, W, int(chroma), *ptrs(grids_v),
+        *ptrs(grids_h), ints(*beta_off), ints(*tc_off), bit_depth, *tabs,
         torch.cuda.current_stream(dev).cuda_stream)
   if rc != 0:
     raise RuntimeError("deblock kernel launch failed: "

@@ -1,0 +1,102 @@
+"""Time the deblock kernel built at several tile edges on a real frame.
+
+  python -m ffmpeg_tpu_torch.tools.deblock_tiles [--tiles 32 48 64]
+      [--stream ffmpeg_tpu_torch/testdata/full1080.vvc] [--reps 20]
+
+Walks the stream on the card to its first B frame, keeps that frame's
+deblock calls (luma; Cb and Cr), then, per tile edge, builds
+csrc/deblock.cu with it (ops/deblock.py TILE, the halos unchanged) and
+times each call with CUDA events (reps launches queued behind a held
+card, in the order of --tiles and then reversed), each output held
+against the plain version.  Prints one JSON line per tile edge, with
+the card's name and power limit.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+from ..models.vvc.decoder import VVCDecoder
+from ..models.vvc.pipeline import KERNELS, walk_frames
+from ..ops import deblock as D
+
+TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "testdata")
+
+
+def b_frame_calls(path):
+  """The deblock calls of the stream's first B frame: [(label, kwargs)]."""
+  with open(path, "rb") as f:
+    aus = VVCDecoder(device="cuda")._split_aus(f.read())
+  calls = []
+
+  def record(name, label, kw):
+    if name == "deblock":
+      calls.append((label, kw))
+    return KERNELS[name][0](**kw)
+
+  for fs, _ in walk_frames(aus, "cuda", record):
+    if fs.slice_type == 0:
+      return calls
+    calls.clear()
+  raise RuntimeError(f"{path}: no B frame")
+
+
+def time_call(kw, want, reps):
+  """ms per launch (after one untimed launch: the first loads the
+  module) and the launches unequal to `want`."""
+  D.deblock_planes(**kw)
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  torch.cuda.synchronize()
+  torch.cuda._sleep(100_000_000)  # hold the card: time launches, not Python
+  start.record()
+  outs = [D.deblock_planes(**kw) for _ in range(reps)]
+  end.record()
+  torch.cuda.synchronize()
+  return (start.elapsed_time(end) / reps,
+          sum(not torch.equal(o, want) for o in outs))
+
+
+def main(argv=None) -> int:
+  ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+  ap.add_argument("--tiles", type=int, nargs="+", default=[32, 48, 64])
+  ap.add_argument("--stream", default=os.path.join(TESTDATA, "full1080.vvc"))
+  ap.add_argument("--reps", type=int, default=20)
+  a = ap.parse_args(argv)
+  if not torch.cuda.is_available():
+    print("deblock_tiles: needs a CUDA card", file=sys.stderr)
+    return 1
+  card = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True).stdout.strip().splitlines()[0]
+  calls = b_frame_calls(a.stream)
+  want = [D.deblock_planes_plain(**kw) for _, kw in calls]
+  default = D.TILE
+  try:
+    for tile in a.tiles + a.tiles[::-1]:
+      D.TILE, D._lib = tile, None
+      D._get_kernel()
+      ms = {}
+      for (label, kw), w in zip(calls, want):
+        t, unequal = time_call(kw, w, a.reps)
+        if unequal:
+          print(f"deblock_tiles: tile {tile} {label}: {unequal} launches "
+                "differ from the plain version", file=sys.stderr)
+          return 1
+        ms[label] = t
+      print(json.dumps({"tile": tile, "ms": ms, "ms_frame": sum(ms.values()),
+                        "card": card, "stream": os.path.basename(a.stream),
+                        "reps": a.reps}), flush=True)
+  finally:
+    D.TILE, D._lib = default, None
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())
