@@ -9,7 +9,7 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     with the full toolset (bench.py FULL_KW: B slices with TMVP,
     affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
     with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
-    the three kernels (inter_pred, recon, deblock);
+    the four kernels (inter_pred, recon, deblock, alf);
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra;
@@ -26,7 +26,8 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
 Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
-  2. build    host parser (make) and every CUDA kernel (nvcc), in
+  2. build    host parser (make) and every CUDA kernel (nvcc: recon,
+              inter_pred, deblock, alf), in
               parallel, from the sources in this checkout; each kernel
               function's registers, shared memory and spills (ptxas)
   3. kernels  each kernel call of the frame program (recorded through
@@ -34,7 +35,8 @@ Phases, one JSON line each:
               torch version on the card, torch.equal, tolerance 0
               (all-integer arithmetic): every kernel (the deblock
               kernel's two calls, both passes in one launch, and each
-              call's passes alone in its one-pass mode) on the first B
+              call's passes alone in its one-pass mode; the alf kernel's
+              two calls, luma, then Cb and Cr with CC-ALF) on the first B
               frame
               of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
               and DMVR units under LMCS with ALF-on CTBs (the inter calls
@@ -51,15 +53,17 @@ Phases, one JSON line each:
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
               of the path launched, the plain versions never ran, the
-              deblock kernel launched twice a frame (luma; Cb and Cr)
+              deblock kernel launched twice a frame (luma; Cb and Cr),
+              the alf kernel twice on each frame with ALF on (the traced
+              alf spans count those frames)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
               with the fetch, full1080 fps at host_threads 1, 4 and 8,
               twice each in the order 1, 4, 8, 8, 4, 1 (the session's
               parse pool; os.cpu_count() beside it),
               full1080 per-stage ms (the DMVR round trip
-              per DMVR frame among them), the device ms of the LMCS, ALF
-              and DMVR torch ops per call and per frame (CUDA events
+              per DMVR frame among them), the device ms of the LMCS and
+              DMVR torch ops per call and per frame (CUDA events
               around each call, queued behind a held card), kernel vs
               plain ms (CUDA events, the launches queued behind a short
               sleep of the card so that the host's Python between them is
@@ -71,9 +75,9 @@ Phases, one JSON line each:
               (dependency levels) and us per level on that frame and on
               ai720's frame 0, and on ctu128_1080's I and B frames (its
               recon levels and us per level, its inter kernel); the
-              deblock kernel's ms per launch (luma, then Cb and Cr; the
-              launch is the whole call), on the full1080 B frame and
-              the coding-tool frames; every
+              deblock and alf kernels' ms per launch (luma, then Cb and
+              Cr; the launch is the whole call), on the full1080 B frame
+              and the coding-tool frames; every
               timed launch of the kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
@@ -88,9 +92,9 @@ Phases, one JSON line each:
               times: the race check with other streams in flight), fps
               per width, the card's busy ms and stream concurrency of
               the waves (profiler); full1080 (DMVR) refused; the
-              band-split deblock (the kernel on each band), SAO and ALF
-              (parallel/spatial.py) at 1920x1088 in 4 bands equal to the
-              whole-plane ops, with card ms; tools/decode.py on an MP4 of
+              band-split deblock and ALF luma (the kernels on each band)
+              and SAO (parallel/spatial.py) at 1920x1088 in 4 bands equal
+              to the whole-plane ops, with card ms; tools/decode.py on an MP4 of
               ra1080 made by the
               port's muxer, to the annex-B MD5s
 
@@ -118,13 +122,14 @@ CTU128 = "ctu128_1080"
 TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
 FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
             "gop720")
-KERNELS = ("inter_pred", "recon", "deblock")
+KERNELS = ("inter_pred", "recon", "deblock", "alf")
 # the kernels each fixture's path must launch (every fixture has deblock
-# on)
-PATH_KERNELS = {MAIN: KERNELS, "ra1080": KERNELS,
+# on; full1080, ctu128_1080 and gop720 have ALF on)
+NO_ALF = KERNELS[:3]
+PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF,
                 "ai720": ("recon", "deblock"),
                 "ai256x128_10b": ("recon", "deblock"), CTU128: KERNELS,
-                "ciip64": KERNELS, "gop720": KERNELS}
+                "ciip64": NO_ALF, "gop720": KERNELS}
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
 GOP_WIDTHS = (1, 2, 4)
@@ -151,9 +156,10 @@ def _read(name):
 
 def _counts():
   """The launch and plain-run counters of every kernel wrapper."""
-  from ffmpeg_tpu_torch.ops import deblock, inter, recon
+  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon
 
-  return {"inter_pred": inter, "recon": recon, "deblock": deblock}
+  return {"inter_pred": inter, "recon": recon, "deblock": deblock,
+          "alf": alf}
 
 
 def _zero_counts():
@@ -183,7 +189,7 @@ def phase_device(torch):
 
 def phase_build():
   from ffmpeg_tpu_torch.models.vvc import host
-  from ffmpeg_tpu_torch.ops import deblock, inter, recon
+  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon
   from ffmpeg_tpu_torch.utils.build import BUILD_LOG
 
   errors = []
@@ -200,7 +206,8 @@ def phase_build():
   # one thread per library: each runs its own make / nvcc process
   threads = [threading.Thread(target=run, args=a) for a in (
       ("vvc_host", host._get_lib), ("recon", recon._get_kernel),
-      ("inter_pred", inter._get_kernel), ("deblock", deblock._get_kernel))]
+      ("inter_pred", inter._get_kernel), ("deblock", deblock._get_kernel),
+      ("alf", alf._get_kernel))]
   t0 = time.perf_counter()
   for t in threads:
     t.start()
@@ -334,6 +341,16 @@ def _bytes_moved(name, kw):
   if name == "deblock":   # each plane in and out, each pass's grids in
     return sum(p.numel() * 4 * 2 for p in kw["planes"]) + sum(
         t.numel() * 4 for g in kw["grids_v"] + kw["grids_h"] for t in g)
+  if name == "alf":
+    # each padded plane in and out (the padding is copied), for chroma
+    # the picture's pre-ALF luma in, the CTB grid and the tables the call
+    # reads
+    a = kw["alf"]
+    b = sum(p.numel() * 4 * 2 for p in kw["planes"]) + a["ctb"].numel()
+    tabs = ("chroma_coeff", "chroma_clipv", "cc_coeff") if kw["chroma"] \
+        else ("banks_coeff", "banks_clipv")
+    b += sum(a[k].numel() * 2 for k in tabs)
+    return b + (kw["H"] * kw["W"] * 4 if kw["chroma"] else 0)
   inter = kw["inter"]
   toff = inter["toff_host"]
   if name == "inter_pred":
@@ -448,9 +465,19 @@ def _ops(name, kw):
   deblock: per segment with bs > 0 of each pass its decision (about 150
   operations for luma, 60 for chroma) and per line its filter (at most
   about 120: the large filter's 7 taps a side; chroma 40); per segment
-  with bs 0, 4 (the load and the test)."""
+  with bs 0, 4 (the load and the test).
+  alf: per luma sample of the picture its share of the classification
+  (about 14: a quarter of a gradient position's 30, the 4x4 window sums
+  and the class), per luma sample of a CTB with luma ALF on the 7x7
+  diamond (12 tap pairs of 2 differences, 2 clips, an add, a multiply
+  and the sum: about 113 with the rounding and clip); per chroma sample
+  with its flag on the 5x5 diamond (about 60), with a CC-ALF index
+  above 0 the 7 taps (about 27); 1 per sample of each padded plane
+  (the select or copy)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
+  if name == "alf":
+    return _alf_ops(kw)
   if name == "deblock":
     lines, decide, per_line = (2, 60, 40) if kw["chroma"] else (4, 150, 120)
     total = 0
@@ -479,6 +506,27 @@ def _ops(name, kw):
   placed = int((inter["mat_host"][2, :n_in].astype("int64")
                 * inter["mat_host"][3, :n_in]).sum())
   return nch * (int((w * h).sum()) * 36 + n * L * 8 + 3 * placed)
+
+
+def _alf_ops(kw):
+  """_ops for an alf call, counted from its tree: the picture samples of
+  each CTB whose flag (or CC-ALF index) turns a filter on."""
+  import numpy as np
+
+  g = kw["alf"]["ctb"].cpu().numpy().astype(np.int64)
+  H, W, lg = kw["H"], kw["W"], kw["ctb_log2"]
+  ss = 1 if kw["chroma"] else 0
+  ctb = 1 << (lg - ss)
+  hs = np.clip((H >> ss) - np.arange(g.shape[0]) * ctb, 0, ctb)
+  ws = np.clip((W >> ss) - np.arange(g.shape[1]) * ctb, 0, ctb)
+  area = hs[:, None] * ws[None, :]          # samples of each CTB
+  total = sum(p.numel() for p in kw["planes"])
+  if not ss:
+    return total + 14 * H * W + 113 * int(area[g[..., 0] > 0].sum())
+  for c in (1, 2):
+    total += 60 * int(area[g[..., 2 * c] > 0].sum())
+    total += 27 * int(area[g[..., 5 + c] > 0].sum())
+  return total
 
 
 def _levels(calls):
@@ -547,9 +595,10 @@ def _check_deblock_passes(fixture, label, kw, out, torch):
 
 
 def phase_kernels(torch):
-  """Both kernels against their plain versions on the B frames of full1080
-  (with DMVR, LMCS and ALF) and ra1080 with their real references; the
-  recon kernel on frame 0 of the intra fixtures.  Returns the worst error
+  """Every kernel against its plain version on the B frames of full1080
+  (with DMVR, LMCS and ALF) and ra1080 with their real references, and
+  on the coding-tool frames; recon and deblock on frame 0 of the intra
+  fixtures.  Returns the worst error
   per kernel and each fixture's checked calls."""
   out = {"phase": "kernels", "tolerance": 0, "cases": [], "frames": {}}
   calls, records = {}, {}
@@ -625,15 +674,25 @@ def _decode_md5s(name, torch):
 
 def phase_decode(torch):
   """Each fixture is its own path: the counts are zeroed just before its
-  decode and read just after.  Returns the launches of each path."""
+  decode and read just after; the decode is traced, so that its alf
+  spans count the frames with ALF on.  Returns the launches of each
+  path."""
+  from ffmpeg_tpu_torch.utils import trace
+
   res = {"phase": "decode", "fixtures": {}}
   launches = {}
   for name in FIXTURES:
     with open(os.path.join(TESTDATA, f"{name}.md5.json")) as f:
       want = json.load(f)["md5"]
     torch.cuda.reset_peak_memory_stats()
+    trace.reset()
+    trace.enable(True)
     _zero_counts()
-    got = _decode_md5s(name, torch)
+    try:
+      got = _decode_md5s(name, torch)
+    finally:
+      trace.enable(False)
+    alf_frames = trace.summary().get("alf", {}).get("n", 0)
     counts = _counts()
     launches[name] = {k: m.LAUNCHES[k] for k, m in counts.items()}
     launches[name]["inter_pred_by_class"] = dict(
@@ -644,6 +703,9 @@ def phase_decode(torch):
         "frames": len(got), "md5_equal": got == want,
         "launches": launches[name], "plain_runs": plain,
         "deblock_launches_per_frame": launches[name]["deblock"] / len(got),
+        "alf_frames": alf_frames,
+        "alf_launches_per_alf_frame":
+            launches[name]["alf"] / max(alf_frames, 1),
         "peak_device_bytes": torch.cuda.max_memory_allocated()}
     if got != want:
       emit(res)
@@ -659,6 +721,12 @@ def phase_decode(torch):
       emit(res)
       fail("decode", f"{name}: the deblock kernel was not launched twice a "
            "frame (luma; Cb and Cr)")
+    if launches[name]["alf"] != 2 * alf_frames or \
+        bool(alf_frames) != ("alf" in PATH_KERNELS[name]):
+      emit(res)
+      fail("decode", f"{name}: the alf kernel was launched "
+           f"{launches[name]['alf']} times for {alf_frames} frames with ALF "
+           "on, not twice each (luma; Cb and Cr)")
   emit(res)
   return launches
 
@@ -721,8 +789,8 @@ def _fps(name, torch, traced=False, host_threads=None):
 
 
 def _op_device_ms(name, torch):
-  """Device ms of the LMCS, ALF and DMVR torch ops over a decode of a
-  fixture: each call of pipeline.alf_pass, lmcs_inv, lmcs_vpdu_scales and
+  """Device ms of the LMCS and DMVR torch ops over a decode of a fixture:
+  each call of pipeline.lmcs_inv, lmcs_vpdu_scales and
   ops/dmvr.refine_subblocks is queued behind a held card and bracketed by
   CUDA events, so the events time the card's work, not the host's
   launches.  Returns per op its calls, ms per call and ms per frame."""
@@ -745,7 +813,7 @@ def _op_device_ms(name, torch):
       return out
     return run
 
-  patches = [(pipeline, "alf_pass", "alf"), (pipeline, "lmcs_inv", "lmcs_inv"),
+  patches = [(pipeline, "lmcs_inv", "lmcs_inv"),
              (pipeline, "lmcs_vpdu_scales", "lmcs_chroma_scales"),
              (dmvr, "refine_subblocks", "dmvr_search")]
   saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -860,30 +928,32 @@ def _time_inter(kw, torch, reps, rounds):
           "calls_unequal": sum(r[3] for r in runs)}
 
 
-def _deblock_runs(kw, want, torch, reps):
-  """reps calls of the deblock wrapper on one call's inputs, queued behind
-  _hold_card and timed with CUDA events: the launch is the whole call
-  (the output is a fresh tensor, no copy).  Every output is held against
-  `want`, the plain version's: the shared-memory atomics' order differs
-  between launches.  Returns (ms per call, calls that differ)."""
+def _whole_call_runs(name, kw, want, torch, reps):
+  """reps calls of the deblock or alf wrapper on one call's inputs, queued
+  behind _hold_card and timed with CUDA events: the launch is the whole
+  call (the output is a fresh tensor, no copy).  Every output is held
+  against `want`, the plain version's (deblock's shared-memory atomics'
+  order differs between launches).  Returns (ms per call, calls that
+  differ)."""
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   outs = []
   _hold_card(torch)
   start.record()
   for _ in range(reps):
-    outs.append(_kernel("deblock", kw))
+    outs.append(_kernel(name, kw))
   end.record()
   torch.cuda.synchronize()
   return (start.elapsed_time(end) / reps,
           sum(not torch.equal(o, want) for o in outs))
 
 
-def _time_deblock(kw, torch, reps, rounds):
-  """One deblock call: ms per call (mean of `rounds` rounds of `reps`
-  calls), and the calls that differ from the plain version."""
-  want = _plain("deblock", kw)
-  runs = [_deblock_runs(kw, want, torch, reps) for _ in range(rounds)]
+def _time_whole_call(name, kw, torch, reps, rounds):
+  """One deblock or alf call: ms per call (mean of `rounds` rounds of
+  `reps` calls), and the calls that differ from the plain version."""
+  want = _plain(name, kw)
+  runs = [_whole_call_runs(name, kw, want, torch, reps)
+          for _ in range(rounds)]
   return {"ms": sum(r[0] for r in runs) / rounds,
           "calls_checked": reps * rounds,
           "calls_unequal": sum(r[1] for r in runs)}
@@ -893,8 +963,8 @@ def _time_call(name, label, kw, levels, torch, reps, rounds):
   """One kernel call timed by its kernel's own helper."""
   if name == "recon":
     return _time_recon(kw, levels[label], torch, reps, rounds)
-  if name == "deblock":
-    return _time_deblock(kw, torch, reps, rounds)
+  if name in ("deblock", "alf"):
+    return _time_whole_call(name, kw, torch, reps, rounds)
   return _time_inter(kw, torch, reps, rounds)
 
 
@@ -915,7 +985,7 @@ def _time_recon(kw, levels, torch, reps, rounds):
 
 def phase_timing(torch, card, calls, levels):
   """fps of full1080 (with traced stages) and ai720, and the device ms of
-  the LMCS, ALF and DMVR ops on full1080; then each kernel against its
+  the LMCS and DMVR ops on full1080; then each kernel against its
   plain version on the full1080 B frame's calls, in turns
   (plain, kernel, kernel, plain; recon's kernel launches each checked
   against the plain version), and the recon kernel alone on ai720's
@@ -937,16 +1007,19 @@ def phase_timing(torch, card, calls, levels):
         + f" ({os.cpu_count()} CPUs)", flush=True)
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
-  deblock = {}
+  deblock, alf = {}, {}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
     r = _time_call(name, label, kw, levels[MAIN], torch, 20, 2)
-    {"recon": recon[MAIN], "deblock": deblock}.get(name, inter)[label] = r
+    {"recon": recon[MAIN], "deblock": deblock,
+     "alf": alf}.get(name, inter)[label] = r
     kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
-  print(f"chip_smoke: timing {MAIN} deblock ms per launch: " + ", ".join(
-      f"{label} {r['ms']}" for label, r in deblock.items()), flush=True)
+  for name, rr in (("deblock", deblock), ("alf", alf)):
+    print(f"chip_smoke: timing {MAIN} {name} ms per launch: " + ", ".join(
+        f"{label} {r['ms']} (plain {plain[f'{name}/{label}']})"
+        for label, r in rr.items()), flush=True)
   for name, label, kw in calls["ai720"]:
     if name == "recon":
       recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
@@ -965,11 +1038,13 @@ def phase_timing(torch, card, calls, levels):
         f"recon {label} {r['ms']} ms ({r['levels']} levels, "
         f"{r['us_per_level']} us per level)"
         for label, r in t["recon"].items()) + "".join(
-        f", {name} {label} {r['ms']} ms" for name in ("inter_pred", "deblock")
+        f", {name} {label} {r['ms']} ms"
+        for name in ("inter_pred", "deblock", "alf")
         for label, r in t[name].items()), flush=True)
   out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
+  out["alf"] = alf
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
@@ -977,18 +1052,19 @@ def phase_timing(torch, card, calls, levels):
   bad = {f"recon {f} {label}": r["launches_unequal"]
          for f, rr in recon.items() for label, r in rr.items()
          if r["launches_unequal"]}
-  for name, rr in (("inter_pred", inter), ("deblock", deblock)):
+  for name, rr in (("inter_pred", inter), ("deblock", deblock),
+                   ("alf", alf)):
     bad.update({f"{name} {label}": r["calls_unequal"]
                 for label, r in rr.items() if r["calls_unequal"]})
   for key, t in tools.items():
     bad.update({f"recon {key} {label}": r["launches_unequal"]
                 for label, r in t["recon"].items() if r["launches_unequal"]})
-    for name in ("inter_pred", "deblock"):
+    for name in ("inter_pred", "deblock", "alf"):
       bad.update({f"{name} {key} {label}": r["calls_unequal"]
                   for label, r in t[name].items() if r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
-  return kern, plain, recon, inter, deblock, tools
+  return kern, plain, recon, inter, deblock, alf, tools
 
 
 def _union_us(work):
@@ -1120,12 +1196,12 @@ def _tiled_filters(torch):
   T = 4 row bands on cuda:0, each equal to the whole-plane op on the same
   seeded inputs (tolerance 0): deblock's luma vertical pass (the deblock
   kernel on the whole plane, and once on each band), SAO and ALF luma
-  (classify + filter); the card ms of each, whole and split (CUDA
+  (the alf kernel on the whole plane, there equal to its plain version,
+  and once on each band); the card ms of each, whole and split (CUDA
   events, mean of 5 calls queued behind a held card)."""
   import numpy as np
 
-  from ffmpeg_tpu_torch.ops.alf import (TRANSPOSE_IDX, alf_classify,
-                                        alf_filter_luma)
+  from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock
   from ffmpeg_tpu_torch.ops.sao import sao_plane
   from ffmpeg_tpu_torch.parallel import spatial
@@ -1158,18 +1234,18 @@ def _tiled_filters(torch):
   flag = t(rng.integers(0, 2, (nby, cbw), dtype=np.int32))
   bco = t(rng.integers(-32, 33, (16, 25, 12), dtype=np.int32))
   bcl = t(rng.choice([256, 32, 8, 2], (16, 25, 12)).astype(np.int32))
-  tidx = t(TRANSPOSE_IDX).long()
+  tree = {"ctb": torch.stack([flag, bank] + [torch.zeros_like(flag)] * 6,
+                             -1).to(torch.int8).contiguous(),
+          "banks_coeff": bco.to(torch.int16),
+          "banks_clipv": bcl.to(torch.int16)}
 
   def alf_whole():
-    cls, tr = alf_classify(ly0, ctb, bd)
-    cb_y = (torch.arange(H // 4, device="cuda:0") * 4) // ctb
-    cb_x = (torch.arange(Wp // 4, device="cuda:0") * 4) // ctb
-    bank44 = bank[cb_y[:, None], cb_x[None, :]].long()
-    flag44 = flag[cb_y[:, None], cb_x[None, :]]
-    perm = tidx[tr.long()]
-    c12 = torch.gather(bco[bank44, cls.long()], -1, perm)
-    k12 = torch.gather(bcl[bank44, cls.long()], -1, perm)
-    return alf_filter_luma(ly0, c12, k12, ctb, flag44 > 0, bd)
+    return A.alf_planes([ly0], tree, chroma=False, W=Wp, H=H, ctb_log2=6,
+                        bit_depth=bd)[0]
+
+  def alf_plain():
+    return A.alf_planes_plain([ly0], tree, chroma=False, W=Wp, H=H,
+                              ctb_log2=6, bit_depth=bd)[0]
 
   ops = {
       "deblock_luma_vertical": (
@@ -1190,18 +1266,26 @@ def _tiled_filters(torch):
   res = {}
   for name, (whole, tiled) in ops.items():
     want = whole()
-    n = deblock.LAUNCHES["deblock"]
+    kernel = {"deblock_luma_vertical": (deblock, "deblock"),
+              "alf_luma": (A, "alf")}.get(name)
+    n = kernel[0].LAUNCHES[kernel[1]] if kernel else 0
     equal = torch.equal(want, tiled())
-    n = deblock.LAUNCHES["deblock"] - n
+    if kernel:
+      n = kernel[0].LAUNCHES[kernel[1]] - n
     res[name] = {"equal": equal, "whole_ms": _events_ms(whole, torch, 5),
                  "tiled_ms": _events_ms(tiled, torch, 5)}
     if not equal:
       fail("parallel", f"tiled {name} != the whole-plane op")
-    if name.startswith("deblock"):
+    if name == "alf_luma":
+      res[name]["whole_equals_plain"] = torch.equal(want, alf_plain())
+      if not res[name]["whole_equals_plain"]:
+        fail("parallel", "the alf kernel on the whole 1080p plane != its "
+             "plain version")
+    if kernel:
       res[name]["band_launches"] = n
       if n != 4:
-        fail("parallel", f"the band-split deblock launched the kernel {n} "
-             "times, not once per band")
+        fail("parallel", f"the band-split {kernel[1]} launched the kernel "
+             f"{n} times, not once per band")
   return {"shape": [Hp, Wp], "bands": 4, "ctb": ctb, "tolerance": 0,
           "ops": res}
 
@@ -1268,7 +1352,7 @@ def phase_parallel(torch, card):
                               "launches": launches[key],
                               "plain_runs": plain}
       if got != want or any(plain.values()) or not all(
-          launches[key][k] > 0 for k in KERNELS):
+          launches[key][k] > 0 for k in PATH_KERNELS[name]):
         emit(out)
         fail("parallel", f"{key}: MD5s equal {got == want}, launches "
              f"{launches[key]}, plain runs {plain}")
@@ -1339,6 +1423,11 @@ KERNEL_INFO = {
                    "over _inter_pred_unit; XLA, not Pallas)"),
     "recon": ("ffmpeg_tpu_torch/csrc/recon.cu",
               "ffmpeg_tpu/ops/recon_pallas.py:734"),
+    "alf": ("ffmpeg_tpu_torch/csrc/alf.cu",
+            "ffmpeg_tpu/ops/alf.py:91,169,202,241 (alf_classify, "
+            "alf_filter_luma, alf_filter_chroma, alf_filter_cc, composed "
+            "by _alf_pass at ffmpeg_tpu/models/vvc/pipeline.py:1211; XLA, "
+            "not Pallas)"),
     "deblock": ("ffmpeg_tpu_torch/csrc/deblock.cu",
                 "ffmpeg_tpu/ops/deblock.py:67,300 (deblock_vertical_luma, "
                 "deblock_vertical_chroma, run by loopfilters at "
@@ -1358,8 +1447,8 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon, inter, deblock, tools = phase_timing(torch, card,
-                                                           calls, levels)
+  kern, plain, recon, inter, deblock, alf, tools = phase_timing(
+      torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
   paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
@@ -1384,9 +1473,9 @@ def main() -> int:
           for label, r in recon[MAIN].items()}
       rows[-1]["launches_by_edge"] = {
           f: launches[f]["recon_by_edge"] for f in FIXTURES}
-    elif name == "deblock":
-      rows[-1]["split_ms"] = {label: {"ms": r["ms"]}
-                              for label, r in deblock.items()}
+    elif name in ("deblock", "alf"):
+      rows[-1]["split_ms"] = {label: {"ms": r["ms"]} for label, r in
+                              {"deblock": deblock, "alf": alf}[name].items()}
     else:
       rows[-1]["launches_by_class"] = {
           f: launches[f]["inter_pred_by_class"] for f in FIXTURES}

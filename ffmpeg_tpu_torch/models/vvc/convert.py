@@ -2,8 +2,9 @@
 
 `inputs_from_numpy` takes a frame's host-input dict as
 `inputs.build_host_inputs` returns it and moves it to `device` as
-int32 tensors.  Counts the host loops need stay Python ints.  Each
-layout's control rows travel as one (len(KEYS), n) matrix whose rows
+int32 tensors (the ALF tree in its own int8 and int16 dtypes).  Counts
+the host loops need stay Python ints.  Each layout's control rows
+travel as one (len(KEYS), n) matrix whose rows
 are exposed under their names, with a host copy kept for the checks
 and the chunk bounds (so do the MC batch's tile offsets and work
 lists, and the LMCS forward table, which the inter kernel takes in its
@@ -82,9 +83,14 @@ def inputs_from_numpy(inp: dict, device) -> dict:
                                         device)}
   if "cclm_vc" in inp:
     out["cclm_vc"] = int(inp["cclm_vc"])
-  for key in ("deblock", "sao", "alf", "sl"):
+  for key in ("deblock", "sao", "sl"):
     if key in inp:
       out[key] = {k: _t(v, device) for k, v in inp[key].items()}
+  if "alf" in inp:
+    # in its host dtypes (int8 CTB grid, int16 tables), as the ALF kernel
+    # reads them
+    out["alf"] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                  for k, v in inp["alf"].items()}
   if "lmcs" in inp:
     out["lmcs"] = _lmcs(inp["lmcs"], device)
   return out

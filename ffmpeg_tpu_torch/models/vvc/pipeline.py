@@ -13,8 +13,9 @@ form), stage by stage on one device:
   tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
                                          reconstructed luma)
   luma ──LMCS inverse──> edge grids ──deblock kernel──> V, then H (one
-       launch for luma, one for Cb+Cr) ──> SAO ──> ALF + CC-ALF ──> packed
-       bytes
+       launch for luma, one for Cb+Cr) ──> SAO ──ALF kernel──> luma
+       (classification + 7x7 diamond), then Cb+Cr (5x5 diamond + CC-ALF
+       from the pre-ALF luma) ──> packed bytes
 
 DMVR frames first run their refinement (ops/dmvr.py, `refine_dmvr`)
 against the DPB, which the session does in decode order.
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ...ops import intra as I
-from ...ops.alf import alf_pass
+from ...ops.alf import alf_planes, alf_planes_plain
 from ...ops.deblock import deblock_planes, deblock_planes_plain
 from ...ops.dmvr import refine_frame
 from ...ops.inter import inter_pred, inter_pred_plain_kind
@@ -52,7 +53,8 @@ def _sync_for(device):
 # takes the same arguments and returns the same result)
 KERNELS = {"inter_pred": (inter_pred, inter_pred_plain_kind),
            "recon": (recon_plane, recon_plane_plain_kind),
-           "deblock": (deblock_planes, deblock_planes_plain)}
+           "deblock": (deblock_planes, deblock_planes_plain),
+           "alf": (alf_planes, alf_planes_plain)}
 
 
 def _launch(name, label, kw):
@@ -85,7 +87,8 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
   of KERNELS, in order: inter_pred of luma then chroma (P/B frames),
   recon of luma then chroma, deblock of luma then chroma (frames with
-  deblock on).  The default runs the wrapper; a
+  deblock on), alf of luma then chroma (frames with ALF on; the chroma
+  call reads the pre-ALF luma).  The default runs the wrapper; a
   check passes its own to hold each call against the plain version.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits)}."""
@@ -182,9 +185,16 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
                               ctb=(1 << ctb_log2) >> ss, bit_depth=bd)
 
   if "alf" in inp:
+    # luma into a new plane, then Cb and Cr together, whose CC-ALF reads
+    # the pre-ALF luma (SAO's output)
+    geo = dict(alf=inp["alf"], W=W, H=H, ctb_log2=ctb_log2, bit_depth=bd)
     with trace.span("alf", sync):
-      planes = alf_pass(planes, inp["alf"], W=W, H=H, ctb_log2=ctb_log2,
-                        bit_depth=bd, mono=mono)
+      pre = planes[0]
+      planes[0] = call("alf", "luma", dict(planes=[pre], chroma=False,
+                                           **geo))[0]
+      if not mono:
+        planes[1], planes[2] = call("alf", "chroma", dict(
+            planes=planes[1:3], chroma=True, luma=pre, **geo))
 
   with trace.span("pack", sync):
     # the cropped planes in planar YCbCr order: the exact byte layout of

@@ -1,5 +1,5 @@
-"""Adaptive loop filter (ALF) and cross-component ALF as whole-plane
-int32 torch passes.
+"""Adaptive loop filter (ALF) and cross-component ALF: the ALF kernel
+and its plain versions.
 
 Port of the JAX package's ops/alf.py (spec 8.8.5; alf_classify,
 alf_filter_luma, alf_filter_chroma and alf_filter_cc of
@@ -10,14 +10,30 @@ handling: picture borders replicate (clamped indexing), and the
 horizontal virtual boundary 4 luma rows (2 chroma rows) above every CTU
 row boundary remaps the taps near it, the same in every CTU row band.
 
-All functions take exact picture-size (H, W) int32 planes.
+`alf_planes` is the frame program's entry point: a luma plane
+(classification and the 7x7 diamond), or the Cb and Cr planes together
+(the 5x5 diamond, then CC-ALF from the pre-ALF luma), each over the
+padded planes with the frame's ALF tree.  A CUDA tensor launches the
+kernel (csrc/alf.cu: one launch per call, TILE x TILE tiles with their
+halo in shared memory, each sample written once); a CPU tensor runs the
+plain version, `alf_planes_plain`, composed of the whole-plane passes
+below (the ports of the JAX functions, and the kernel's oracle), which
+take exact picture-size (H, W) int32 planes.
 """
 from __future__ import annotations
+
+import ctypes
+import os
 
 import numpy as np
 import torch
 
 _I32 = torch.int32
+
+# launches of the CUDA kernel, and runs of the plain version: plain
+# integer counters a caller may reset to 0 and read back
+LAUNCHES = {"alf": 0}
+PLAIN_RUNS = {"alf": 0}
 
 # transpose_idx -> coefficient position permutation (alf_recon_coeff)
 TRANSPOSE_IDX = np.array([
@@ -224,35 +240,125 @@ def alf_filter_cc(chroma, luma_pre_alf, coeff, ctb: int, on,
   return torch.where(on, out, chroma)
 
 
-def alf_pass(planes, a: dict, *, W: int, H: int, ctb_log2: int,
-             bit_depth: int, mono: bool = False):
-  """deblock -> SAO -> ALF: the last in-loop stage over the padded
-  planes (the frame program's `_alf_pass`).  a: the frame's converted
-  ALF tree (inputs._alf_inputs): per-CTB flags and filter indices `ctb`
-  (cbh, cbw, 8), the luma banks, the chroma alternatives and the CC-ALF
-  coefficients.  Returns the filtered planes."""
+# ----------------------------------------------------------------------
+# the entry point, its plain version, and the CUDA kernel (csrc/alf.cu),
+# built with nvcc at first use and bound with ctypes
+# ----------------------------------------------------------------------
+
+# The kernel's tiles: a thread block owns TILE x TILE output samples of
+# one plane (csrc/alf.cu gets it at build time) and reads them with a
+# clamped halo of 3 luma or 2 chroma samples, beside the collocated luma.
+TILE = 32
+
+
+def _check(planes, a, chroma, W, H, ctb_log2, bit_depth, luma):
+  """Shapes and types the kernel takes, on every device: one luma or two
+  chroma (Hp, Wp) int32 contiguous planes of one shape and device (and
+  for chroma the pre-ALF luma plane), the ALF tree in its host dtypes
+  (inputs._alf_inputs: an int8 (cbh, cbw, 8) CTB grid that covers the
+  picture, int16 tables), a picture of whole 4x4 luma blocks inside the
+  planes, CTB 32 to 128, 8 to 12 bits."""
+  def bad(msg):
+    raise ValueError(f"alf: {msg}")
+
+  if len(planes) != (2 if chroma else 1):
+    bad(f"{len(planes)} planes for a {'chroma' if chroma else 'luma'} call")
+  if chroma != (luma is not None):
+    bad("the pre-ALF luma goes with a chroma call, and only there")
+  Hp, Wp = planes[0].shape
+  dev = planes[0].device
+  ss = 1 if chroma else 0
+  for t in list(planes) + ([luma] if chroma else []):
+    if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous() \
+        or t.device != dev or (t is not luma and t.shape != (Hp, Wp)):
+      bad(f"expected contiguous int32 ({Hp}, {Wp}) planes on {dev}, got "
+          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+  if H % 4 or W % 4 or H < 8 or W < 8 or (H >> ss) > Hp or (W >> ss) > Wp \
+      or (chroma and (H > luma.shape[0] or W > luma.shape[1])):
+    bad(f"a {H}x{W} picture does not fit the planes in whole 4x4 blocks")
+  if not 5 <= ctb_log2 <= 7 or not 8 <= bit_depth <= 12:
+    bad(f"CTB 2^{ctb_log2} or {bit_depth} bits not taken")
+  g = a["ctb"]
+  if g.dtype != torch.int8 or g.dim() != 3 or g.shape[2] != 8 \
+      or not g.is_contiguous() or g.device != dev \
+      or g.shape[0] << ctb_log2 < H or g.shape[1] << ctb_log2 < W:
+    bad(f"the CTB grid {g.dtype} {tuple(g.shape)} does not cover {H}x{W}")
+  if chroma:
+    tables = {"chroma_coeff": (8, 6), "chroma_clipv": (8, 6),
+              "cc_coeff": (2, 5, 7)}
+  else:
+    nb = max(1, a["banks_coeff"].shape[0])  # at least one bank
+    tables = {"banks_coeff": (nb, 25, 12), "banks_clipv": (nb, 25, 12)}
+  for k, shape in tables.items():
+    t = a[k]
+    if t.dtype != torch.int16 or not t.is_contiguous() or t.device != dev \
+        or tuple(t.shape) != shape:
+      bad(f"{k}: expected contiguous int16 {shape} on {dev}, got "
+          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def alf_planes(planes, alf, *, chroma: bool, W: int, H: int, ctb_log2: int,
+               bit_depth: int, luma=None):
+  """ALF over the padded planes of one frame: deblock -> SAO -> ALF, the
+  last in-loop stage (the frame program's `_alf_pass`, one call per
+  component kind).
+
+  planes: [luma], or [Cb, Cr], (Hp, Wp) int32 contiguous padded planes.
+  alf: the frame's converted ALF tree (inputs._alf_inputs, in its host
+  dtypes): per-CTB values `ctb` (cbh, cbw, 8) int8 (the luma flag and
+  bank, the Cb and Cr flags and alternatives, the two CC-ALF indices),
+  the luma banks `banks_coeff` / `banks_clipv` (B, 25, 12) int16, the
+  chroma alternatives (8, 6) int16 and the CC-ALF coefficients (2, 5, 7)
+  int16.  W, H: the cropped luma picture.  luma: for a chroma call, the
+  pre-ALF padded luma plane that CC-ALF reads.
+  Returns the filtered planes, (nch, Hp, Wp) int32, a new tensor: the
+  picture filtered, the padding copied.  A CUDA tensor launches the
+  kernel; a CPU tensor runs the plain version; nothing falls back from
+  one to the other."""
+  _check(planes, alf, chroma, W, H, ctb_log2, bit_depth, luma)
+  dev = planes[0].device
+  kw = dict(chroma=chroma, W=W, H=H, ctb_log2=ctb_log2, bit_depth=bit_depth,
+            luma=luma)
+  if dev.type == "cuda":
+    return _alf_cuda(planes, alf, **kw)
+  if dev.type != "cpu":
+    raise ValueError(f"alf: unsupported device {dev}")
+  return alf_planes_plain(planes, alf, **kw)
+
+
+def alf_planes_plain(planes, alf, *, chroma: bool, W: int, H: int,
+                     ctb_log2: int, bit_depth: int, luma=None):
+  """alf_planes's plain version, with its arguments and result: the
+  whole-plane passes on the cropped planes, the per-4x4 (luma) and
+  per-sample (chroma) coefficients gathered from the tree as the JAX
+  `_alf_pass` gathers them."""
+  PLAIN_RUNS["alf"] += 1
+  a = alf
   ctb_sz = 1 << ctb_log2
   dev = planes[0].device
-  ly0 = planes[0][:H, :W]
-  cls, tr = alf_classify(ly0, ctb_sz, bit_depth)
-  nby, nbx = H // 4, W // 4
-  cb_by = (_ar(nby, dev) * 4) >> ctb_log2
-  cb_bx = (_ar(nbx, dev) * 4) >> ctb_log2
-  ctb_blk = a["ctb"][cb_by[:, None], cb_bx[None, :]]          # (nby, nbx, 8)
-  bank = ctb_blk[..., 1].long()
-  perm = _const(TRANSPOSE_IDX, dev).long()[tr.long()]          # (nby, nbx, 12)
-  coeff12 = torch.gather(a["banks_coeff"][bank, cls.long()], -1, perm)
-  clip12 = torch.gather(a["banks_clipv"][bank, cls.long()], -1, perm)
-  out = [planes[0].clone()]
-  out[0][:H, :W] = alf_filter_luma(ly0, coeff12, clip12, ctb_sz,
-                                   ctb_blk[..., 0] > 0, bit_depth)
-  if mono:
-    return out
+  if not chroma:
+    ly0 = planes[0][:H, :W]
+    cls, tr = alf_classify(ly0, ctb_sz, bit_depth)
+    nby, nbx = H // 4, W // 4
+    cb_by = (_ar(nby, dev) * 4) >> ctb_log2
+    cb_bx = (_ar(nbx, dev) * 4) >> ctb_log2
+    ctb_blk = a["ctb"][cb_by[:, None], cb_bx[None, :]]      # (nby, nbx, 8)
+    # a bank past the tree's takes the nearest, as the JAX gather does
+    bank = ctb_blk[..., 1].long().clamp(0, a["banks_coeff"].shape[0] - 1)
+    perm = _const(TRANSPOSE_IDX, dev).long()[tr.long()]      # (nby, nbx, 12)
+    coeff12 = torch.gather(a["banks_coeff"][bank, cls.long()], -1, perm)
+    clip12 = torch.gather(a["banks_clipv"][bank, cls.long()], -1, perm)
+    out = planes[0].clone()
+    out[:H, :W] = alf_filter_luma(ly0, coeff12, clip12, ctb_sz,
+                                  ctb_blk[..., 0] > 0, bit_depth)
+    return out[None]
+  ly0 = luma[:H, :W]
   Hc, Wc = H >> 1, W >> 1
   yc = (_ar(Hc, dev) >> (ctb_log2 - 1))[:, None]
   xc = (_ar(Wc, dev) >> (ctb_log2 - 1))[None, :]
-  for c in (1, 2):
-    pc = planes[c][:Hc, :Wc]
+  out = []
+  for c, plane in zip((1, 2), planes):
+    pc = plane[:Hc, :Wc]
     alt = a["ctb"][..., 2 * c + 1][yc, xc]
     known = ((alt >= 0) & (alt < 8))[..., None]  # else zero coefficients
     alt = alt.long().clamp(0, 7)
@@ -264,7 +370,69 @@ def alf_pass(planes, a: dict, *, W: int, H: int, ctb_log2: int,
     cc7 = a["cc_coeff"][c - 1][idc.long().clamp(0, 4)]
     cc7 = torch.where(((idc >= 0) & (idc < 5))[..., None], cc7, 0)
     pc = alf_filter_cc(pc, ly0, cc7, ctb_sz, idc > 0, bit_depth)
-    o = planes[c].clone()
+    o = plane.clone()
     o[:Hc, :Wc] = pc
     out.append(o)
-  return out
+  return torch.stack(out)
+
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "alf.cu")
+_lib = None
+
+
+def _get_kernel():
+  global _lib
+  if _lib is None:
+    from ..utils.build import build_cuda
+
+    lib = ctypes.CDLL(build_cuda("alf", [_SRC],
+                                 defines=(("ALF_TILE", TILE),)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.alf_luma_launch.restype = ctypes.c_int
+    lib.alf_luma_launch.argtypes = [
+        p, p, i, i, i, i,   # src, dst, Hp, Wp, H, W
+        p, i, i,            # ctb grid, cbh, cbw
+        p, p, i,            # banks_coeff, banks_clipv, bank count
+        i, i, p]            # ctb_log2, bit_depth, stream
+    lib.alf_chroma_launch.restype = ctypes.c_int
+    lib.alf_chroma_launch.argtypes = [
+        p, p, i, i,         # src pointers (2,), dst, Hp, Wp
+        p, i, i, i, i,      # pre-ALF luma, its Hp, Wp; H, W (luma)
+        p, i, i,            # ctb grid, cbh, cbw
+        p, p, p,            # chroma_coeff, chroma_clipv, cc_coeff
+        i, i, p]            # ctb_log2, bit_depth, stream
+    lib.alf_error_string.restype = ctypes.c_char_p
+    lib.alf_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+  return _lib
+
+
+def _alf_cuda(planes, a, *, chroma, W, H, ctb_log2, bit_depth, luma):
+  """One launch on the planes' device's current stream into a new
+  (nch, Hp, Wp) tensor, which every thread block writes its tile of."""
+  Hp, Wp = planes[0].shape
+  dev = planes[0].device
+  lib = _get_kernel()
+  dst = torch.empty((len(planes), Hp, Wp), dtype=torch.int32, device=dev)
+  g = a["ctb"]
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if chroma:
+      rc = lib.alf_chroma_launch(
+          (ctypes.c_longlong * 2)(*(pl.data_ptr() for pl in planes)),
+          dst.data_ptr(), Hp, Wp, luma.data_ptr(), *luma.shape, H, W,
+          g.data_ptr(), g.shape[0], g.shape[1], a["chroma_coeff"].data_ptr(),
+          a["chroma_clipv"].data_ptr(), a["cc_coeff"].data_ptr(), ctb_log2,
+          bit_depth, stream)
+    else:
+      rc = lib.alf_luma_launch(
+          planes[0].data_ptr(), dst.data_ptr(), Hp, Wp, H, W, g.data_ptr(),
+          g.shape[0], g.shape[1], a["banks_coeff"].data_ptr(),
+          a["banks_clipv"].data_ptr(), a["banks_coeff"].shape[0], ctb_log2,
+          bit_depth, stream)
+  if rc != 0:
+    raise RuntimeError("alf kernel launch failed: "
+                       f"{lib.alf_error_string(rc).decode()}")
+  LAUNCHES["alf"] += 1
+  return dst

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
-from ..ops.alf import TRANSPOSE_IDX, alf_classify, alf_filter_luma
+from ..ops.alf import alf_planes
 from ..ops.deblock import deblock_pass
 from ..ops.sao import sao_rows
 
@@ -77,13 +77,15 @@ def deblock_vertical_tiled(plane, bs, qp, maxp, maxq, hor_ctu_edge, *,
 def alf_luma_tiled(ly0, ctb_bank, ctb_flag, banks_coeff, banks_clipv,
                    *, ctb: int, bit_depth: int, mesh, axis: str = "tile"):
   """Bit-exact ALF luma (classify + 7x7 clipped filter), split into
-  CTB-row bands over `axis` with a one-CTB-row halo.
+  CTB-row bands over `axis` with a one-CTB-row halo, each extended band
+  through alf_planes on its own device (the ALF kernel on a card).
 
   The ALF virtual boundary already confines most row taps to the CTU
   row, but classification windows and the first rows of a CTU still
   read a few rows across the boundary: a full CTB-row halo
   (edge-replicated at the ring ends, matching the global clamp) keeps
-  y % ctb congruent and covers every tap.
+  y % ctb congruent and covers every tap.  Only the band's own rows of
+  each result are kept.
 
   ly0: (H, W) int32 cropped luma; ctb_bank/ctb_flag: (nby, nbx) per-CTB
   filter-bank index / on flag; banks_coeff/banks_clipv: (B, 25, 12).
@@ -97,6 +99,9 @@ def alf_luma_tiled(ly0, ctb_bank, ctb_flag, banks_coeff, banks_clipv,
   pad = cb_per * T - ctb_bank.shape[0]
   bank = _bands(_pad_rows(ctb_bank, pad), cb_per, devs)
   flag = _bands(_pad_rows(ctb_flag, pad), cb_per, devs)  # padding: off
+  # halo CTB rows take the band's first and last (their outputs are
+  # discarded)
+  rows = (torch.arange(cb_per + 2) - 1).clamp(0, cb_per - 1)
   out = []
   for k, dev in enumerate(devs):
     b = pl[k]
@@ -105,21 +110,17 @@ def alf_luma_tiled(ly0, ctb_bank, ctb_flag, banks_coeff, banks_clipv,
     up = pl[k - 1][-ctb:].to(dev) if k else b[:1].expand(ctb, W)
     dn = pl[k + 1][:ctb].to(dev) if k < T - 1 else b[-1:].expand(ctb, W)
     ext = torch.cat([up, b, dn])
-    cls, tr = alf_classify(ext, ctb, bit_depth)
-    nby_l, nbx_l = ext.shape[0] // 4, ext.shape[1] // 4
-    # per-4x4 bank from the CTB grid (halo rows use clamped CTB rows;
-    # their outputs are discarded)
-    cb_by = ((torch.arange(nby_l, device=dev) * 4) // ctb - 1).clamp(
-        0, cb_per - 1)
-    cb_bx = (torch.arange(nbx_l, device=dev) * 4) // ctb
-    bank44 = bank[k][cb_by[:, None], cb_bx[None, :]].long()
-    flag44 = flag[k][cb_by[:, None], cb_bx[None, :]]
-    cls = cls.long()
-    perm = torch.as_tensor(TRANSPOSE_IDX, device=dev)[tr.long()].long()
-    coeff12 = torch.gather(banks_coeff.to(dev)[bank44, cls], -1, perm)
-    clip12 = torch.gather(banks_clipv.to(dev)[bank44, cls], -1, perm)
-    filt = alf_filter_luma(ext, coeff12, clip12, ctb, flag44 > 0, bit_depth)
-    out.append(filt[ctb:ctb + rows_per])
+    # the extended band's ALF tree: per CTB the luma flag and bank
+    grid = torch.zeros((cb_per + 2, ctb_bank.shape[1], 8), dtype=torch.int8,
+                       device=dev)
+    grid[..., 0] = flag[k][rows.to(dev)]
+    grid[..., 1] = bank[k][rows.to(dev)]
+    a = {"ctb": grid,
+         "banks_coeff": banks_coeff.to(dev, torch.int16).contiguous(),
+         "banks_clipv": banks_clipv.to(dev, torch.int16).contiguous()}
+    filt = alf_planes([ext], a, chroma=False, W=W, H=ext.shape[0],
+                      ctb_log2=ctb.bit_length() - 1, bit_depth=bit_depth)
+    out.append(filt[0, ctb:ctb + rows_per])
   return _gather(out, ly0.device, H)
 
 

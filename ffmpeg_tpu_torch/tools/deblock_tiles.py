@@ -9,7 +9,8 @@ csrc/deblock.cu with it (ops/deblock.py TILE, the halos unchanged) and
 times each call with CUDA events (reps launches queued behind a held
 card, in the order of --tiles and then reversed), each output held
 against the plain version.  Prints one JSON line per tile edge, with
-the card's name and power limit.  Needs a CUDA card.
+the card's name and power limit.  Needs a CUDA card.  The same sweep
+times csrc/alf.cu (main(kernel="alf"), tools/alf_tiles.py).
 """
 from __future__ import annotations
 
@@ -23,20 +24,26 @@ import torch
 
 from ..models.vvc.decoder import VVCDecoder
 from ..models.vvc.pipeline import KERNELS, walk_frames
+from ..ops import alf as A
 from ..ops import deblock as D
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "testdata")
+# per kernel: its module (TILE, _lib, _get_kernel), its entry point, its
+# plain version and the tile edges swept by default
+SWEEPS = {"deblock": (D, D.deblock_planes, D.deblock_planes_plain,
+                      [32, 48, 64]),
+          "alf": (A, A.alf_planes, A.alf_planes_plain, [16, 32, 48, 64])}
 
 
-def b_frame_calls(path):
-  """The deblock calls of the stream's first B frame: [(label, kwargs)]."""
+def b_frame_calls(path, kernel="deblock"):
+  """The `kernel` calls of the stream's first B frame: [(label, kwargs)]."""
   with open(path, "rb") as f:
     aus = VVCDecoder(device="cuda")._split_aus(f.read())
   calls = []
 
   def record(name, label, kw):
-    if name == "deblock":
+    if name == kernel:
       calls.append((label, kw))
     return KERNELS[name][0](**kw)
 
@@ -47,46 +54,47 @@ def b_frame_calls(path):
   raise RuntimeError(f"{path}: no B frame")
 
 
-def time_call(kw, want, reps):
-  """ms per launch (after one untimed launch: the first loads the
+def time_call(kw, want, reps, fn):
+  """ms per launch of fn (after one untimed launch: the first loads the
   module) and the launches unequal to `want`."""
-  D.deblock_planes(**kw)
+  fn(**kw)
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   torch.cuda.synchronize()
   torch.cuda._sleep(100_000_000)  # hold the card: time launches, not Python
   start.record()
-  outs = [D.deblock_planes(**kw) for _ in range(reps)]
+  outs = [fn(**kw) for _ in range(reps)]
   end.record()
   torch.cuda.synchronize()
   return (start.elapsed_time(end) / reps,
           sum(not torch.equal(o, want) for o in outs))
 
 
-def main(argv=None) -> int:
+def main(argv=None, kernel="deblock") -> int:
+  mod, fn, plain, tiles = SWEEPS[kernel]
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-  ap.add_argument("--tiles", type=int, nargs="+", default=[32, 48, 64])
+  ap.add_argument("--tiles", type=int, nargs="+", default=tiles)
   ap.add_argument("--stream", default=os.path.join(TESTDATA, "full1080.vvc"))
   ap.add_argument("--reps", type=int, default=20)
   a = ap.parse_args(argv)
   if not torch.cuda.is_available():
-    print("deblock_tiles: needs a CUDA card", file=sys.stderr)
+    print(f"{kernel}_tiles: needs a CUDA card", file=sys.stderr)
     return 1
   card = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True).stdout.strip().splitlines()[0]
-  calls = b_frame_calls(a.stream)
-  want = [D.deblock_planes_plain(**kw) for _, kw in calls]
-  default = D.TILE
+  calls = b_frame_calls(a.stream, kernel)
+  want = [plain(**kw) for _, kw in calls]
+  default = mod.TILE
   try:
     for tile in a.tiles + a.tiles[::-1]:
-      D.TILE, D._lib = tile, None
-      D._get_kernel()
+      mod.TILE, mod._lib = tile, None
+      mod._get_kernel()
       ms = {}
       for (label, kw), w in zip(calls, want):
-        t, unequal = time_call(kw, w, a.reps)
+        t, unequal = time_call(kw, w, a.reps, fn)
         if unequal:
-          print(f"deblock_tiles: tile {tile} {label}: {unequal} launches "
+          print(f"{kernel}_tiles: tile {tile} {label}: {unequal} launches "
                 "differ from the plain version", file=sys.stderr)
           return 1
         ms[label] = t
@@ -94,7 +102,7 @@ def main(argv=None) -> int:
                         "card": card, "stream": os.path.basename(a.stream),
                         "reps": a.reps}), flush=True)
   finally:
-    D.TILE, D._lib = default, None
+    mod.TILE, mod._lib = default, None
   return 0
 
 

@@ -650,17 +650,18 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   called; `kinds`, a set, gathers the recon calls' unit_kinds."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+  from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
 
   launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES,
-              "deblock": D.LAUNCHES}
+              "deblock": D.LAUNCHES, "alf": A.LAUNCHES}
   called = set()
 
   def per_call(name, kw):
-    """Launches counted per call: recon and deblock 1; inter_pred 1 per
-    size class that has units."""
+    """Launches counted per call: recon, deblock and alf 1; inter_pred 1
+    per size class that has units."""
     if name != "inter_pred":
       return 1
     return sum(len(kw["inter"][k + "_host"]) > 0 for k in ("small", "large"))
@@ -847,28 +848,32 @@ def test_kernels_match_plain_on_card_inter(cuda, case):
   """Every kernel against its plain version on every frame of a P/B
   case, with the frame's real references."""
   called = _kernels_vs_plain(_stream(INTER_CASES[case]), cuda)
-  assert called - {"deblock"} == {"inter_pred", "recon"}
+  assert called - {"deblock", "alf"} == {"inter_pred", "recon"}
   assert "deblock" in called or not INTER_CASES[case].get("deblock")
+  assert ("alf" in called) == bool(INTER_CASES[case].get("alf"))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["dmvr-bdof-tmvp", "alf-lmcs-ra"])
 def test_kernels_match_plain_on_card_tools(cuda, case):
-  """Both kernels against their plain versions on every frame of a stream
+  """Every kernel against its plain version on every frame of a stream
   with DMVR (its search and the refined controls run in the walk) or with
   LMCS and ALF, with the frame's real references."""
   called = _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda)
-  assert called - {"deblock"} == {"inter_pred", "recon"}
+  assert called - {"deblock", "alf"} == {"inter_pred", "recon"}
   assert "deblock" in called or not TOOL_CASES[case].get("deblock")
+  assert ("alf" in called) == bool(TOOL_CASES[case].get("alf"))
 
 
 def _counts_zeroed():
+  from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
 
   for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
-            R.EDGE_LAUNCHES, R.PLAIN_RUNS, D.LAUNCHES, D.PLAIN_RUNS):
+            R.EDGE_LAUNCHES, R.PLAIN_RUNS, D.LAUNCHES, D.PLAIN_RUNS,
+            A.LAUNCHES, A.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R
@@ -943,7 +948,8 @@ def test_kernels_match_plain_on_card_ctu128_1080(cuda):
   times."""
   kinds = set()
   assert _kernels_vs_plain(_read("ctu128_1080"), cuda, n_frames=2, repeats=3,
-                           kinds=kinds) == {"inter_pred", "recon", "deblock"}
+                           kinds=kinds) == {"inter_pred", "recon", "deblock",
+                                            "alf"}
   assert {"edge64", "high1", "cell1"} <= kinds, kinds
 
 
@@ -1014,14 +1020,27 @@ def test_coding_case_decodes_on_card(cuda, case):
                                   "full1080", "ctu128_1080", "ciip64",
                                   "gop720"])
 def test_fixture_decodes_on_card(cuda, name):
+  """Each fixture to its MD5s through the kernels: the ALF kernel twice
+  on each frame with ALF on (the traced alf spans count them), no plain
+  version run."""
+  from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
+  from ffmpeg_tpu_torch.utils import trace
 
   P, R = _counts_zeroed()
-  assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
+  trace.reset()
+  trace.enable(True)
+  try:
+    assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
+  finally:
+    trace.enable(False)
+  alf_frames = trace.summary().get("alf", {}).get("n", 0)
   assert R.LAUNCHES["recon"] > 0 and D.LAUNCHES["deblock"] > 0
   assert (P.LAUNCHES["inter_pred"] > 0) == (not name.startswith("ai"))
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
-  assert D.PLAIN_RUNS["deblock"] == 0
+  assert D.PLAIN_RUNS["deblock"] == 0 and A.PLAIN_RUNS["alf"] == 0
+  assert (alf_frames > 0) == (name in ("full1080", "ctu128_1080", "gop720"))
+  assert A.LAUNCHES["alf"] == 2 * alf_frames
 
 
 # DMVR-free single-IRAP-period cases for the wave path on the card:
