@@ -9,7 +9,7 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     with the full toolset (bench.py FULL_KW: B slices with TMVP,
     affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
     with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
-    the four kernels (inter_pred, recon, deblock, alf);
+    the five kernels (residual, inter_pred, recon, deblock, alf);
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra;
@@ -26,14 +26,15 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
 Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
-  2. build    host parser (make) and every CUDA kernel (nvcc: recon,
-              inter_pred, deblock, alf), in
+  2. build    host parser (make) and every CUDA kernel (nvcc: residual,
+              recon, inter_pred, deblock, alf), in
               parallel, from the sources in this checkout; each kernel
               function's registers, shared memory and spills (ptxas)
   3. kernels  each kernel call of the frame program (recorded through
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
-              (all-integer arithmetic): every kernel (the deblock
+              (all-integer arithmetic): every kernel (the residual
+              kernel's two calls, luma, then Cb and Cr; the deblock
               kernel's two calls, both passes in one launch, and each
               call's passes alone in its one-pass mode; the alf kernel's
               two calls, luma, then Cb and Cr with CC-ALF) on the first B
@@ -53,7 +54,8 @@ Phases, one JSON line each:
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
               of the path launched, the plain versions never ran, the
-              deblock kernel launched twice a frame (luma; Cb and Cr),
+              residual and deblock kernels launched twice a frame (luma;
+              Cb and Cr),
               the alf kernel twice on each frame with ALF on (the traced
               alf spans count those frames)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
@@ -75,9 +77,10 @@ Phases, one JSON line each:
               (dependency levels) and us per level on that frame and on
               ai720's frame 0, and on ctu128_1080's I and B frames (its
               recon levels and us per level, its inter kernel); the
-              deblock and alf kernels' ms per launch (luma, then Cb and
-              Cr; the launch is the whole call), on the full1080 B frame
-              and the coding-tool frames; every
+              residual, deblock and alf kernels' ms per launch (luma,
+              then Cb and Cr; the launch is the whole call; the residual
+              wrapper's host ms per call beside it), on the full1080 B
+              frame and the coding-tool frames; every
               timed launch of the kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
@@ -122,13 +125,13 @@ CTU128 = "ctu128_1080"
 TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
 FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
             "gop720")
-KERNELS = ("inter_pred", "recon", "deblock", "alf")
-# the kernels each fixture's path must launch (every fixture has deblock
-# on; full1080, ctu128_1080 and gop720 have ALF on)
-NO_ALF = KERNELS[:3]
-PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF,
-                "ai720": ("recon", "deblock"),
-                "ai256x128_10b": ("recon", "deblock"), CTU128: KERNELS,
+KERNELS = ("residual", "inter_pred", "recon", "deblock", "alf")
+# the kernels each fixture's path must launch (every fixture has
+# residuals and deblock on; full1080, ctu128_1080 and gop720 have ALF on)
+NO_ALF = KERNELS[:4]
+INTRA = ("residual", "recon", "deblock")
+PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF, "ai720": INTRA,
+                "ai256x128_10b": INTRA, CTU128: KERNELS,
                 "ciip64": NO_ALF, "gop720": KERNELS}
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
@@ -156,10 +159,10 @@ def _read(name):
 
 def _counts():
   """The launch and plain-run counters of every kernel wrapper."""
-  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon
+  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon, transform
 
-  return {"inter_pred": inter, "recon": recon, "deblock": deblock,
-          "alf": alf}
+  return {"residual": transform, "inter_pred": inter, "recon": recon,
+          "deblock": deblock, "alf": alf}
 
 
 def _zero_counts():
@@ -189,7 +192,7 @@ def phase_device(torch):
 
 def phase_build():
   from ffmpeg_tpu_torch.models.vvc import host
-  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon
+  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon, transform
   from ffmpeg_tpu_torch.utils.build import BUILD_LOG
 
   errors = []
@@ -207,7 +210,7 @@ def phase_build():
   threads = [threading.Thread(target=run, args=a) for a in (
       ("vvc_host", host._get_lib), ("recon", recon._get_kernel),
       ("inter_pred", inter._get_kernel), ("deblock", deblock._get_kernel),
-      ("alf", alf._get_kernel))]
+      ("alf", alf._get_kernel), ("residual", transform._get_kernel))]
   t0 = time.perf_counter()
   for t in threads:
     t.start()
@@ -341,6 +344,16 @@ def _bytes_moved(name, kw):
   if name == "deblock":   # each plane in and out, each pass's grids in
     return sum(p.numel() * 4 * 2 for p in kw["planes"]) + sum(
         t.numel() * 4 for g in kw["grids_v"] + kw["grids_h"] for t in g)
+  if name == "residual":
+    # each live TU's rows and coded levels in, the planes written once,
+    # the chroma scales and scaling lists the call reads
+    b = sum(kw["Hp"] * kw["Wp"] * 4 for _ in kw["buckets"])
+    for comp in kw["buckets"]:
+      for wh in kw["sizes"]:
+        n, lv = int(comp[wh]["n"]), comp[wh]["lv"]
+        b += n * (comp[wh]["mat"].shape[0] + lv.shape[1] * lv.shape[2]) * 4
+    extra = [kw["chroma_scale"]] + list((kw["sl"] or {}).values())
+    return b + sum(t.numel() * 4 for t in extra if t is not None)
   if name == "alf":
     # each padded plane in and out (the padding is copied), for chroma
     # the picture's pre-ALF luma in, the CTB grid and the tables the call
@@ -473,9 +486,12 @@ def _ops(name, kw):
   and the sum: about 113 with the rounding and clip); per chroma sample
   with its flag on the 5x5 diamond (about 60), with a CC-ALF index
   above 0 the 7 taps (about 27); 1 per sample of each padded plane
-  (the select or copy)."""
+  (the select or copy).
+  residual: counted from the call's rows (_residual_ops)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
+  if name == "residual":
+    return _residual_ops(kw)
   if name == "alf":
     return _alf_ops(kw)
   if name == "deblock":
@@ -506,6 +522,38 @@ def _ops(name, kw):
   placed = int((inter["mat_host"][2, :n_in].astype("int64")
                 * inter["mat_host"][3, :n_in]).sum())
   return nch * (int((w * h).sum()) * 36 + n * L * 8 + 3 * placed)
+
+
+def _residual_ops(kw):
+  """_ops for a residual call, from its rows: per coded level the dequant
+  (about 6: the multiply, the rounding add, the shift, the clamp and the
+  zero test); per TU outside transform skip its passes' multiply-adds
+  (2-D: h x zw x zh for the columns and h x w x zw for the rows; 1-D: n x
+  zn), per LFNST TU 16 x N, 2 operations each; per written sample about
+  4 (rounding, shift, store), 8 more on chroma (joint CbCr, LMCS)."""
+  from ffmpeg_tpu_torch.ops.transform import BUCKET_ROWS
+
+  k = BUCKET_ROWS.index
+  per_sample = 12 if kw["chroma"] else 4
+  total = 0
+  for comp in kw["buckets"]:
+    for w, h in kw["sizes"]:
+      n = int(comp[(w, h)]["n"])
+      if not n:
+        continue
+      m = comp[(w, h)]["mat"][:, :n].cpu().numpy()
+      zw, zh = min(w, 32), min(h, 32)
+      ts = (m[k("ts")] > 0) & ((zw, zh) == (w, h))
+      if w == 1 or h == 1:
+        macs = max(w, h) * (zw if h == 1 else zh)
+      else:
+        macs = h * zw * zh + h * w * zw
+      macs *= int((~ts).sum())
+      if not kw["chroma"] and w >= 4 and h >= 4:
+        macs += 16 * (48 if w >= 8 and h >= 8 else 16) * int(
+            (m[k("lf_sel")] >= 0).sum())
+      total += 6 * n * zh * zw + 2 * macs + per_sample * n * w * h
+  return total
 
 
 def _alf_ops(kw):
@@ -703,6 +751,8 @@ def phase_decode(torch):
         "frames": len(got), "md5_equal": got == want,
         "launches": launches[name], "plain_runs": plain,
         "deblock_launches_per_frame": launches[name]["deblock"] / len(got),
+        "residual_launches_per_frame":
+            launches[name]["residual"] / len(got),
         "alf_frames": alf_frames,
         "alf_launches_per_alf_frame":
             launches[name]["alf"] / max(alf_frames, 1),
@@ -717,10 +767,11 @@ def phase_decode(torch):
     if any(plain.values()):
       emit(res)
       fail("decode", f"{name}: a plain version ran: {plain}")
-    if res["fixtures"][name]["deblock_launches_per_frame"] != 2:
-      emit(res)
-      fail("decode", f"{name}: the deblock kernel was not launched twice a "
-           "frame (luma; Cb and Cr)")
+    for k in ("deblock", "residual"):
+      if res["fixtures"][name][f"{k}_launches_per_frame"] != 2:
+        emit(res)
+        fail("decode", f"{name}: the {k} kernel was not launched twice a "
+             "frame (luma; Cb and Cr)")
     if launches[name]["alf"] != 2 * alf_frames or \
         bool(alf_frames) != ("alf" in PATH_KERNELS[name]):
       emit(res)
@@ -959,10 +1010,67 @@ def _time_whole_call(name, kw, torch, reps, rounds):
           "calls_unequal": sum(r[1] for r in runs)}
 
 
+def _residual_runs(kw, want, torch, reps):
+  """reps launches of the residual kernel on one call's inputs, queued
+  behind _hold_card and timed with CUDA events: per launch the whole
+  call's card time (the fill of its fresh planes and the launch).  The
+  wrapper reads each launch's error word, which waits for it, so these
+  launches go through its launch half (_residual_launch) and their words
+  are read after the last.  Every output is held against `want`, the
+  plain version's.  Returns (ms per launch, launches that differ or set
+  their error word)."""
+  from ffmpeg_tpu_torch.ops.transform import _classes, _residual_launch
+
+  dev, classes = _classes(**kw)
+  args = {k: kw[k] for k in ("Hp", "Wp", "bit_depth", "chroma",
+                             "chroma_scale", "sl")}
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  _hold_card(torch)
+  start.record()
+  outs = [_residual_launch(dev, classes, nch=len(kw["buckets"]), **args)
+          for _ in range(reps)]
+  end.record()
+  torch.cuda.synchronize()
+  return (start.elapsed_time(end) / reps,
+          sum(not torch.equal(p, want) or int(e.item()) != 0
+              for p, e in outs))
+
+
+def _time_residual(kw, torch, reps, rounds):
+  """One residual call: ms per launch (mean of `rounds` rounds of `reps`
+  launches), the launches that differ from the plain version, and the
+  wrapper's host ms per call: its launch half queued behind a held card
+  (the checks, the class table and the launch), and the whole wrapper
+  synced (with the card's time and the error word's read)."""
+  from ffmpeg_tpu_torch.ops.transform import (_classes, _residual_launch,
+                                              residual_planes)
+
+  want = _plain("residual", kw)
+  runs = [_residual_runs(kw, want, torch, reps) for _ in range(rounds)]
+  args = {k: kw[k] for k in ("Hp", "Wp", "bit_depth", "chroma",
+                             "chroma_scale", "sl")}
+
+  def launch_half():
+    _residual_launch(*_classes(**kw), nch=len(kw["buckets"]), **args)
+
+  return {"ms": sum(r[0] for r in runs) / rounds,
+          "tus": sum(int(c[wh]["n"]) for c in kw["buckets"]
+                     for wh in kw["sizes"]),
+          "host_ms_per_call_card_held": _host_ms(launch_half, torch, reps,
+                                                 True),
+          "wall_ms_per_call_synced": _host_ms(
+              lambda: residual_planes(**kw), torch, reps, False),
+          "calls_checked": reps * rounds,
+          "calls_unequal": sum(r[1] for r in runs)}
+
+
 def _time_call(name, label, kw, levels, torch, reps, rounds):
   """One kernel call timed by its kernel's own helper."""
   if name == "recon":
     return _time_recon(kw, levels[label], torch, reps, rounds)
+  if name == "residual":
+    return _time_residual(kw, torch, reps, rounds)
   if name in ("deblock", "alf"):
     return _time_whole_call(name, kw, torch, reps, rounds)
   return _time_inter(kw, torch, reps, rounds)
@@ -1007,16 +1115,17 @@ def phase_timing(torch, card, calls, levels):
         + f" ({os.cpu_count()} CPUs)", flush=True)
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
-  deblock, alf = {}, {}
+  deblock, alf, residual = {}, {}, {}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
     r = _time_call(name, label, kw, levels[MAIN], torch, 20, 2)
-    {"recon": recon[MAIN], "deblock": deblock,
-     "alf": alf}.get(name, inter)[label] = r
+    {"recon": recon[MAIN], "deblock": deblock, "alf": alf,
+     "residual": residual}.get(name, inter)[label] = r
     kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
-  for name, rr in (("deblock", deblock), ("alf", alf)):
+  for name, rr in (("residual", residual), ("deblock", deblock),
+                   ("alf", alf)):
     print(f"chip_smoke: timing {MAIN} {name} ms per launch: " + ", ".join(
         f"{label} {r['ms']} (plain {plain[f'{name}/{label}']})"
         for label, r in rr.items()), flush=True)
@@ -1039,12 +1148,12 @@ def phase_timing(torch, card, calls, levels):
         f"{r['us_per_level']} us per level)"
         for label, r in t["recon"].items()) + "".join(
         f", {name} {label} {r['ms']} ms"
-        for name in ("inter_pred", "deblock", "alf")
+        for name in ("residual", "inter_pred", "deblock", "alf")
         for label, r in t[name].items()), flush=True)
   out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
-  out["alf"] = alf
+  out["alf"], out["residual"] = alf, residual
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
@@ -1053,18 +1162,18 @@ def phase_timing(torch, card, calls, levels):
          for f, rr in recon.items() for label, r in rr.items()
          if r["launches_unequal"]}
   for name, rr in (("inter_pred", inter), ("deblock", deblock),
-                   ("alf", alf)):
+                   ("alf", alf), ("residual", residual)):
     bad.update({f"{name} {label}": r["calls_unequal"]
                 for label, r in rr.items() if r["calls_unequal"]})
   for key, t in tools.items():
     bad.update({f"recon {key} {label}": r["launches_unequal"]
                 for label, r in t["recon"].items() if r["launches_unequal"]})
-    for name in ("inter_pred", "deblock", "alf"):
+    for name in ("inter_pred", "deblock", "alf", "residual"):
       bad.update({f"{name} {key} {label}": r["calls_unequal"]
                   for label, r in t[name].items() if r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
-  return kern, plain, recon, inter, deblock, alf, tools
+  return kern, plain, recon, inter, deblock, alf, residual, tools
 
 
 def _union_us(work):
@@ -1361,6 +1470,13 @@ def phase_parallel(torch, card):
     if [m for _, m, _ in got] != want:
       emit(out)
       fail("parallel", f"{name}: the checked wave run's MD5s differ")
+    rec["residual_calls_checked"] = sum(
+        c["fixture"] == name and c["kernel"] == "residual"
+        for c in out["cases"])
+    if rec["residual_calls_checked"] != 2 * len(got):
+      emit(out)
+      fail("parallel", f"{name}: {rec['residual_calls_checked']} residual "
+           f"calls held for {len(got)} frames, not 2 a frame")
     # fps per width, in the order 1, 2, 4, then 4, 2, 1
     rec["scaling"] = [gop.measure_scaling(data, order, reps=2, mesh=mesh)
                       for order in (GOP_WIDTHS, GOP_WIDTHS[::-1])]
@@ -1413,11 +1529,16 @@ def _tool_row(name, calls, timed):
           **_bound(name, calls),
           "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
               "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
-              "small_ms", "large_ms", "small_units", "large_units")}
+              "small_ms", "large_ms", "small_units", "large_units", "tus",
+              "host_ms_per_call_card_held")}
               for label, r in timed[name].items()}}
 
 
 KERNEL_INFO = {
+    "residual": ("ffmpeg_tpu_torch/csrc/residual.cu",
+                 "ffmpeg_tpu/models/vvc/pipeline.py:569,443,332 "
+                 "(_residual_from_buckets over _bucket_residuals and "
+                 "_apply_lfnst; XLA, not Pallas)"),
     "inter_pred": ("ffmpeg_tpu_torch/csrc/inter_pred.cu",
                    "ffmpeg_tpu/models/vvc/pipeline.py:1129 (_pred_blocks "
                    "over _inter_pred_unit; XLA, not Pallas)"),
@@ -1447,7 +1568,7 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon, inter, deblock, alf, tools = phase_timing(
+  kern, plain, recon, inter, deblock, alf, residual, tools = phase_timing(
       torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
@@ -1476,6 +1597,11 @@ def main() -> int:
     elif name in ("deblock", "alf"):
       rows[-1]["split_ms"] = {label: {"ms": r["ms"]} for label, r in
                               {"deblock": deblock, "alf": alf}[name].items()}
+    elif name == "residual":
+      rows[-1]["split_ms"] = {
+          label: {k: r[k] for k in ("ms", "tus", "host_ms_per_call_card_held",
+                                    "wall_ms_per_call_synced")}
+          for label, r in residual.items()}
     else:
       rows[-1]["launches_by_class"] = {
           f: launches[f]["inter_pred_by_class"] for f in FIXTURES}

@@ -18,18 +18,18 @@ a CUDA session without a CUDA device raises, it never falls back.
 from __future__ import annotations
 
 import hashlib
-import logging
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ...utils import trace
+from ...utils.log import get_logger
 from .host import HostDecoder
 from .inputs import _padded_plane_shapes, check_supported, has_dmvr
 from .pipeline import prepare_frame, refine_dmvr, submit_frame
 
-log = logging.getLogger("ffmpeg_tpu_torch.vvc.decoder")
+log = get_logger("vvc.decoder")
 
 # frames fetched per device->host transfer; also the dispatch-ahead depth
 FETCH_BATCH = 8

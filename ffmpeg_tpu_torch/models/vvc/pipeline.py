@@ -4,12 +4,14 @@ planes.
 Torch port of the JAX frame program (pipeline.frame_program, non-Pallas
 form), stage by stage on one device:
 
-  luma buckets ──dequant+ITX──> luma residual plane
+  luma buckets ──residual kernel──> luma residual plane (dequant, LFNST,
+                                    inverse DCT2/DST7/DCT8, placement)
   MC batch + DPB refs ──inter kernel──> prediction tiles (P/B frames; the
                                         luma mapped forward under LMCS)
   tiles + intra layout ──recon kernel──> luma (in the LMCS-mapped domain)
   mapped luma ──> per-VPDU chroma residual scales (LMCS)
-  chroma buckets ──dequant+ITX, scaled──> Cb, Cr residual planes
+  chroma buckets ──residual kernel, scaled──> Cb+Cr residual planes (one
+                                             launch for both)
   tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
                                          reconstructed luma)
   luma ──LMCS inverse──> edge grids ──deblock kernel──> V, then H (one
@@ -35,7 +37,7 @@ from ...ops.inter import inter_pred, inter_pred_plain_kind
 from ...ops.lmcs import lmcs_inv, lmcs_vpdu_scales
 from ...ops.recon import recon_plane, recon_plane_plain_kind
 from ...ops.sao import sao_plane
-from ...ops.transform import residual_plane
+from ...ops.transform import residual_planes, residual_planes_plain
 from ...utils import trace
 from .convert import inputs_from_numpy
 from .host import ColStore, FrameSyntax, HostDecoder, dmvr_apply
@@ -51,7 +53,8 @@ def _sync_for(device):
 
 # each kernel of the frame program: (wrapper, its plain version, which
 # takes the same arguments and returns the same result)
-KERNELS = {"inter_pred": (inter_pred, inter_pred_plain_kind),
+KERNELS = {"residual": (residual_planes, residual_planes_plain),
+           "inter_pred": (inter_pred, inter_pred_plain_kind),
            "recon": (recon_plane, recon_plane_plain_kind),
            "deblock": (deblock_planes, deblock_planes_plain),
            "alf": (alf_planes, alf_planes_plain)}
@@ -85,11 +88,14 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   crop: conformance-window offsets (l, r, t, b) in luma samples.
   dbo/dto: effective deblock beta/tc offsets per component.
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
-  of KERNELS, in order: inter_pred of luma then chroma (P/B frames),
-  recon of luma then chroma, deblock of luma then chroma (frames with
-  deblock on), alf of luma then chroma (frames with ALF on; the chroma
-  call reads the pre-ALF luma).  The default runs the wrapper; a
-  check passes its own to hold each call against the plain version.
+  of KERNELS, in order: residual of luma, inter_pred of luma then
+  chroma (P/B frames), recon of luma, residual of chroma (Cb and Cr
+  together, after the LMCS chroma scales that read the luma recon),
+  recon of chroma, deblock of luma then chroma (frames with deblock
+  on), alf of luma then chroma (frames with ALF on; the chroma call
+  reads the pre-ALF luma); a 4:0:0 frame makes only the luma calls.
+  The default runs the wrapper; a check passes its own to hold each call
+  against the plain version.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits)}."""
   bd = bit_depth
@@ -98,18 +104,21 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(W, H, ctb_log2)
   n_comp = 1 if mono else 3
   lm = inp.get("lmcs")
-
-  def residual(c, chroma_scale=None):
-    # the frame's size classes: luma's vary with its tools (inputs.py)
-    buckets = inp["planes"][c]["buckets"]
-    return residual_plane(buckets, Hp_y if c == 0 else Hp_c,
-                          Wp_y if c == 0 else Wp_c, bd,
-                          list(buckets) if c == 0 else CHROMA_SIZES, c > 0,
-                          device, chroma_scale, inp.get("sl"))
-
-  with trace.span("residual", sync):
-    res_y = residual(0)
   call = call or _launch
+
+  def residual(label, chroma_scale=None):
+    # one call per plane kind; luma's size classes vary with its tools
+    # (inputs.py)
+    cs = (1, 2) if label == "chroma" else (0,)
+    with trace.span("residual", sync):
+      return call("residual", label, dict(
+          buckets=[inp["planes"][c]["buckets"] for c in cs],
+          sizes=CHROMA_SIZES if cs[0] else list(inp["planes"][0]["buckets"]),
+          Hp=Hp_c if cs[0] else Hp_y, Wp=Wp_c if cs[0] else Wp_y,
+          bit_depth=bd, chroma=bool(cs[0]), chroma_scale=chroma_scale,
+          sl=inp.get("sl")))
+
+  res_y = residual("luma")
   # plane kinds: (label, chroma shift, control, reference channels)
   kinds = [("luma", 0, inp["ctrl"]["y"], refs[:1])]
   if not mono:
@@ -131,7 +140,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
           is_chroma=bool(ss), bit_depth=bd, cclm=cclm)))
 
   # luma first, in the LMCS-mapped domain when LMCS is on
-  planes = recon("luma", 0, inp["ctrl"]["y"], res_y[None])
+  planes = recon("luma", 0, inp["ctrl"]["y"], res_y)
   if not mono:
     scale = None
     if lm is not None and "chroma_scale" in lm:
@@ -140,8 +149,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
       with trace.span("lmcs", sync):
         scale = lmcs_vpdu_scales(planes[0][:H, :W], lm, W, H,
                                  min(maxs_y, 64), bd, tile_bds)
-    with trace.span("residual", sync):
-      res_c = torch.stack([residual(c, scale) for c in (1, 2)])
+    res_c = residual("chroma", scale)
     cclm = None
     if "cclm_vc" in inp:
       # chroma CCLM reads the reconstructed (mapped) luma: the whole-plane

@@ -15,15 +15,26 @@ levels arrive as the coded (min(h, 32), min(w, 32)) corner and the basis
 columns are sliced to it), and both at once.  Explicit scaling lists
 replace the flat dequant factor 16 with a per-coefficient factor.
 
-CUDA torch has no integer matrix product, so the products run in
-float64.  That is exact: every basis value is at most 90 in magnitude,
-every input below 2^15 and every sum has at most 32 coded terms (the
-64-point zero-out keeps 32), so |sum| < 32 * 90 * 2^15 < 2^27, far below
-2^53.  Everything else is int32, with the C reference's wraparound on
-the dequant multiply and arithmetic `>>` on negatives.
+`residual_planes` is the frame program's entry point: one call for the
+luma plane, one for the Cb and Cr planes together.  A CUDA tensor
+launches the kernel (csrc/residual.cu: one launch per call, one thread
+block per TU, int32 sums, each TU written once into a zero-filled
+plane); a CPU tensor runs the plain version, `residual_planes_plain`,
+composed of `residual_plane` per component (the ports of the JAX
+functions below, and the kernel's oracle).
+
+CUDA torch has no integer matrix product, so the plain version's
+products run in float64.  That is exact: every basis value is at most
+91 in magnitude, every input below 2^15 and every sum has at most 32
+coded terms (the 64-point zero-out keeps 32), so |sum| < 32 * 91 * 2^15
+< 2^27, far below 2^53.  Everything else is int32, with the C
+reference's wraparound on the dequant multiply and arithmetic `>>` on
+negatives.
 """
 from __future__ import annotations
 
+import ctypes
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -31,6 +42,11 @@ import torch
 
 from .tables import VVC_TABLES as _TABLES
 from .tables import on_device
+
+# launches of the CUDA kernel, and runs of the plain version: plain
+# integer counters a caller may reset to 0 and read back
+LAUNCHES = {"residual": 0}
+PLAIN_RUNS = {"residual": 0}
 
 LEVEL_SCALE = np.array([[40, 45, 51, 57, 64, 72],
                         [57, 64, 72, 80, 90, 102]], dtype=np.int32)
@@ -291,3 +307,208 @@ def residual_plane(buckets: dict, Hp: int, Wp: int, bit_depth: int, sizes,
         None, None, :]
     res[yy, xx] = out
   return res
+
+
+# ----------------------------------------------------------------------
+# the entry point, its plain version, and the CUDA kernel
+# (csrc/residual.cu), built with nvcc at first use and bound with ctypes
+# ----------------------------------------------------------------------
+
+# the kernel's error word: the rows it found out of range, by bit
+ERRORS = {1: "a transform kind outside 0..2",
+          2: "a vpdu outside the chroma scales",
+          4: "a scaling-list id past 27",
+          8: "a block that leaves the plane",
+          16: "a dequant shift outside 0..31"}
+
+# the transform sizes a class may have a side of
+_EDGES = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl):
+  """Check a call's inputs, on every device, and list its non-empty
+  classes for the kernel: (component, w, h, bucket).  Per component a
+  bucket per size, whose (14, ld) row matrix and (ld, zh, zw) levels are
+  contiguous int32 tensors of at least n columns and blocks on one
+  device; one component for luma, two for chroma; the chroma scales (a
+  chroma call's only) and the scaling lists ({"rec": (28, 8, 8), "dc":
+  (14,)}) contiguous int32 on that device; 8 to 12 bits.  Raises
+  ValueError on anything else: nothing is copied or converted."""
+  def bad(msg):
+    raise ValueError(f"residual: {msg}")
+
+  if len(buckets) != (2 if chroma else 1):
+    bad(f"{len(buckets)} components for a "
+        f"{'chroma' if chroma else 'luma'} call")
+  if not 8 <= bit_depth <= 12 or Hp < 1 or Wp < 1:
+    bad(f"{bit_depth} bits or a {Hp}x{Wp} plane not taken")
+  dev, out = None, []
+  for c, comp in enumerate(buckets):
+    for wh in sizes:
+      w, h = wh
+      if wh not in comp or w not in _EDGES or h not in _EDGES or w * h < 2:
+        bad(f"no bucket of size class {wh} in component {c}")
+      b = comp[wh]
+      n, mat, lv = int(b["n"]), b["mat"], b["lv"]
+      if dev is None:
+        dev = mat.device
+      shapes_ok = (mat.dim() == 2 and mat.shape[0] == len(BUCKET_ROWS)
+                   and mat.shape[1] >= n and lv.dim() == 3
+                   and lv.shape[0] >= n
+                   and tuple(lv.shape[1:]) == (_zo(h), _zo(w)))
+      if not shapes_ok or any(
+          t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev
+          for t in (mat, lv)):
+        bad(f"class {wh} of component {c}: expected contiguous int32 rows "
+            f"({len(BUCKET_ROWS)}, >={n}) and levels (>={n}, {_zo(h)}, "
+            f"{_zo(w)}) on {dev}, got {mat.dtype} {tuple(mat.shape)} and "
+            f"{lv.dtype} {tuple(lv.shape)} on {mat.device}, {lv.device}")
+      if n:
+        out.append((c, w, h, b))
+  extra = {}
+  if chroma_scale is not None:
+    if not chroma:
+      bad("chroma scales go with a chroma call")
+    extra["chroma_scale"] = (chroma_scale, None)
+  if sl is not None:
+    extra.update(rec=(sl["rec"], (28, 8, 8)), dc=(sl["dc"], (14,)))
+  for k, (t, shape) in extra.items():
+    if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev \
+        or (shape is None and (t.dim() != 1 or not t.numel())) \
+        or (shape is not None and tuple(t.shape) != shape):
+      bad(f"{k}: expected contiguous int32 {shape or '1-D'} on {dev}, got "
+          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+  return dev, out
+
+
+def residual_planes(*, buckets, sizes, Hp: int, Wp: int, bit_depth: int,
+                    chroma: bool, chroma_scale=None, sl=None):
+  """The residual planes of one call of the frame program: luma, or Cb
+  and Cr together.
+
+  buckets: per component (one for luma, Cb and Cr for chroma) the
+  converted size classes {(w, h): {"mat": (14, ld) int32 rows in
+  BUCKET_ROWS order, "lv": (ld, min(h, 32), min(w, 32)) int32 levels,
+  "n": live TUs}}; sizes: the classes to run, in order.  chroma_scale:
+  the per-VPDU LMCS scales (chroma only), sl: the explicit scaling lists,
+  as in bucket_residuals.  Returns (nch, Hp, Wp) int32, zero outside the
+  TUs.  A CUDA tensor launches the kernel and raises on the rows its
+  error word names (reading the word waits for the launch); a CPU tensor
+  runs the plain version; nothing falls back from one to the other."""
+  dev, classes = _classes(buckets, sizes, Hp, Wp, bit_depth, chroma,
+                          chroma_scale, sl)
+  if dev.type == "cuda":
+    planes, err = _residual_launch(dev, classes, nch=len(buckets), Hp=Hp,
+                                   Wp=Wp, bit_depth=bit_depth, chroma=chroma,
+                                   chroma_scale=chroma_scale, sl=sl)
+    e = int(err.item())  # waits for the launch
+    if e:
+      raise RuntimeError("residual kernel: rows out of range: " + "; ".join(
+          msg for bit, msg in ERRORS.items() if e & bit))
+    return planes
+  if dev.type != "cpu":
+    raise ValueError(f"residual: unsupported device {dev}")
+  return residual_planes_plain(buckets=buckets, sizes=sizes, Hp=Hp, Wp=Wp,
+                               bit_depth=bit_depth, chroma=chroma,
+                               chroma_scale=chroma_scale, sl=sl)
+
+
+def residual_planes_plain(*, buckets, sizes, Hp: int, Wp: int,
+                          bit_depth: int, chroma: bool, chroma_scale=None,
+                          sl=None):
+  """residual_planes's plain version, with its arguments and result:
+  residual_plane per component."""
+  PLAIN_RUNS["residual"] += 1
+  dev = buckets[0][sizes[0]]["mat"].device
+  return torch.stack([residual_plane(b, Hp, Wp, bit_depth, sizes, chroma,
+                                     dev, chroma_scale, sl)
+                      for b in buckets])
+
+
+@lru_cache(maxsize=None)
+def _table_blob():
+  """The kernel's tables as one int32 array and the offset of each
+  (csrc/residual.cu T_*): the bases at kind * 7 + log2(n), the LFNST
+  matrices (8, 16, N) for N = 16 and 48, the 4x4 diagonal scan (rows,
+  then columns) and per N the normal and transposed scatter (rows,
+  columns, rows, columns)."""
+  parts, toff = [], []
+
+  def put(a):
+    toff.append(sum(p.size for p in parts))
+    parts.append(np.asarray(a, np.int32).reshape(-1))
+
+  for kind in ("dct2", "dst7", "dct8"):
+    for lg in range(7):
+      n = 1 << lg
+      if f"{kind}_{n}" in _TABLES:
+        put(itx_matrix(kind, n))
+      else:
+        toff.append(-1)
+  for big in (False, True):
+    put(lfnst_consts(big)[0])
+  _, in_y, in_x, *_ = lfnst_consts(False)
+  put(np.concatenate([in_y, in_x]))
+  for big in (False, True):
+    put(np.concatenate(lfnst_consts(big)[3:]))
+  return np.concatenate(parts), np.asarray(toff, np.int32)
+
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "residual.cu")
+_lib = None
+
+
+def _get_kernel():
+  global _lib
+  if _lib is None:
+    from ..utils.build import build_cuda
+
+    lib = ctypes.CDLL(build_cuda("residual", [_SRC]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.residual_launch.restype = ctypes.c_int
+    lib.residual_launch.argtypes = [
+        p, i, p, p,         # classes, their count, planes, error word
+        i, i, i, i, i,      # nch, Hp, Wp, bit_depth, chroma
+        p, i, p, p,         # chroma scales, their count, sl rec, sl dc
+        p, p, i, p]         # tables, their offsets, offset count, stream
+    lib.residual_error_string.restype = ctypes.c_char_p
+    lib.residual_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+  return _lib
+
+
+def _residual_launch(dev, classes, *, nch, Hp, Wp, bit_depth, chroma,
+                     chroma_scale, sl):
+  """One launch over `classes` (_classes) on the device's current stream
+  into a new zero-filled (nch, Hp, Wp) tensor, which every thread block
+  writes its TU into.  Returns the planes and the kernel's error word (a
+  one-element tensor in the same allocation, after the planes: one fill
+  for both), unread."""
+  lib = _get_kernel()
+  blob, toff = _table_blob()
+  tab = on_device(("residual_tables",), dev,
+                  lambda: torch.from_numpy(blob))
+  rows = []
+  for c, w, h, b in classes:
+    rows += [b["mat"].data_ptr(), b["lv"].data_ptr(), w, h, int(b["n"]),
+             b["mat"].shape[1], c]
+  buf = torch.zeros(nch * Hp * Wp + 1, dtype=torch.int32, device=dev)
+  planes, err = buf[:-1].view(nch, Hp, Wp), buf[-1:]
+  scale = (None, 0) if chroma_scale is None else (chroma_scale.data_ptr(),
+                                                  chroma_scale.numel())
+  lists = (None, None) if sl is None else (sl["rec"].data_ptr(),
+                                           sl["dc"].data_ptr())
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.residual_launch(
+        (ctypes.c_longlong * len(rows))(*rows), len(classes),
+        planes.data_ptr(), err.data_ptr(), nch, Hp, Wp, bit_depth,
+        int(chroma), *scale, *lists, tab.data_ptr(), toff.ctypes.data,
+        len(toff), stream)
+  if rc != 0:
+    raise RuntimeError("residual kernel launch failed: "
+                       f"{lib.residual_error_string(rc).decode()}")
+  LAUNCHES["residual"] += 1
+  return planes, err
+

@@ -3,8 +3,9 @@ on the CPU) against the JAX package's ALF functions as the JAX frame
 program's `_alf_pass` composes them, bit for bit over the whole padded
 planes (tolerance 0: integer arithmetic), on seeded draws at 8, 10 and
 12 bits and CTB 32, 64 and 128 and on the ALF calls of real frames; the
-frame program's ALF calls; the wrapper's checks; and (on the card) the
-CUDA kernel csrc/alf.cu against the plain version.
+4:0:0 case (one luma call a frame, ALF_MONO); the frame program's ALF
+calls; the wrapper's checks; and (on the card) the CUDA kernel
+csrc/alf.cu against the plain version.
 
 JAX is imported inside the tests that need it, so that the card, which
 has no JAX, collects the `gpu` tests:
@@ -20,7 +21,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from test_torch_decode import TOOL_CASES, _read, _stream  # noqa: E402
+from test_torch_decode import (TESTDATA, TOOL_CASES,  # noqa: E402
+                               _jax_md5s, _port_md5s, _read, _stream)
 
 from ffmpeg_tpu_torch.models.vvc.inputs import \
     _padded_plane_shapes  # noqa: E402
@@ -35,6 +37,17 @@ KINDS = ("luma", "chroma")
 # the tool cases of tests/test_torch_decode.py with ALF on (ALF_STREAMS
 # of tests/test_torch_lmcs_alf.py among them)
 ALF_CASES = sorted(k for k, v in TOOL_CASES.items() if v.get("alf"))
+
+# 4:0:0 with ALF.  The generator's 4:0:0 ALF streams are mostly not
+# legal: it writes the chroma clip indices and the CC-ALF data into the
+# APS, and the chroma ALF flags into the slice header, whatever the
+# chroma format, so that both packages' parsers refuse them (a fault of
+# the JAX package's generator, which stays as it is).  This is the one
+# such stream that parses as generated.  Its JAX MD5 is in
+# ALF_MONO_JSON; regenerate it with `python tests/test_torch_alf.py`.
+ALF_MONO = dict(width=64, height=64, seed=4, qp=30, chroma_format_idc=0,
+                alf=True)
+ALF_MONO_JSON = os.path.join(TESTDATA, "alf_mono_case.md5.json")
 
 
 def _draw_id(d):
@@ -104,6 +117,15 @@ def _draw(bd, ctb_log2, seed=None, size=None):
             for _ in range(2))
   tree = _tree(rng, bd, -(-H // ctb), -(-W // ctb))
   return [y, cb, cr], tree, dict(W=W, H=H, ctb_log2=ctb_log2, bit_depth=bd)
+
+
+def _mono(draw):
+  """A 4:0:0 frame's ALF inputs from a seeded draw: the luma plane alone,
+  and a tree whose chroma flags, alternatives and CC-ALF indices are 0,
+  as the parser leaves them without chroma."""
+  planes, tree, geo = draw
+  tree["ctb"][..., 2:] = 0
+  return planes[:1], tree, geo
 
 
 def _call(kind, planes, tree, geo, device="cpu"):
@@ -218,6 +240,67 @@ def test_alf_planes_plain_on_case_frames(case):
   aus = VVCDecoder(device="cpu")._split_aus(_stream(TOOL_CASES[case]))
   frames = sum(1 for _ in walk_frames(aus, "cpu", check))
   assert seen == ["luma", "chroma"] * frames
+
+
+@pytest.mark.parametrize("bd", BDS)
+def test_alf_planes_plain_matches_jax_mono(bd):
+  """A seeded 4:0:0 draw: the luma call alone (chroma=False, no luma
+  plane), against the JAX composition."""
+  planes, tree, geo = _mono(_draw(bd, 6, seed=bd + 400))
+  kw = _call("luma", planes, tree, geo)
+  got = TA.alf_planes(**kw)
+  np.testing.assert_array_equal(got.numpy(), _jax_alf(**kw))
+  _padding_kept(got, kw)
+  assert not torch.equal(got, torch.stack(kw["planes"]))
+
+
+def _mono_alf_calls(device, check):
+  """Walk ALF_MONO's frames through the frame program on `device` with
+  `check` on its ALF calls; returns every call's (kernel, plane kind)
+  per frame."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+
+  seen, frames = [], []
+
+  def hook(name, label, kw):
+    seen.append((name, label))
+    got = KERNELS[name][0](**kw)
+    if name == "alf":
+      check(got, kw)
+    return got
+
+  aus = VVCDecoder(device=device)._split_aus(_stream(ALF_MONO))
+  for fs, h in walk_frames(aus, device, hook):
+    assert fs.chroma_format_idc == 0 and "alf" in h
+    frames.append(list(seen))
+    seen.clear()
+  return frames
+
+
+def test_alf_mono_case_matches_jax():
+  """ALF_MONO decodes on the CPU to the committed JAX MD5s."""
+  import json
+
+  with open(ALF_MONO_JSON) as f:
+    want = json.load(f)["alf-mono"]
+  assert want["config"] == ALF_MONO
+  assert _port_md5s(_stream(ALF_MONO)) == want["md5"]
+
+
+def test_alf_planes_plain_on_mono_frame():
+  """ALF_MONO's frames make one ALF call each (luma; no chroma call)
+  and one residual call, and the ALF call equals the JAX composition."""
+  def check(got, kw):
+    assert not kw["chroma"] and kw.get("luma") is None
+    np.testing.assert_array_equal(got.numpy(), _jax_alf(**kw))
+    _padding_kept(got, kw)
+
+  frames = _mono_alf_calls("cpu", check)
+  assert frames
+  for calls in frames:
+    assert [c for c in calls if c[0] == "alf"] == [("alf", "luma")]
+    assert [c for c in calls if c[0] == "residual"] == [("residual", "luma")]
 
 
 def test_frame_program_alf_calls_full1080():
@@ -388,6 +471,25 @@ def test_alf_kernel_on_case_frames_on_card(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bd", BDS)
+def test_alf_kernel_mono_on_card(cuda, bd):
+  """The 4:0:0 path on the card: the seeded 4:0:0 draw and ALF_MONO's
+  frames, one launch per luma call, equal to the plain version."""
+  planes, tree, geo = _mono(_draw(bd, 6, seed=bd + 400))
+  kw = _call("luma", planes, tree, geo, cuda)
+  launches = TA.LAUNCHES["alf"]
+  assert torch.equal(TA.alf_planes(**kw), TA.alf_planes_plain(**kw))
+  assert TA.LAUNCHES["alf"] == launches + 1
+
+  def check(got, kw):
+    assert torch.equal(got, TA.alf_planes_plain(**kw))
+
+  launches = TA.LAUNCHES["alf"]
+  frames = _mono_alf_calls(cuda, check)
+  assert frames and TA.LAUNCHES["alf"] == launches + len(frames)
+
+
+@pytest.mark.gpu
 def test_alf_launch_failure_raises(cuda):
   """A launch the kernel refuses (a CTB grid that does not cover the
   picture, past the wrapper's checks) raises."""
@@ -409,3 +511,31 @@ def test_alf_build_failure_raises(cuda, tmp_path, monkeypatch):
   monkeypatch.setattr(TA, "_lib", None)
   with pytest.raises(RuntimeError, match="nvcc failed"):
     TA._get_kernel()
+
+
+@pytest.mark.slow
+def test_alf_mono_case_jax_live():
+  """The committed MD5s are the JAX package's decode of ALF_MONO."""
+  import json
+
+  with open(ALF_MONO_JSON) as f:
+    assert _jax_md5s(_stream(ALF_MONO)) == json.load(f)["alf-mono"]["md5"]
+
+
+def main():
+  """Regenerate ALF_MONO_JSON with the JAX package's decoder."""
+  import json
+
+  import jax
+
+  jax.config.update("jax_platforms", "cpu")
+  out = {"alf-mono": {"config": ALF_MONO,
+                      "md5": _jax_md5s(_stream(ALF_MONO))}}
+  print(out, flush=True)
+  with open(ALF_MONO_JSON, "w") as f:
+    json.dump(out, f, indent=1)
+    f.write("\n")
+
+
+if __name__ == "__main__":
+  main()

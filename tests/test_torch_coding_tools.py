@@ -37,53 +37,16 @@ from ffmpeg_tpu_torch.models.vvc.pipeline import resolve_refs, submit_frame
 from ffmpeg_tpu_torch.models.vvc.recon import CTRL_KEYS
 from ffmpeg_tpu_torch.ops import recon as TR
 from ffmpeg_tpu_torch.ops.inter import inter_pred
-from ffmpeg_tpu_torch.ops.transform import (BUCKET_ROWS, bucket_residuals,
-                                            bucket_view, residual_plane)
+from ffmpeg_tpu_torch.ops.transform import (bucket_residuals, bucket_view,
+                                            residual_plane)
 from test_torch_decode import CODING_CASES, make_mip64, unit_kinds
 from test_torch_recon_schedule import (_chunk_cap, _n_units, _owners,
                                        _recon_by_levels, _t)
+from torch_residual_draws import _random_bucket, _scaling_lists
 
 torch.set_num_threads(2)
 
 LUMA_EXTRA = TI.ISP_EXTRA_SIZES + TI.TB64_EXTRA_SIZES + TI.ISP64_EXTRA_SIZES
-
-
-def _random_bucket(rng, w, h, bd, is_chroma, n=24):
-  """A size class's bucket rows and level blocks, each TU with a random
-  qp's dequant scale and shift (transform skip's for a quarter of the
-  TUs, where the block is not zeroed out), MTS kinds where the dimension
-  has them, LFNST on a third of the luma TUs of at least 4x4, a joint
-  CbCr mode on chroma, and a scaling-list matrix id (-1: flat)."""
-  zw, zh = min(w, 32), min(h, 32)
-  r = {k: np.zeros(n, np.int32) for k in BUCKET_ROWS}
-  qp = rng.integers(0, 52, n) + TI._QP_TAB_OFF
-  sc, sh = TI._scale_shift_tables(w.bit_length() - 1, h.bit_length() - 1, bd)
-  sc_ts, sh_ts = TI._scale_shift_tables_ts()
-  ts = (rng.random(n) < 0.25) & ((zw, zh) == (w, h))
-  r["scale"] = np.where(ts, sc_ts[qp], sc[qp])
-  r["shift"] = np.where(ts, sh_ts[qp], sh[qp])
-  r["ts"] = ts.astype(np.int32)
-  one_d = w == 1 or h == 1
-  mts_max = 16 if one_d else 32
-  for row, d in (("trh", w), ("trv", h)):
-    if 4 <= d <= mts_max:
-      r[row] = rng.integers(0, 3, n)
-  if not is_chroma and w >= 4 and h >= 4:
-    r["lf_sel"] = np.where(rng.random(n) < 0.35, rng.integers(0, 8, n), -1)
-    r["lf_tr"] = rng.integers(0, 2, n)
-  else:
-    r["lf_sel"][:] = -1
-  if is_chroma:
-    r["jop"] = rng.integers(0, 5, n)
-  r["slid"] = rng.integers(-1, 28, n)
-  lv = rng.integers(-300, 301, (n, zh, zw)) * (rng.random((n, zh, zw)) < 0.3)
-  mat = np.stack([r[k] for k in BUCKET_ROWS]).astype(np.int32)
-  return mat, lv.astype(np.int32)
-
-
-def _scaling_lists(rng):
-  return {"rec": rng.integers(1, 256, (28, 8, 8)).astype(np.int32),
-          "dc": rng.integers(1, 256, 14).astype(np.int32)}
 
 
 def _residuals_both(w, h, bd, is_chroma, with_sl, seed):

@@ -522,8 +522,8 @@ def test_ciip_tile_index_checked_by_recon():
 
 def test_frame_program_kernel_calls():
   """walk_frames runs the frame program's kernel calls through its hook,
-  in order: an I frame's recon of luma and chroma; a P frame's
-  inter_pred of luma and chroma first."""
+  in order: an I frame's residual and recon of luma, then of chroma; a
+  P frame's inter_pred of luma and chroma after the luma residual."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
 
@@ -538,13 +538,13 @@ def test_frame_program_kernel_calls():
   for fs, _ in walk_frames(aus, "cpu", record):
     frames.append((fs.slice_type, list(seen)))
     seen.clear()
-  recons = [("recon", "luma"), ("recon", "chroma")]
-  assert frames[0] == (2, recons)
+  luma = [("recon", "luma"), ("residual", "chroma"), ("recon", "chroma")]
+  assert frames[0] == (2, [("residual", "luma"), *luma])
   assert len(frames) == len(aus)
   for slice_type, calls in frames[1:]:
     assert slice_type == 1
-    assert calls == [("inter_pred", "luma"), ("inter_pred", "chroma"),
-                     *recons]
+    assert calls == [("residual", "luma"), ("inter_pred", "luma"),
+                     ("inter_pred", "chroma"), *luma]
 
 
 @pytest.mark.parametrize("errors", ["raise", "contain"])
@@ -654,14 +654,16 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
+  from ffmpeg_tpu_torch.ops import transform as T
 
   launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES,
-              "deblock": D.LAUNCHES, "alf": A.LAUNCHES}
+              "deblock": D.LAUNCHES, "alf": A.LAUNCHES,
+              "residual": T.LAUNCHES}
   called = set()
 
   def per_call(name, kw):
-    """Launches counted per call: recon, deblock and alf 1; inter_pred 1
-    per size class that has units."""
+    """Launches counted per call: residual, recon, deblock and alf 1;
+    inter_pred 1 per size class that has units."""
     if name != "inter_pred":
       return 1
     return sum(len(kw["inter"][k + "_host"]) > 0 for k in ("small", "large"))
@@ -688,8 +690,8 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720"])
 def test_recon_kernel_matches_plain_on_card(cuda, name):
-  assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {"recon",
-                                                              "deblock"}
+  assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {
+      "residual", "recon", "deblock"}
 
 
 @pytest.mark.gpu
@@ -848,7 +850,8 @@ def test_kernels_match_plain_on_card_inter(cuda, case):
   """Every kernel against its plain version on every frame of a P/B
   case, with the frame's real references."""
   called = _kernels_vs_plain(_stream(INTER_CASES[case]), cuda)
-  assert called - {"deblock", "alf"} == {"inter_pred", "recon"}
+  assert called - {"deblock", "alf"} == {"residual", "inter_pred",
+                                         "recon"}
   assert "deblock" in called or not INTER_CASES[case].get("deblock")
   assert ("alf" in called) == bool(INTER_CASES[case].get("alf"))
 
@@ -860,7 +863,8 @@ def test_kernels_match_plain_on_card_tools(cuda, case):
   with DMVR (its search and the refined controls run in the walk) or with
   LMCS and ALF, with the frame's real references."""
   called = _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda)
-  assert called - {"deblock", "alf"} == {"inter_pred", "recon"}
+  assert called - {"deblock", "alf"} == {"residual", "inter_pred",
+                                         "recon"}
   assert "deblock" in called or not TOOL_CASES[case].get("deblock")
   assert ("alf" in called) == bool(TOOL_CASES[case].get("alf"))
 
@@ -870,10 +874,11 @@ def _counts_zeroed():
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import recon as R
+  from ffmpeg_tpu_torch.ops import transform as T
 
   for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
             R.EDGE_LAUNCHES, R.PLAIN_RUNS, D.LAUNCHES, D.PLAIN_RUNS,
-            A.LAUNCHES, A.PLAIN_RUNS):
+            A.LAUNCHES, A.PLAIN_RUNS, T.LAUNCHES, T.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R
@@ -883,12 +888,17 @@ def _counts_zeroed():
 @pytest.mark.parametrize("case", sorted(INTRA_CASES))
 def test_intra_case_decodes_on_card(cuda, case):
   """The kernel path on every intra case: CTU 64 (32-wide chroma
-  units), 10/12-bit, 4:0:0, tiles, WPP, cropping."""
+  units), 10/12-bit, 4:0:0, tiles, WPP, cropping; the residual kernel
+  once a 4:0:0 frame, twice a 4:2:0 frame."""
+  from ffmpeg_tpu_torch.ops import transform as T
+
   with open(CASES_JSON) as f:
     want = json.load(f)[case]["md5"]
   _, R = _counts_zeroed()
   assert _port_md5s(_stream(INTRA_CASES[case]), device=cuda) == want
-  assert R.PLAIN_RUNS["recon"] == 0
+  assert R.PLAIN_RUNS["recon"] == 0 and T.PLAIN_RUNS["residual"] == 0
+  mono = INTRA_CASES[case].get("chroma_format_idc") == 0
+  assert T.LAUNCHES["residual"] == (1 if mono else 2) * len(want)
 
 
 @pytest.mark.gpu
@@ -948,8 +958,8 @@ def test_kernels_match_plain_on_card_ctu128_1080(cuda):
   times."""
   kinds = set()
   assert _kernels_vs_plain(_read("ctu128_1080"), cuda, n_frames=2, repeats=3,
-                           kinds=kinds) == {"inter_pred", "recon", "deblock",
-                                            "alf"}
+                           kinds=kinds) == {"residual", "inter_pred",
+                                            "recon", "deblock", "alf"}
   assert {"edge64", "high1", "cell1"} <= kinds, kinds
 
 
@@ -1020,18 +1030,21 @@ def test_coding_case_decodes_on_card(cuda, case):
                                   "full1080", "ctu128_1080", "ciip64",
                                   "gop720"])
 def test_fixture_decodes_on_card(cuda, name):
-  """Each fixture to its MD5s through the kernels: the ALF kernel twice
-  on each frame with ALF on (the traced alf spans count them), no plain
-  version run."""
+  """Each fixture to its MD5s through the kernels: the residual kernel
+  twice a frame (luma; Cb and Cr), the ALF kernel twice on each frame
+  with ALF on (the traced alf spans count them), no plain version
+  run."""
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
+  from ffmpeg_tpu_torch.ops import transform as T
   from ffmpeg_tpu_torch.utils import trace
 
   P, R = _counts_zeroed()
   trace.reset()
   trace.enable(True)
   try:
-    assert _port_md5s(_read(name), device=cuda) == _fixture_md5s(name)
+    got = _port_md5s(_read(name), device=cuda)
+    assert got == _fixture_md5s(name)
   finally:
     trace.enable(False)
   alf_frames = trace.summary().get("alf", {}).get("n", 0)
@@ -1039,6 +1052,8 @@ def test_fixture_decodes_on_card(cuda, name):
   assert (P.LAUNCHES["inter_pred"] > 0) == (not name.startswith("ai"))
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
   assert D.PLAIN_RUNS["deblock"] == 0 and A.PLAIN_RUNS["alf"] == 0
+  assert T.LAUNCHES["residual"] == 2 * len(got)
+  assert T.PLAIN_RUNS["residual"] == 0
   assert (alf_frames > 0) == (name in ("full1080", "ctu128_1080", "gop720"))
   assert A.LAUNCHES["alf"] == 2 * alf_frames
 
@@ -1174,6 +1189,7 @@ def test_gop_kernels_match_plain_on_card(cuda):
   assert [md5 for _, md5, _ in got] == want
   assert checked.count("recon") == 2 * len(got)
   assert checked.count("deblock") == 2 * len(got)
+  assert checked.count("residual") == 2 * len(got)
 
 
 # ---- the JAX side live (slow) ----------------------------------------------
