@@ -54,8 +54,9 @@ Phases, one JSON line each:
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
               of the path launched, the plain versions never ran, the
-              residual and deblock kernels launched twice a frame (luma;
-              Cb and Cr),
+              deblock kernel launched twice a frame (luma; Cb and Cr),
+              the residual wrapper called twice a frame, each call
+              launching one to three work groups (counted apart),
               the alf kernel twice on each frame with ALF on (the traced
               alf spans count those frames)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
@@ -77,10 +78,13 @@ Phases, one JSON line each:
               (dependency levels) and us per level on that frame and on
               ai720's frame 0, and on ctu128_1080's I and B frames (its
               recon levels and us per level, its inter kernel); the
-              residual, deblock and alf kernels' ms per launch (luma,
-              then Cb and Cr; the launch is the whole call; the residual
-              wrapper's host ms per call beside it), on the full1080 B
-              frame and the coding-tool frames; every
+              deblock and alf kernels' ms per launch (luma, then Cb and
+              Cr; the launch is the whole call) and the residual
+              kernel's ms per call (its plane fill and each work group's
+              launch apart, with each group's TUs, blocks, shared bytes
+              and resident blocks per SM; the wrapper's host ms per
+              call beside it), on the full1080 B frame and the
+              coding-tool frames; every
               timed launch of the kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
@@ -137,10 +141,13 @@ PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF, "ai720": INTRA,
 GOP_FIXTURES = ("ra1080", "gop720")
 GOP_WIDTHS = (1, 2, 4)
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate and the non-tensor
-# 32-bit rate, used for the kernels' least-time bounds
+# NVIDIA H100 SXM data sheet (dense): the HBM rate, and the int32 rate
+# outside the tensor cores, used for the kernels' least-time bounds (all
+# five kernels compute in integers): 64 INT32 lanes per SM (half the 128
+# FP32 lanes behind the 67e12 float32 rate), a multiply-add counted as two
+# operations: 132 SMs x 64 x 2 x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
-NON_TENSOR_32BIT_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.4e12
 
 
 def emit(obj) -> None:
@@ -170,7 +177,9 @@ def _zero_counts():
     mod.LAUNCHES[name] = 0
     mod.PLAIN_RUNS[name] = 0
   for d in (_counts()["inter_pred"].CLASS_LAUNCHES,
-            _counts()["recon"].EDGE_LAUNCHES):
+            _counts()["recon"].EDGE_LAUNCHES,
+            _counts()["residual"].GROUP_LAUNCHES,
+            _counts()["residual"].CALLS):
     for k in d:
       d[k] = 0
 
@@ -614,6 +623,10 @@ def _check_calls(fixture, calls, out, torch):
       emit(out)
       fail("kernels", f"{fixture} {name} {label}: kernel != plain "
            f"(max err {err})")
+    if name == "residual" and int(kw["err"].item()):
+      emit(out)
+      fail("kernels", f"{fixture} residual {label}: error word "
+           f"{int(kw['err'].item())}")
     if name == "deblock":
       _check_deblock_passes(fixture, label, kw, out, torch)
 
@@ -746,11 +759,16 @@ def phase_decode(torch):
     launches[name]["inter_pred_by_class"] = dict(
         counts["inter_pred"].CLASS_LAUNCHES)
     launches[name]["recon_by_edge"] = dict(counts["recon"].EDGE_LAUNCHES)
+    launches[name]["residual_by_group"] = dict(
+        counts["residual"].GROUP_LAUNCHES)
+    launches[name]["residual_calls"] = counts["residual"].CALLS["residual"]
     plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
         "launches": launches[name], "plain_runs": plain,
         "deblock_launches_per_frame": launches[name]["deblock"] / len(got),
+        "residual_calls_per_frame":
+            launches[name]["residual_calls"] / len(got),
         "residual_launches_per_frame":
             launches[name]["residual"] / len(got),
         "alf_frames": alf_frames,
@@ -767,11 +785,18 @@ def phase_decode(torch):
     if any(plain.values()):
       emit(res)
       fail("decode", f"{name}: a plain version ran: {plain}")
-    for k in ("deblock", "residual"):
-      if res["fixtures"][name][f"{k}_launches_per_frame"] != 2:
-        emit(res)
-        fail("decode", f"{name}: the {k} kernel was not launched twice a "
-             "frame (luma; Cb and Cr)")
+    if res["fixtures"][name]["deblock_launches_per_frame"] != 2:
+      emit(res)
+      fail("decode", f"{name}: the deblock kernel was not launched twice a "
+           "frame (luma; Cb and Cr)")
+    calls = launches[name]["residual_calls"]
+    if calls != 2 * len(got) or not calls <= launches[name]["residual"] \
+        <= 3 * calls or sum(launches[name]["residual_by_group"].values()) \
+        != launches[name]["residual"]:
+      emit(res)
+      fail("decode", f"{name}: the residual wrapper was not called twice a "
+           "frame (luma; Cb and Cr), each call launching 1 to 3 work "
+           f"groups: {calls} calls, {launches[name]['residual_by_group']}")
     if launches[name]["alf"] != 2 * alf_frames or \
         bool(alf_frames) != ("alf" in PATH_KERNELS[name]):
       emit(res)
@@ -1011,58 +1036,106 @@ def _time_whole_call(name, kw, torch, reps, rounds):
 
 
 def _residual_runs(kw, want, torch, reps):
-  """reps launches of the residual kernel on one call's inputs, queued
-  behind _hold_card and timed with CUDA events: per launch the whole
-  call's card time (the fill of its fresh planes and the launch).  The
-  wrapper reads each launch's error word, which waits for it, so these
-  launches go through its launch half (_residual_launch) and their words
-  are read after the last.  Every output is held against `want`, the
-  plain version's.  Returns (ms per launch, launches that differ or set
-  their error word)."""
-  from ffmpeg_tpu_torch.ops.transform import _classes, _residual_launch
+  """reps calls of the residual kernel on one call's inputs, queued
+  behind _hold_card and timed with CUDA events, twice: as the wrapper
+  runs them (the fill of the fresh planes, then the work groups'
+  launches, each free to start while the one before runs), per call;
+  then with the wrapper's mark hook recording an event before each group,
+  which runs each group alone, after the one before: the fill, each
+  group, and their sum.  Every output is held against `want`, the plain
+  version's, and the error word, read after the last call, must stay 0.
+  Returns (ms per call, fill ms, ms per group, their sum, calls that
+  differ or set the error word)."""
+  from ffmpeg_tpu_torch.ops.transform import (GROUPS, _classes,
+                                              _residual_launch, error_word)
 
   dev, classes = _classes(**kw)
   args = {k: kw[k] for k in ("Hp", "Wp", "bit_depth", "chroma",
                              "chroma_scale", "sl")}
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  _hold_card(torch)
-  start.record()
-  outs = [_residual_launch(dev, classes, nch=len(kw["buckets"]), **args)
+  err = error_word(dev)
+  n = len(GROUPS)
+
+  def run(marked):
+    # the unmarked run's calls go back to back between its first and its
+    # last event, as the frame program queues them
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(n + 2)]
           for _ in range(reps)]
-  end.record()
-  torch.cuda.synchronize()
-  return (start.elapsed_time(end) / reps,
-          sum(not torch.equal(p, want) or int(e.item()) != 0
-              for p, e in outs))
+    _hold_card(torch)
+    outs = []
+    for i, e in enumerate(ev):
+      if marked or i == 0:
+        e[0].record()
+      outs.append(_residual_launch(
+          dev, classes, nch=len(kw["buckets"]), err=err,
+          mark=(lambda g, e=e: e[1 + g].record()) if marked else None,
+          **args))
+      if marked or i == reps - 1:
+        e[n + 1].record()
+    torch.cuda.synchronize()
+    return ev, outs
+
+  ev, outs = run(False)
+  total = ev[0][0].elapsed_time(ev[-1][n + 1]) / reps
+  ev, marked = run(True)
+  fill = sum(e[0].elapsed_time(e[1]) for e in ev) / reps
+  groups = {g: sum(e[1 + i].elapsed_time(e[2 + i]) for e in ev) / reps
+            for i, g in enumerate(GROUPS)}
+  serial = ev[0][0].elapsed_time(ev[-1][n + 1]) / reps
+  bad = sum(not torch.equal(p, want) for p in outs + marked)
+  return total, fill, groups, serial, bad + (reps if int(err.item()) else 0)
 
 
 def _time_residual(kw, torch, reps, rounds):
-  """One residual call: ms per launch (mean of `rounds` rounds of `reps`
-  launches), the launches that differ from the plain version, and the
-  wrapper's host ms per call: its launch half queued behind a held card
-  (the checks, the class table and the launch), and the whole wrapper
-  synced (with the card's time and the error word's read)."""
-  from ffmpeg_tpu_torch.ops.transform import (_classes, _residual_launch,
-                                              residual_planes)
+  """One residual call: ms per call (mean of `rounds` rounds of `reps`
+  calls), the fill and each work group's launch apart (each run alone:
+  serial_ms their sum with the fill), each group's
+  classes, TUs, blocks (items: a packed group's blocks of TUs, or the
+  large group's bands), dynamic shared bytes and resident blocks per SM,
+  the calls that differ from the plain version, and the wrapper's host
+  ms per call: queued behind a held card (the checks, the work split and
+  the launches: the wrapper reads nothing back), and synced after each
+  call (with the card's time)."""
+  from ffmpeg_tpu_torch.ops.transform import (GROUPS, _classes, error_word,
+                                              launch_plan, residual_planes)
 
   want = _plain("residual", kw)
   runs = [_residual_runs(kw, want, torch, reps) for _ in range(rounds)]
-  args = {k: kw[k] for k in ("Hp", "Wp", "bit_depth", "chroma",
-                             "chroma_scale", "sl")}
-
-  def launch_half():
-    _residual_launch(*_classes(**kw), nch=len(kw["buckets"]), **args)
-
+  dev, classes = _classes(**kw)
+  plan = launch_plan(classes)
+  call = dict(kw, err=error_word(dev))
   return {"ms": sum(r[0] for r in runs) / rounds,
+          "fill_ms": sum(r[1] for r in runs) / rounds,
+          "group_ms": {g: sum(r[2][g] for r in runs) / rounds
+                       for g in GROUPS},
+          "serial_ms": sum(r[3] for r in runs) / rounds,
+          "groups": {g: {k: grp.get(k) for k in (
+              "items", "tus", "smem", "blocks_per_sm")} | {
+              "classes": len(grp["classes"])}
+              for g, grp in zip(GROUPS, plan)},
           "tus": sum(int(c[wh]["n"]) for c in kw["buckets"]
                      for wh in kw["sizes"]),
-          "host_ms_per_call_card_held": _host_ms(launch_half, torch, reps,
-                                                 True),
+          "host_ms_per_call_card_held": _host_ms(
+              lambda: residual_planes(**call), torch, reps, True),
           "wall_ms_per_call_synced": _host_ms(
-              lambda: residual_planes(**kw), torch, reps, False),
-          "calls_checked": reps * rounds,
-          "calls_unequal": sum(r[1] for r in runs)}
+              lambda: residual_planes(**call), torch, reps, False),
+          "calls_checked": 2 * reps * rounds,
+          "calls_unequal": sum(r[4] for r in runs)}
+
+
+def _print_residual(tag, label, r, plain_ms=None):
+  """One residual call's timing line: ms per call, the fill and each
+  work group apart with its TUs, blocks, shared bytes and blocks per SM,
+  and the wrapper's host ms per call."""
+  groups = ", ".join(
+      f"{g} {r['group_ms'][g]} ms ({d['tus']} TUs, {d['items']} blocks, "
+      f"{d['smem']} B shared, {d['blocks_per_sm']} blocks/SM)"
+      for g, d in r["groups"].items() if d["items"])
+  print(f"chip_smoke: timing {tag} residual {label}: {r['ms']} ms per call"
+        + ("" if plain_ms is None else f" (plain {plain_ms})")
+        + f"; each group alone: fill {r['fill_ms']} ms, {groups}, in all "
+        f"{r['serial_ms']} ms; wrapper host ms per call "
+        f"{r['host_ms_per_call_card_held']} card held, "
+        f"{r['wall_ms_per_call_synced']} synced", flush=True)
 
 
 def _time_call(name, label, kw, levels, torch, reps, rounds):
@@ -1124,11 +1197,12 @@ def phase_timing(torch, card, calls, levels):
     kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
-  for name, rr in (("residual", residual), ("deblock", deblock),
-                   ("alf", alf)):
+  for name, rr in (("deblock", deblock), ("alf", alf)):
     print(f"chip_smoke: timing {MAIN} {name} ms per launch: " + ", ".join(
         f"{label} {r['ms']} (plain {plain[f'{name}/{label}']})"
         for label, r in rr.items()), flush=True)
+  for label, r in residual.items():
+    _print_residual(MAIN, label, r, plain[f"residual/{label}"])
   for name, label, kw in calls["ai720"]:
     if name == "recon":
       recon["ai720"][label] = _time_recon(kw, levels["ai720"][label], torch,
@@ -1150,6 +1224,8 @@ def phase_timing(torch, card, calls, levels):
         f", {name} {label} {r['ms']} ms"
         for name in ("residual", "inter_pred", "deblock", "alf")
         for label, r in t[name].items()), flush=True)
+    for label, r in t["residual"].items():
+      _print_residual(key, label, r, t["plain_ms"][f"residual/{label}"])
   out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
@@ -1509,12 +1585,12 @@ def phase_parallel(torch, card):
 
 def _bound(name, calls):
   """The least time of a kernel's calls of one frame: the larger of its
-  bytes over the HBM rate and its operations over the 32-bit rate."""
+  bytes over the HBM rate and its operations over the int32 rate."""
   mine = [kw for n, _, kw in calls if n == name]
   bound_bytes = sum(_bytes_moved(name, kw) for kw in mine) \
       / HBM_BYTES_PER_S * 1e3
   bound_ops = sum(_ops(name, kw) for kw in mine) \
-      / NON_TENSOR_32BIT_OPS_PER_S * 1e3
+      / INT32_OPS_PER_S * 1e3
   return {"bound_ms": max(bound_bytes, bound_ops),
           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
 
@@ -1530,7 +1606,8 @@ def _tool_row(name, calls, timed):
           "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
               "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
               "small_ms", "large_ms", "small_units", "large_units", "tus",
-              "host_ms_per_call_card_held")}
+              "host_ms_per_call_card_held", "fill_ms", "group_ms",
+              "serial_ms", "groups")}
               for label, r in timed[name].items()}}
 
 
@@ -1599,9 +1676,13 @@ def main() -> int:
                               {"deblock": deblock, "alf": alf}[name].items()}
     elif name == "residual":
       rows[-1]["split_ms"] = {
-          label: {k: r[k] for k in ("ms", "tus", "host_ms_per_call_card_held",
+          label: {k: r[k] for k in ("ms", "fill_ms", "group_ms", "serial_ms",
+                                    "groups", "tus",
+                                    "host_ms_per_call_card_held",
                                     "wall_ms_per_call_synced")}
           for label, r in residual.items()}
+      rows[-1]["launches_by_group"] = {
+          f: launches[f]["residual_by_group"] for f in FIXTURES}
     else:
       rows[-1]["launches_by_class"] = {
           f: launches[f]["inter_pred_by_class"] for f in FIXTURES}

@@ -11,6 +11,10 @@ one run of the frame program (pipeline.py) on the session's device.
     one pinned host buffer and a single stream synchronisation.
   - Frames are produced ahead of the consumer, so device work of frame
     n+1 overlaps the host parse and fetch of earlier frames.
+  - Each frame's residual error word (pipeline.frame_program) is read
+    before the frame, or any frame decoded after it, is handed out: with
+    the group's fetch, or (fetch=False) through a pinned copy and an
+    event; a word that names rows out of range raises RuntimeError.
 
 The session runs on `device` ("cuda" unless the caller passes "cpu");
 a CUDA session without a CUDA device raises, it never falls back.
@@ -23,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...ops.transform import raise_on_error
 from ...utils import trace
 from ...utils.log import get_logger
 from .host import HostDecoder
@@ -91,24 +96,76 @@ class Frame:
         return hashlib.md5(self.tobytes()).hexdigest()
 
 
-def _fetch_group(packed_list):
+def _fetch_group(packed_list, errs=()):
     """Bring a group of packed frame buffers to the host: CUDA buffers
     go with non-blocking copies into one pinned buffer and a single
-    synchronisation of each device's current stream."""
+    synchronisation of each device's current stream.  errs: (label,
+    error word) pairs of frames (pipeline.frame_program's "err"), fetched
+    with the buffers and read before any buffer is returned: a word that
+    names rows out of range raises RuntimeError with its label."""
+    errs = list(errs)
     with trace.span("fetch"):
-        if all(p.device.type == "cpu" for p in packed_list):
-            return [_host_view(p) for p in packed_list]
-        nbytes = [p.numel() * p.element_size() for p in packed_list]
-        host = torch.empty(sum(nbytes), dtype=torch.uint8, pin_memory=True)
-        views, off = [], 0
-        for p, nb in zip(packed_list, nbytes):
-            dst = host[off:off + nb].view(p.dtype)
-            dst.copy_(p, non_blocking=True)
-            views.append(dst)
-            off += nb
-        for dev in {p.device for p in packed_list}:
-            torch.cuda.current_stream(dev).synchronize()
-        return [_host_view(v) for v in views]
+        tensors = [e for _, e in errs] + list(packed_list)
+        if all(t.device.type == "cpu" for t in tensors):
+            views = tensors
+        else:
+            nbytes = [t.numel() * t.element_size() for t in tensors]
+            host = torch.empty(sum(nbytes), dtype=torch.uint8,
+                               pin_memory=True)
+            views, off = [], 0
+            for t, nb in zip(tensors, nbytes):
+                dst = host[off:off + nb].view(t.dtype)
+                dst.copy_(t, non_blocking=True)
+                views.append(dst)
+                off += nb
+            for dev in {t.device for t in tensors}:
+                torch.cuda.current_stream(dev).synchronize()
+        for (label, _), word in zip(errs, views):
+            raise_on_error(int(word[0]), f" ({label})")
+        return [_host_view(v) for v in views[len(errs):]]
+
+
+class _ErrorWords:
+    """The residual error words of a session's frames not yet read, in
+    decode order: (decode index, POC, word on the device, pinned host
+    copy, event after the copy); the copy and event only for frames that
+    are handed out unfetched (decode(fetch=False)) from a CUDA device."""
+
+    def __init__(self):
+        self.pending = []
+
+    def add(self, idx, poc, err, copy):
+        host = ev = None
+        if copy and err.device.type == "cuda":
+            host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+            host.copy_(err, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        self.pending.append((idx, poc, err, host, ev))
+
+    def labelled(self):
+        """The pending words as _fetch_group's errs, all now read."""
+        out = [(f"POC {poc}", err) for _, poc, err, _, _ in self.pending]
+        self.pending.clear()
+        return out
+
+    def check(self, upto):
+        """Read the words of the frames decoded up to index `upto` (a
+        frame handed out and every frame it may reference); raises
+        RuntimeError on the first that names rows out of range."""
+        keep = []
+        for entry in self.pending:
+            idx, poc, err, host, ev = entry
+            if idx > upto:
+                keep.append(entry)
+                continue
+            if ev is not None:
+                ev.synchronize()
+                word = int(host[0])
+            else:
+                word = int(err.item())
+            raise_on_error(word, f" (POC {poc})")
+        self.pending = keep
 
 
 _PARAM_NAL_TYPES = (12, 13, 14, 15, 16, 17, 18)  # OPI/DCI/VPS/SPS/PPS/APS
@@ -268,11 +325,13 @@ class VVCDecoder:
 
         aus = self._split_aus(data)
         window: list = []  # Frames queued on the device, not yet fetched
+        words = _ErrorWords()  # their residual error words, and others'
+        n_submitted = 0
 
         def flush():
             if not window:
                 return []
-            bufs = _fetch_group([f.buf for f in window])
+            bufs = _fetch_group([f.buf for f in window], words.labelled())
             for f, b in zip(window, bufs):
                 f.buf = b
             out = list(window)
@@ -295,6 +354,7 @@ class VVCDecoder:
 
         def emit(frame):
             if not fetch:
+                words.check(frame._decode_idx)
                 return [frame]
             window.append(frame)
             if len(window) >= self.config.fetch_batch:
@@ -356,8 +416,10 @@ class VVCDecoder:
                 self._dpb.clear()
             first = False
             reorder_depth = fs.max_num_reorder
-            packed, planes = submit_frame(host_inp, fs, self.device,
-                                          self._dpb)
+            packed, planes, err = submit_frame(host_inp, fs, self.device,
+                                               self._dpb)
+            words.add(n_submitted, fs.poc, err, copy=not fetch)
+            n_submitted += 1
             self._dpb[fs.poc] = planes
             # RPS-driven DPB lifetime (spec 8.3.2 / vvc_refs.c:196-294)
             listed = set(fs.ref_pocs[0]) | set(fs.ref_pocs[1])
@@ -386,10 +448,12 @@ class VVCDecoder:
                                                     or not recovered)
             if not suppress:
                 cl, cr2, ct, cb2 = fs.crop
-                pending_out.append(Frame(poc=fs.poc, buf=packed,
-                                         width=fs.width - cl - cr2,
-                                         height=fs.height - ct - cb2,
-                                         bit_depth=fs.bit_depth))
+                frame = Frame(poc=fs.poc, buf=packed,
+                              width=fs.width - cl - cr2,
+                              height=fs.height - ct - cb2,
+                              bit_depth=fs.bit_depth)
+                frame._decode_idx = n_submitted - 1
+                pending_out.append(frame)
             yield from bump()
         yield from bump(all_of_them=True)
         yield from flush()

@@ -37,7 +37,8 @@ from ...ops.inter import inter_pred, inter_pred_plain_kind
 from ...ops.lmcs import lmcs_inv, lmcs_vpdu_scales
 from ...ops.recon import recon_plane, recon_plane_plain_kind
 from ...ops.sao import sao_plane
-from ...ops.transform import residual_planes, residual_planes_plain
+from ...ops.transform import (error_word, raise_on_error, residual_planes,
+                               residual_planes_plain)
 from ...utils import trace
 from .convert import inputs_from_numpy
 from .host import ColStore, FrameSyntax, HostDecoder, dmvr_apply
@@ -97,7 +98,11 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   The default runs the wrapper; a check passes its own to hold each call
   against the plain version.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
-  (uint8, or int16 holding the uint16 sample bytes above 8 bits)}."""
+  (uint8, or int16 holding the uint16 sample bytes above 8 bits), "err":
+  the frame's residual error word, a one-element int32 tensor on
+  `device` that both residual calls write and nothing reads: the caller
+  reads it (ops/transform.py raise_on_error) before it hands the frame
+  out}."""
   bd = bit_depth
   sync = _sync_for(device)
   maxs_y = 1 << ctb_log2
@@ -105,6 +110,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   n_comp = 1 if mono else 3
   lm = inp.get("lmcs")
   call = call or _launch
+  err = error_word(device)
 
   def residual(label, chroma_scale=None):
     # one call per plane kind; luma's size classes vary with its tools
@@ -116,7 +122,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
           sizes=CHROMA_SIZES if cs[0] else list(inp["planes"][0]["buckets"]),
           Hp=Hp_c if cs[0] else Hp_y, Wp=Wp_c if cs[0] else Wp_y,
           bit_depth=bd, chroma=bool(cs[0]), chroma_scale=chroma_scale,
-          sl=inp.get("sl")))
+          sl=inp.get("sl"), err=err))
 
   res_y = residual("luma")
   # plane kinds: (label, chroma shift, control, reference channels)
@@ -215,7 +221,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
                         cl >> 1:(W - cr) >> 1].to(dt).reshape(-1)
               for c in range(1, n_comp)]
     packed = torch.cat(parts) if len(parts) > 1 else parts[0]
-  return {"planes": planes, "packed": packed}
+  return {"planes": planes, "packed": packed, "err": err}
 
 
 def frame_geometry(fs: FrameSyntax) -> dict:
@@ -291,21 +297,23 @@ def submit_frame(host_inp, fs: FrameSyntax, device, dpb: dict, call=None,
   """Main-thread half: move the inputs to `device` and run the frame
   program against the DPB's planes (poc -> per-component planes), on
   the device's current stream.  call: as in frame_program; missing: as
-  in resolve_refs.  Returns (packed, planes), both on `device`."""
+  in resolve_refs.  Returns (packed, planes, err), all on `device`: err
+  is the frame's residual error word (frame_program), unread."""
   with trace.span("h2d", _sync_for(device)):
     inp = inputs_from_numpy(host_inp, device)
   out = frame_program(inp, resolve_refs(fs, dpb, device, missing),
                       device=device, call=call, **frame_geometry(fs))
-  return out["packed"], out["planes"]
+  return out["packed"], out["planes"], out["err"]
 
 
 def walk_frames(aus, device, call):
   """Every frame of a stream's access units (VVCDecoder._split_aus) in
   decode order through the frame program, on one thread, each frame
   kept as a reference for the later ones: yields (fs, host inputs)
-  after each frame's program was queued.  call: as in frame_program.
-  The card checks walk streams with it, to hold each kernel call of the
-  real program against its plain version."""
+  after each frame's program ran, its residual error word read (a frame
+  with rows out of range raises RuntimeError).  call: as in
+  frame_program.  The card checks walk streams with it, to hold each
+  kernel call of the real program against its plain version."""
   colstore = ColStore()
   host, dpb = HostDecoder(colstore), {}
   for _, epoch, au in aus:
@@ -315,5 +323,6 @@ def walk_frames(aus, device, call):
     if has_dmvr(fs):
       refine_dmvr(fs, colstore, epoch, dpb, device)
     h = build_host_inputs(fs)
-    _, dpb[fs.poc] = submit_frame(h, fs, device, dpb, call=call)
+    _, dpb[fs.poc], err = submit_frame(h, fs, device, dpb, call=call)
+    raise_on_error(int(err.item()), f" (POC {fs.poc})")
     yield fs, h

@@ -17,9 +17,11 @@ replace the flat dequant factor 16 with a per-coefficient factor.
 
 `residual_planes` is the frame program's entry point: one call for the
 luma plane, one for the Cb and Cr planes together.  A CUDA tensor
-launches the kernel (csrc/residual.cu: one launch per call, one thread
-block per TU, int32 sums, each TU written once into a zero-filled
-plane); a CPU tensor runs the plain version, `residual_planes_plain`,
+launches the kernel (csrc/residual.cu: up to three launches per call,
+one per work group of `work_split`, int32 sums, each TU written once
+into a zero-filled plane; rows out of range set the frame's error word,
+which the caller reads, `raise_on_error`, before it hands the frame
+out); a CPU tensor runs the plain version, `residual_planes_plain`,
 composed of `residual_plane` per component (the ports of the JAX
 functions below, and the kernel's oracle).
 
@@ -43,9 +45,12 @@ import torch
 from .tables import VVC_TABLES as _TABLES
 from .tables import on_device
 
-# launches of the CUDA kernel, and runs of the plain version: plain
-# integer counters a caller may reset to 0 and read back
+# launches of the CUDA kernel (each work group's apart in GROUP_LAUNCHES),
+# the wrapper's calls on the card (each launches once per non-empty
+# group), and runs of the plain version: plain integer counters a caller
+# may reset to 0 and read back
 LAUNCHES = {"residual": 0}
+CALLS = {"residual": 0}
 PLAIN_RUNS = {"residual": 0}
 
 LEVEL_SCALE = np.array([[40, 45, 51, 57, 64, 72],
@@ -321,19 +326,108 @@ ERRORS = {1: "a transform kind outside 0..2",
           8: "a block that leaves the plane",
           16: "a dequant shift outside 0..31"}
 
+
+def raise_on_error(word: int, where: str = "") -> None:
+  """Raise RuntimeError naming the bad rows of a read error word (0: the
+  frame's TUs were all in range)."""
+  if word:
+    raise RuntimeError(f"residual kernel{where}: rows out of range: "
+                       + "; ".join(msg for bit, msg in ERRORS.items()
+                                   if word & bit))
+
+
+def error_word(device) -> torch.Tensor:
+  """A frame's zeroed error word: the kernel ORs the checks that a TU's
+  rows fail into it, and the frame's caller reads it."""
+  return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 # the transform sizes a class may have a side of
 _EDGES = (1, 2, 4, 8, 16, 32, 64)
 
+# The kernel's work groups (csrc/residual.cu): a class goes to the first
+# whose largest TU it fits (w * h samples).  small: 16 lanes a TU, 8 TUs
+# a block; medium: a warp a TU, 4 TUs a block; large: a block per band of
+# min(h, 512 / w) output rows of one TU.  SMEM_BUDGET: each group's most
+# shared memory a block may take (bytes), above its largest class's need.
+GROUPS = ("small", "medium", "large")
+GROUP_LAUNCHES = {g: 0 for g in GROUPS}
+_GROUP_MAX = (64, 256)
+_THREADS = 128
+_LANES = (16, 32)
+_BAND_SAMPLES = 512
+_NUM_ROWS = len(BUCKET_ROWS)
+SMEM_BUDGET = (20480, 24576, 16384)
 
-def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl):
+
+def work_group(w: int, h: int) -> int:
+  """The work group (an index of GROUPS) of a (w, h) class."""
+  return next((g for g, m in enumerate(_GROUP_MAX) if w * h <= m), 2)
+
+
+def tus_per_item(group: int) -> int:
+  return _THREADS // _LANES[group] if group < 2 else 1
+
+
+def band_rows(w: int, h: int) -> int:
+  """Output rows per item: a large class's band, else the whole TU."""
+  if work_group(w, h) < 2:
+    return h
+  return min(h, max(1, _BAND_SAMPLES // w))
+
+
+def smem_bytes(group: int, w: int, h: int, band: int) -> int:
+  """Shared memory of one item of class (w, h) in its group
+  (csrc/residual.cu residual_smem_ints): packed, per TU its levels, its
+  column-pass rows (2-D) and its 14 rows, then room for every kind of
+  both bases (at a pitch of the coded extent + 1); large, the TU's coded
+  corner, the
+  band's column-pass rows and vertical basis rows, the horizontal
+  basis."""
+  zw, zh = _zo(w), _zo(h)
+  if group == 2:
+    return 4 * (zh * zw + band * zw + band * (zh + 1) + w * (zw + 1))
+  one_d = w == 1 or h == 1
+  mts = 16 if one_d else 32
+  uses_v = (w == 1 if one_d else True) and 4 <= h <= mts
+  uses_h = (h == 1 if one_d else True) and 4 <= w <= mts
+  kv = (3 if uses_v else 1) if h > 1 else 0
+  kh = (3 if uses_h else 1) if w > 1 else 0
+  per = tus_per_item(group)
+  return 4 * (per * (zh * zw + (0 if one_d else h * zw) + _NUM_ROWS)
+              + kv * h * (zh + 1) + kh * w * (zw + 1))
+
+
+def work_split(counts) -> list:
+  """The kernel's launches of one call, from its classes' counts alone
+  (O(classes) host work, nothing read per TU).  counts: (w, h, n) per
+  non-empty class, in call order.  Returns per group of GROUPS a dict:
+  "classes", [(index into counts, first item, TUs per item, rows per
+  item)]; "items", the launch's blocks; "smem", its dynamic shared memory
+  in bytes, the largest need of its classes (at most SMEM_BUDGET).  A
+  group with no class has 0 items and is not launched."""
+  out = [{"classes": [], "items": 0, "smem": 0} for _ in GROUPS]
+  for k, (w, h, n) in enumerate(counts):
+    g = work_group(w, h)
+    per, band = tus_per_item(g), band_rows(w, h)
+    grp = out[g]
+    grp["classes"].append((k, grp["items"], per, band))
+    grp["items"] += -(-n // per) * (h // band)
+    grp["smem"] = max(grp["smem"], smem_bytes(g, w, h, band))
+  return out
+
+
+def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl,
+             err=None):
   """Check a call's inputs, on every device, and list its non-empty
   classes for the kernel: (component, w, h, bucket).  Per component a
   bucket per size, whose (14, ld) row matrix and (ld, zh, zw) levels are
   contiguous int32 tensors of at least n columns and blocks on one
   device; one component for luma, two for chroma; the chroma scales (a
   chroma call's only) and the scaling lists ({"rec": (28, 8, 8), "dc":
-  (14,)}) contiguous int32 on that device; 8 to 12 bits.  Raises
-  ValueError on anything else: nothing is copied or converted."""
+  (14,)}) contiguous int32 on that device; 8 to 12 bits; the error word,
+  where given, one int32 on that device.  Raises ValueError on anything
+  else: nothing is copied or converted."""
   def bad(msg):
     raise ValueError(f"residual: {msg}")
 
@@ -372,6 +466,8 @@ def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl):
     extra["chroma_scale"] = (chroma_scale, None)
   if sl is not None:
     extra.update(rec=(sl["rec"], (28, 8, 8)), dc=(sl["dc"], (14,)))
+  if err is not None:
+    extra["err"] = (err, (1,))
   for k, (t, shape) in extra.items():
     if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev \
         or (shape is None and (t.dim() != 1 or not t.numel())) \
@@ -382,7 +478,7 @@ def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl):
 
 
 def residual_planes(*, buckets, sizes, Hp: int, Wp: int, bit_depth: int,
-                    chroma: bool, chroma_scale=None, sl=None):
+                    chroma: bool, chroma_scale=None, sl=None, err=None):
   """The residual planes of one call of the frame program: luma, or Cb
   and Cr together.
 
@@ -391,21 +487,23 @@ def residual_planes(*, buckets, sizes, Hp: int, Wp: int, bit_depth: int,
   BUCKET_ROWS order, "lv": (ld, min(h, 32), min(w, 32)) int32 levels,
   "n": live TUs}}; sizes: the classes to run, in order.  chroma_scale:
   the per-VPDU LMCS scales (chroma only), sl: the explicit scaling lists,
-  as in bucket_residuals.  Returns (nch, Hp, Wp) int32, zero outside the
-  TUs.  A CUDA tensor launches the kernel and raises on the rows its
-  error word names (reading the word waits for the launch); a CPU tensor
-  runs the plain version; nothing falls back from one to the other."""
+  as in bucket_residuals.  err: the frame's error word (`error_word`),
+  required on the card.  Returns (nch, Hp, Wp) int32, zero outside the
+  TUs.  A CUDA tensor launches the kernel and returns at once, without
+  reading anything back: a TU whose rows are out of range writes nothing
+  and sets its bits in `err`, which the caller reads (`raise_on_error`)
+  before it hands the frame out.  A CPU tensor runs the plain version,
+  which raises at once on such rows (`err` stays 0); nothing falls back
+  from one to the other."""
   dev, classes = _classes(buckets, sizes, Hp, Wp, bit_depth, chroma,
-                          chroma_scale, sl)
+                          chroma_scale, sl, err)
   if dev.type == "cuda":
-    planes, err = _residual_launch(dev, classes, nch=len(buckets), Hp=Hp,
-                                   Wp=Wp, bit_depth=bit_depth, chroma=chroma,
-                                   chroma_scale=chroma_scale, sl=sl)
-    e = int(err.item())  # waits for the launch
-    if e:
-      raise RuntimeError("residual kernel: rows out of range: " + "; ".join(
-          msg for bit, msg in ERRORS.items() if e & bit))
-    return planes
+    if err is None:
+      raise ValueError("residual: a call on the card needs the frame's "
+                       "error word (err)")
+    return _residual_launch(dev, classes, nch=len(buckets), Hp=Hp, Wp=Wp,
+                            bit_depth=bit_depth, chroma=chroma,
+                            chroma_scale=chroma_scale, sl=sl, err=err)
   if dev.type != "cpu":
     raise ValueError(f"residual: unsupported device {dev}")
   return residual_planes_plain(buckets=buckets, sizes=sizes, Hp=Hp, Wp=Wp,
@@ -415,9 +513,10 @@ def residual_planes(*, buckets, sizes, Hp: int, Wp: int, bit_depth: int,
 
 def residual_planes_plain(*, buckets, sizes, Hp: int, Wp: int,
                           bit_depth: int, chroma: bool, chroma_scale=None,
-                          sl=None):
+                          sl=None, err=None):
   """residual_planes's plain version, with its arguments and result:
-  residual_plane per component."""
+  residual_plane per component.  Rows out of range raise at once (torch's
+  indexing); `err` is not written."""
   PLAIN_RUNS["residual"] += 1
   dev = buckets[0][sizes[0]]["mat"].device
   return torch.stack([residual_plane(b, Hp, Wp, bit_depth, sizes, chroma,
@@ -468,47 +567,77 @@ def _get_kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.residual_launch.restype = ctypes.c_int
     lib.residual_launch.argtypes = [
-        p, i, p, p,         # classes, their count, planes, error word
+        i, i, p, i, i, i,   # group, after another, classes, their count,
+                            # items, smem
+        p, p,               # planes, error word
         i, i, i, i, i,      # nch, Hp, Wp, bit_depth, chroma
         p, i, p, p,         # chroma scales, their count, sl rec, sl dc
         p, p, i, p]         # tables, their offsets, offset count, stream
+    lib.residual_occupancy.restype = ctypes.c_int
+    lib.residual_occupancy.argtypes = [i, i]
     lib.residual_error_string.restype = ctypes.c_char_p
     lib.residual_error_string.argtypes = [ctypes.c_int]
     _lib = lib
   return _lib
 
 
+def launch_plan(classes) -> list:
+  """The launches of a call (_classes's list), without launching: per
+  group of GROUPS its work_split entry with its TUs, and on the card the
+  kernel's resident blocks per SM at its shared memory."""
+  split = work_split([(w, h, int(b["n"])) for _, w, h, b in classes])
+  for g, grp in enumerate(split):
+    grp["tus"] = sum(int(classes[k][3]["n"]) for k, *_ in grp["classes"])
+    if grp["items"] and _lib is not None:
+      grp["blocks_per_sm"] = _lib.residual_occupancy(g, grp["smem"])
+  return split
+
+
 def _residual_launch(dev, classes, *, nch, Hp, Wp, bit_depth, chroma,
-                     chroma_scale, sl):
-  """One launch over `classes` (_classes) on the device's current stream
-  into a new zero-filled (nch, Hp, Wp) tensor, which every thread block
-  writes its TU into.  Returns the planes and the kernel's error word (a
-  one-element tensor in the same allocation, after the planes: one fill
-  for both), unread."""
+                     chroma_scale, sl, err, mark=None):
+  """The kernel's launches over `classes` (_classes) on the device's
+  current stream, one per non-empty work group (work_split), into a new
+  zero-filled (nch, Hp, Wp) tensor, which every item writes its TUs' rows
+  into; the failed checks go into `err`, unread.  A group launched after
+  another of the call may start while that one runs (their TUs are
+  disjoint; csrc/residual.cu Overlap).  mark(group), if given, is called
+  just before each group's launch, to record a CUDA event and time the
+  groups apart (which then run one after another).  Returns the
+  planes."""
   lib = _get_kernel()
   blob, toff = _table_blob()
   tab = on_device(("residual_tables",), dev,
                   lambda: torch.from_numpy(blob))
-  rows = []
-  for c, w, h, b in classes:
-    rows += [b["mat"].data_ptr(), b["lv"].data_ptr(), w, h, int(b["n"]),
-             b["mat"].shape[1], c]
-  buf = torch.zeros(nch * Hp * Wp + 1, dtype=torch.int32, device=dev)
-  planes, err = buf[:-1].view(nch, Hp, Wp), buf[-1:]
+  planes = torch.zeros((nch, Hp, Wp), dtype=torch.int32, device=dev)
   scale = (None, 0) if chroma_scale is None else (chroma_scale.data_ptr(),
                                                   chroma_scale.numel())
   lists = (None, None) if sl is None else (sl["rec"].data_ptr(),
                                            sl["dc"].data_ptr())
+  CALLS["residual"] += 1
+  split = work_split([(w, h, int(b["n"])) for _, w, h, b in classes])
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.residual_launch(
-        (ctypes.c_longlong * len(rows))(*rows), len(classes),
-        planes.data_ptr(), err.data_ptr(), nch, Hp, Wp, bit_depth,
-        int(chroma), *scale, *lists, tab.data_ptr(), toff.ctypes.data,
-        len(toff), stream)
-  if rc != 0:
-    raise RuntimeError("residual kernel launch failed: "
-                       f"{lib.residual_error_string(rc).decode()}")
-  LAUNCHES["residual"] += 1
-  return planes, err
-
+    after = 0
+    for g, grp in enumerate(split):
+      if mark is not None:
+        mark(g)
+      if not grp["items"]:
+        continue
+      rows = []
+      for k, first, per, band in grp["classes"]:
+        c, w, h, b = classes[k]
+        rows += [b["mat"].data_ptr(), b["lv"].data_ptr(), w, h, int(b["n"]),
+                 b["mat"].shape[1], c, first, per, band]
+      rc = lib.residual_launch(
+          g, after, (ctypes.c_longlong * len(rows))(*rows),
+          len(grp["classes"]),
+          grp["items"], grp["smem"], planes.data_ptr(), err.data_ptr(), nch,
+          Hp, Wp, bit_depth, int(chroma), *scale, *lists, tab.data_ptr(),
+          toff.ctypes.data, len(toff), stream)
+      if rc != 0:
+        raise RuntimeError("residual kernel launch failed: "
+                           f"{lib.residual_error_string(rc).decode()}")
+      after = int(mark is None)
+      LAUNCHES["residual"] += 1
+      GROUP_LAUNCHES[GROUPS[g]] += 1
+  return planes

@@ -15,7 +15,8 @@ The CUDA event recorded after a slot's write is what every later reader
 of the slot waits on, and a slot's next writer waits on the events of
 its readers: the progress/listener machinery becomes stream-ordered
 work, with no device-wide synchronisation between waves.  The packed
-outputs are fetched once, after the last wave is queued.
+outputs are fetched once, after the last wave is queued, with every
+frame's residual error word, which is read before anything is returned.
 
 Frame-axis parallelism lives here; the spatial ('tile') split of the
 filter stages lives in parallel/spatial.py.
@@ -169,8 +170,9 @@ def _prepare(data: bytes, mesh):
 
 def _run_waves(frames, inputs, mesh, streams=None, call=None):
   """Device half: every wave queued on the frame devices' streams, then
-  one fetch of all packed outputs.  Returns (poc, md5, packed ndarray)
-  in POC order."""
+  one fetch of all packed outputs and the frames' residual error words
+  (a word naming rows out of range raises RuntimeError).  Returns (poc,
+  md5, packed ndarray) in POC order."""
   from ..models.vvc.decoder import _fetch_group
   from ..models.vvc.inputs import _padded_plane_shapes
   from ..models.vvc.pipeline import submit_frame
@@ -219,8 +221,8 @@ def _run_waves(frames, inputs, mesh, streams=None, call=None):
         lane.wait(ready.get(slot_of[p]) for p in refs)
         view = {p: _read_slot(slot(slot_of[p]), ready.get(slot_of[p]), dev)
                 for p in refs}
-        packed, planes = submit_frame(inputs[i], fs, dev, view, call=call,
-                                      missing=zeros[f])
+        packed, planes, err = submit_frame(inputs[i], fs, dev, view,
+                                           call=call, missing=zeros[f])
         # the slot's earlier readers and writer finish before it changes
         lane.wait(readers.get(s, []) + [ready.get(s)])
         for dst, src in zip(slot(s), planes):
@@ -229,13 +231,14 @@ def _run_waves(frames, inputs, mesh, streams=None, call=None):
       ready[s], readers[s] = done, []
       for p in refs:
         readers.setdefault(slot_of[p], []).append(done)
-      fetches.append((fs.poc, packed))
+      fetches.append((fs.poc, packed, err))
   for f, dev in enumerate(fdevs):
     if dev.type == "cuda":
       for lane in lanes[f]:
         torch.cuda.current_stream(dev).wait_stream(lane.stream)
-  host = _fetch_group([p for _, p in fetches])
-  out = sorted(zip((poc for poc, _ in fetches), host), key=lambda t: t[0])
+  host = _fetch_group([p for _, p, _ in fetches],
+                      [(f"POC {poc}", e) for poc, _, e in fetches])
+  out = sorted(zip((poc for poc, _, _ in fetches), host), key=lambda t: t[0])
   return [(poc, hashlib.md5(buf.tobytes()).hexdigest(), buf)
           for poc, buf in out]
 
@@ -250,9 +253,10 @@ def decode_gop_mesh(data: bytes, mesh=None, streams=None, call=None):
   pipeline.frame_program, for every frame.
 
   Raises RuntimeError for a buffer of several IRAP periods, a missing
-  reference POC, an exhausted pool, or a frame with DMVR units (the JAX
+  reference POC, an exhausted pool, a frame with DMVR units (the JAX
   function skips their refinement; decode such streams with
-  VVCDecoder)."""
+  VVCDecoder), or a frame whose residual rows are out of range (before
+  any frame is returned)."""
   from .mesh import make_mesh
 
   if mesh is None:

@@ -662,8 +662,11 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   called = set()
 
   def per_call(name, kw):
-    """Launches counted per call: residual, recon, deblock and alf 1;
-    inter_pred 1 per size class that has units."""
+    """Launches counted per call: recon, deblock and alf 1; inter_pred 1
+    per size class that has units; residual 1 per work group that has
+    TUs."""
+    if name == "residual":
+      return sum(g["items"] > 0 for g in T.launch_plan(T._classes(**kw)[1]))
     if name != "inter_pred":
       return 1
     return sum(len(kw["inter"][k + "_host"]) > 0 for k in ("small", "large"))
@@ -878,7 +881,8 @@ def _counts_zeroed():
 
   for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
             R.EDGE_LAUNCHES, R.PLAIN_RUNS, D.LAUNCHES, D.PLAIN_RUNS,
-            A.LAUNCHES, A.PLAIN_RUNS, T.LAUNCHES, T.PLAIN_RUNS):
+            A.LAUNCHES, A.PLAIN_RUNS, T.LAUNCHES, T.CALLS, T.GROUP_LAUNCHES,
+            T.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R
@@ -888,8 +892,9 @@ def _counts_zeroed():
 @pytest.mark.parametrize("case", sorted(INTRA_CASES))
 def test_intra_case_decodes_on_card(cuda, case):
   """The kernel path on every intra case: CTU 64 (32-wide chroma
-  units), 10/12-bit, 4:0:0, tiles, WPP, cropping; the residual kernel
-  once a 4:0:0 frame, twice a 4:2:0 frame."""
+  units), 10/12-bit, 4:0:0, tiles, WPP, cropping; the residual wrapper
+  called once a 4:0:0 frame, twice a 4:2:0 frame, each call launching
+  one to three work groups."""
   from ffmpeg_tpu_torch.ops import transform as T
 
   with open(CASES_JSON) as f:
@@ -898,7 +903,10 @@ def test_intra_case_decodes_on_card(cuda, case):
   assert _port_md5s(_stream(INTRA_CASES[case]), device=cuda) == want
   assert R.PLAIN_RUNS["recon"] == 0 and T.PLAIN_RUNS["residual"] == 0
   mono = INTRA_CASES[case].get("chroma_format_idc") == 0
-  assert T.LAUNCHES["residual"] == (1 if mono else 2) * len(want)
+  calls = (1 if mono else 2) * len(want)
+  assert T.CALLS["residual"] == calls
+  assert calls <= T.LAUNCHES["residual"] <= 3 * calls
+  assert sum(T.GROUP_LAUNCHES.values()) == T.LAUNCHES["residual"]
 
 
 @pytest.mark.gpu
@@ -1030,10 +1038,10 @@ def test_coding_case_decodes_on_card(cuda, case):
                                   "full1080", "ctu128_1080", "ciip64",
                                   "gop720"])
 def test_fixture_decodes_on_card(cuda, name):
-  """Each fixture to its MD5s through the kernels: the residual kernel
-  twice a frame (luma; Cb and Cr), the ALF kernel twice on each frame
-  with ALF on (the traced alf spans count them), no plain version
-  run."""
+  """Each fixture to its MD5s through the kernels: the residual wrapper
+  twice a frame (luma; Cb and Cr; one to three launches each), the ALF
+  kernel twice on each frame with ALF on (the traced alf spans count
+  them), no plain version run."""
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import transform as T
@@ -1052,7 +1060,8 @@ def test_fixture_decodes_on_card(cuda, name):
   assert (P.LAUNCHES["inter_pred"] > 0) == (not name.startswith("ai"))
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
   assert D.PLAIN_RUNS["deblock"] == 0 and A.PLAIN_RUNS["alf"] == 0
-  assert T.LAUNCHES["residual"] == 2 * len(got)
+  assert T.CALLS["residual"] == 2 * len(got)
+  assert 2 * len(got) <= T.LAUNCHES["residual"] <= 6 * len(got)
   assert T.PLAIN_RUNS["residual"] == 0
   assert (alf_frames > 0) == (name in ("full1080", "ctu128_1080", "gop720"))
   assert A.LAUNCHES["alf"] == 2 * alf_frames

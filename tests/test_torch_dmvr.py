@@ -82,7 +82,7 @@ def _session(name):
     refs = [[r.numpy() for r in comp]
             for comp in resolve_refs(fs, dpb, "cpu")]
     out.append((fs, t, refs, found))
-    _, dpb[fs.poc] = submit_frame(t, fs, "cpu", dpb)
+    _, dpb[fs.poc], _ = submit_frame(t, fs, "cpu", dpb)
   return out
 
 

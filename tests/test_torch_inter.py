@@ -71,7 +71,7 @@ def _session(name):
     refs = [[r.numpy() for r in comp]
             for comp in resolve_refs(tfs, dpb, "cpu")]
     out.append((tfs, jfs, t, j, refs))
-    _, dpb[tfs.poc] = submit_frame(t, tfs, "cpu", dpb)
+    _, dpb[tfs.poc], _ = submit_frame(t, tfs, "cpu", dpb)
   return out
 
 

@@ -88,7 +88,7 @@ def _session(case):
     refs = [[r.numpy() for r in comp]
             for comp in resolve_refs(tfs, dpb, "cpu")]
     out.append((tfs, fs0, t, j, refs))
-    _, dpb[tfs.poc] = submit_frame(t, tfs, "cpu", dpb)
+    _, dpb[tfs.poc], _ = submit_frame(t, tfs, "cpu", dpb)
   return out
 
 
