@@ -79,7 +79,12 @@ Phases, one JSON line each:
               ai720's frame 0, and on ctu128_1080's I and B frames (its
               recon levels and us per level, its inter kernel); the
               deblock and alf kernels' ms per launch (luma, then Cb and
-              Cr; the launch is the whole call) and the residual
+              Cr; the launch is the whole call; for alf each call's
+              launch: grid, resident blocks per SM, tiles and tiles per
+              block, shared bytes and ptxas's registers, and the frame's
+              pair, the Cb and Cr launch overlapping the luma launch,
+              which is the alf row's ms in the kernel table) and the
+              residual
               kernel's ms per call (its plane fill and each work group's
               launch apart, with each group's TUs, blocks, shared bytes
               and resident blocks per SM; the wrapper's host ms per
@@ -176,6 +181,7 @@ def _zero_counts():
   for name, mod in _counts().items():
     mod.LAUNCHES[name] = 0
     mod.PLAIN_RUNS[name] = 0
+  _counts()["alf"].OVERLAPS["alf"] = 0
   for d in (_counts()["inter_pred"].CLASS_LAUNCHES,
             _counts()["recon"].EDGE_LAUNCHES,
             _counts()["residual"].GROUP_LAUNCHES,
@@ -762,6 +768,7 @@ def phase_decode(torch):
     launches[name]["residual_by_group"] = dict(
         counts["residual"].GROUP_LAUNCHES)
     launches[name]["residual_calls"] = counts["residual"].CALLS["residual"]
+    launches[name]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
     plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
@@ -803,6 +810,11 @@ def phase_decode(torch):
       fail("decode", f"{name}: the alf kernel was launched "
            f"{launches[name]['alf']} times for {alf_frames} frames with ALF "
            "on, not twice each (luma; Cb and Cr)")
+    if launches[name]["alf_overlapped"] != alf_frames:
+      emit(res)
+      fail("decode", f"{name}: {launches[name]['alf_overlapped']} alf "
+           f"chroma launches overlapped the luma launch for {alf_frames} "
+           "frames with ALF on, not one each")
   emit(res)
   return launches
 
@@ -1144,9 +1156,85 @@ def _time_call(name, label, kw, levels, torch, reps, rounds):
     return _time_recon(kw, levels[label], torch, reps, rounds)
   if name == "residual":
     return _time_residual(kw, torch, reps, rounds)
-  if name in ("deblock", "alf"):
+  if name == "alf":
+    return _time_alf(kw, torch, reps, rounds)
+  if name == "deblock":
     return _time_whole_call(name, kw, torch, reps, rounds)
   return _time_inter(kw, torch, reps, rounds)
+
+
+def _alf_registers():
+  """The alf kernels' registers per thread, as ptxas printed them when
+  phase_build built them (None when the library was not built in this
+  run)."""
+  from ffmpeg_tpu_torch.utils.build import BUILD_LOG
+
+  out = {"luma": None, "chroma": None}
+  for fn, lines in _ptxas(BUILD_LOG.get("alf", {}).get("ptxas", [])).items():
+    for ln in lines:
+      m = re.search(r"Used (\d+) registers", ln)
+      if m:
+        out["chroma" if "chroma" in fn else "luma"] = int(m.group(1))
+  return out
+
+
+def _time_alf(kw, torch, reps, rounds):
+  """One alf call alone (_time_whole_call) and its launch: the persistent
+  grid's blocks, resident blocks per SM, tiles and tiles per block, shared
+  bytes, threads and registers."""
+  from ffmpeg_tpu_torch.ops.alf import launch_plan
+
+  r = _time_whole_call("alf", kw, torch, reps, rounds)
+  r["launch"] = launch_plan(chroma=kw["chroma"], W=kw["W"], H=kw["H"])
+  r["launch"]["registers"] = _alf_registers()[
+      "chroma" if kw["chroma"] else "luma"]
+  return r
+
+
+def _time_alf_pair(calls, torch, reps, rounds):
+  """A frame's two alf calls as the frame program queues them: luma, then
+  Cb and Cr, whose launch may start while the luma launch runs (the
+  overlap).  ms per pair (mean of `rounds` rounds of `reps` pairs queued
+  behind a held card, CUDA events), each output held against the plain
+  version.  None on a frame without ALF."""
+  kws = [kw for name, _, kw in calls if name == "alf"]
+  if len(kws) != 2:
+    return None
+  want = [_plain("alf", kw) for kw in kws]
+  kws[1] = dict(kws[1], overlap=True)
+  ms, bad = 0.0, 0
+  for _ in range(rounds):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    outs = []
+    _hold_card(torch)
+    start.record()
+    for _ in range(reps):
+      outs += [_kernel("alf", kw) for kw in kws]
+    end.record()
+    torch.cuda.synchronize()
+    ms += start.elapsed_time(end) / reps / rounds
+    bad += sum(not torch.equal(o, want[i % 2]) for i, o in enumerate(outs))
+  return {"ms": ms, "calls_checked": 2 * reps * rounds, "calls_unequal": bad}
+
+
+def _print_alf(tag, alf, pair, plain_ms):
+  """The alf calls' timing lines: ms per call alone with its launch, and
+  the overlapped pair's ms per frame."""
+  for label, r in alf.items():
+    g = r["launch"]
+    print(f"chip_smoke: timing {tag} alf {label}: {r['ms']} ms per call "
+          f"(plain {plain_ms.get(f'alf/{label}')}); grid {g['blocks']} "
+          f"blocks of {g['threads']} threads ({g['blocks_per_sm']} resident "
+          f"per SM x {g['sms']} SMs), {g['tiles']} tiles of "
+          f"{g['tile'][0]}x{g['tile'][1]} ({g['tiles_per_block']} per "
+          f"block), {g['smem']} B shared, {g['registers']} registers",
+          flush=True)
+  if pair is not None:
+    print(f"chip_smoke: timing {tag} alf pair (luma, then Cb and Cr "
+          f"overlapping it): {pair['ms']} ms per frame, against "
+          f"{sum(r['ms'] for r in alf.values())} for the calls alone",
+          flush=True)
 
 
 def _time_recon(kw, levels, torch, reps, rounds):
@@ -1197,10 +1285,11 @@ def phase_timing(torch, card, calls, levels):
     kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
-  for name, rr in (("deblock", deblock), ("alf", alf)):
-    print(f"chip_smoke: timing {MAIN} {name} ms per launch: " + ", ".join(
-        f"{label} {r['ms']} (plain {plain[f'{name}/{label}']})"
-        for label, r in rr.items()), flush=True)
+  print(f"chip_smoke: timing {MAIN} deblock ms per launch: " + ", ".join(
+      f"{label} {r['ms']} (plain {plain[f'deblock/{label}']})"
+      for label, r in deblock.items()), flush=True)
+  alf_pair = {MAIN: _time_alf_pair(calls[MAIN], torch, 20, 2)}
+  _print_alf(MAIN, alf, alf_pair[MAIN], plain)
   for label, r in residual.items():
     _print_residual(MAIN, label, r, plain[f"residual/{label}"])
   for name, label, kw in calls["ai720"]:
@@ -1224,12 +1313,15 @@ def phase_timing(torch, card, calls, levels):
         f", {name} {label} {r['ms']} ms"
         for name in ("residual", "inter_pred", "deblock", "alf")
         for label, r in t[name].items()), flush=True)
+    alf_pair[key] = t["alf_pair"] = _time_alf_pair(calls[key], torch, 20, 1)
+    if t["alf"]:
+      _print_alf(key, t["alf"], alf_pair[key], t["plain_ms"])
     for label, r in t["residual"].items():
       _print_residual(key, label, r, t["plain_ms"][f"residual/{label}"])
   out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
-  out["alf"], out["residual"] = alf, residual
+  out["alf"], out["alf_pair"], out["residual"] = alf, alf_pair, residual
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
@@ -1247,9 +1339,11 @@ def phase_timing(torch, card, calls, levels):
     for name in ("inter_pred", "deblock", "alf", "residual"):
       bad.update({f"{name} {key} {label}": r["calls_unequal"]
                   for label, r in t[name].items() if r["calls_unequal"]})
+  bad.update({f"alf pair {key}": r["calls_unequal"]
+              for key, r in alf_pair.items() if r and r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
-  return kern, plain, recon, inter, deblock, alf, residual, tools
+  return kern, plain, recon, inter, deblock, alf, alf_pair, residual, tools
 
 
 def _union_us(work):
@@ -1532,12 +1626,14 @@ def phase_parallel(torch, card):
       counts = _counts()
       key = f"gop:{name}:w{width}"
       launches[key] = {k: m.LAUNCHES[k] for k, m in counts.items()}
+      launches[key]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
       plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
       rec["widths"][width] = {"md5_equal": got == want,
                               "launches": launches[key],
                               "plain_runs": plain}
       if got != want or any(plain.values()) or not all(
-          launches[key][k] > 0 for k in PATH_KERNELS[name]):
+          launches[key][k] > 0 for k in PATH_KERNELS[name]) or \
+          2 * launches[key]["alf_overlapped"] != launches[key]["alf"]:
         emit(out)
         fail("parallel", f"{key}: MD5s equal {got == want}, launches "
              f"{launches[key]}, plain runs {plain}")
@@ -1597,18 +1693,30 @@ def _bound(name, calls):
 
 def _tool_row(name, calls, timed):
   """One kernel's numbers on a coding-tool frame: ms per call summed over
-  the plane kinds, the plain version's, and the bound, as for the main
-  path's row."""
-  return {"ms": sum(r["ms"] for r in timed[name].values()),
-          "plain_ms": sum(v for k, v in timed["plain_ms"].items()
-                          if k.startswith(name + "/")),
-          **_bound(name, calls),
-          "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
-              "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
-              "small_ms", "large_ms", "small_units", "large_units", "tus",
-              "host_ms_per_call_card_held", "fill_ms", "group_ms",
-              "serial_ms", "groups")}
-              for label, r in timed[name].items()}}
+  the plane kinds (for alf, the overlapped pair's ms per frame, with the
+  calls alone beside it), the plain version's, and the bound, as for the
+  main path's row."""
+  row = {"ms": sum(r["ms"] for r in timed[name].values()),
+         "plain_ms": sum(v for k, v in timed["plain_ms"].items()
+                         if k.startswith(name + "/")),
+         **_bound(name, calls),
+         "per_plane_kind": {label: {k: v for k, v in r.items() if k in (
+             "ms", "placement_ms", "wavefront_ms", "levels", "us_per_level",
+             "small_ms", "large_ms", "small_units", "large_units", "tus",
+             "host_ms_per_call_card_held", "fill_ms", "group_ms",
+             "serial_ms", "groups", "launch")}
+             for label, r in timed[name].items()}}
+  if name == "alf":
+    _alf_pair_ms(row, timed["alf_pair"])
+  return row
+
+
+def _alf_pair_ms(row, pair):
+  """An alf row's ms becomes the frame's overlapped pair's (pair, from
+  _time_alf_pair; none on a frame without ALF), the calls alone beside it
+  as ms_calls_alone."""
+  if pair is not None:
+    row["ms_calls_alone"], row["ms"] = row["ms"], pair["ms"]
 
 
 KERNEL_INFO = {
@@ -1645,8 +1753,8 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon, inter, deblock, alf, residual, tools = phase_timing(
-      torch, card, calls, levels)
+  kern, plain, recon, inter, deblock, alf, alf_pair, residual, tools = \
+      phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
   paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
@@ -1671,9 +1779,13 @@ def main() -> int:
           for label, r in recon[MAIN].items()}
       rows[-1]["launches_by_edge"] = {
           f: launches[f]["recon_by_edge"] for f in FIXTURES}
-    elif name in ("deblock", "alf"):
-      rows[-1]["split_ms"] = {label: {"ms": r["ms"]} for label, r in
-                              {"deblock": deblock, "alf": alf}[name].items()}
+    elif name == "deblock":
+      rows[-1]["split_ms"] = {label: {"ms": r["ms"]}
+                              for label, r in deblock.items()}
+    elif name == "alf":
+      _alf_pair_ms(rows[-1], alf_pair[MAIN])
+      rows[-1]["split_ms"] = {label: {"ms": r["ms"], "launch": r["launch"]}
+                              for label, r in alf.items()}
     elif name == "residual":
       rows[-1]["split_ms"] = {
           label: {k: r[k] for k in ("ms", "fill_ms", "group_ms", "serial_ms",

@@ -95,8 +95,10 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   recon of chroma, deblock of luma then chroma (frames with deblock
   on), alf of luma then chroma (frames with ALF on; the chroma call
   reads the pre-ALF luma); a 4:0:0 frame makes only the luma calls.
-  The default runs the wrapper; a check passes its own to hold each call
-  against the plain version.
+  The default runs the wrapper, and asks for the alf chroma launch to
+  overlap the luma launch (alf_planes overlap=True); a check passes its
+  own hook to hold each call against the plain version, and gets no
+  overlap, since it may queue work between the calls.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits), "err":
   the frame's residual error word, a one-element int32 tensor on
@@ -109,6 +111,8 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(W, H, ctb_log2)
   n_comp = 1 if mono else 3
   lm = inp.get("lmcs")
+  # with no hook, nothing is queued between the two alf calls
+  alf_pair = call is None
   call = call or _launch
   err = error_word(device)
 
@@ -200,15 +204,20 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
 
   if "alf" in inp:
     # luma into a new plane, then Cb and Cr together, whose CC-ALF reads
-    # the pre-ALF luma (SAO's output)
+    # the pre-ALF luma (SAO's output).  Without a hook the chroma launch
+    # follows the luma launch directly and may run beside it (ops/alf.py
+    # alf_planes, overlap), so `pre` and the tree stay referenced here
+    # until both calls are queued: the chroma call's fresh output must
+    # not take memory the luma launch still reads.
     geo = dict(alf=inp["alf"], W=W, H=H, ctb_log2=ctb_log2, bit_depth=bd)
     with trace.span("alf", sync):
       pre = planes[0]
       planes[0] = call("alf", "luma", dict(planes=[pre], chroma=False,
                                            **geo))[0]
       if not mono:
+        kw = dict(planes=planes[1:3], chroma=True, luma=pre, **geo)
         planes[1], planes[2] = call("alf", "chroma", dict(
-            planes=planes[1:3], chroma=True, luma=pre, **geo))
+            kw, overlap=True) if alf_pair else kw)
 
   with trace.span("pack", sync):
     # the cropped planes in planar YCbCr order: the exact byte layout of

@@ -14,11 +14,14 @@ row boundary remaps the taps near it, the same in every CTU row band.
 (classification and the 7x7 diamond), or the Cb and Cr planes together
 (the 5x5 diamond, then CC-ALF from the pre-ALF luma), each over the
 padded planes with the frame's ALF tree.  A CUDA tensor launches the
-kernel (csrc/alf.cu: one launch per call, TILE x TILE tiles with their
-halo in shared memory, each sample written once); a CPU tensor runs the
-plain version, `alf_planes_plain`, composed of the whole-plane passes
-below (the ports of the JAX functions, and the kernel's oracle), which
-take exact picture-size (H, W) int32 planes.
+kernel (csrc/alf.cu: one launch per call, a persistent grid over TILE
+tiles with their halo in shared memory, each sample written once; the
+chroma launch may overlap the luma launch queued just before it, when
+the caller says so); a CPU tensor runs
+the plain version, `alf_planes_plain`, composed of the whole-plane
+passes below (the ports of the JAX functions, and the kernel's oracle),
+which take exact picture-size (H, W) int32 planes.  `alf_tiled_plain`
+runs the kernel's decomposition on the CPU.
 """
 from __future__ import annotations
 
@@ -30,9 +33,11 @@ import torch
 
 _I32 = torch.int32
 
-# launches of the CUDA kernel, and runs of the plain version: plain
-# integer counters a caller may reset to 0 and read back
+# launches of the CUDA kernel, the chroma launches among them that may
+# overlap the luma launch before them, and runs of the plain version:
+# plain integer counters a caller may reset to 0 and read back
 LAUNCHES = {"alf": 0}
+OVERLAPS = {"alf": 0}
 PLAIN_RUNS = {"alf": 0}
 
 # transpose_idx -> coefficient position permutation (alf_recon_coeff)
@@ -245,10 +250,15 @@ def alf_filter_cc(chroma, luma_pre_alf, coeff, ctb: int, on,
 # built with nvcc at first use and bound with ctypes
 # ----------------------------------------------------------------------
 
-# The kernel's tiles: a thread block owns TILE x TILE output samples of
-# one plane (csrc/alf.cu gets it at build time) and reads them with a
-# clamped halo of 3 luma or 2 chroma samples, beside the collocated luma.
-TILE = 32
+# The kernel's tiles (csrc/alf.cu gets them at build time): a luma thread
+# block owns TILE = (TH, TW) output samples, a chroma block TH x TW/2
+# samples of Cb and of Cr; one thread a run of 4 samples of a row.  Its
+# buffers hold the tile with a clamped halo of 3 luma or 2 chroma rows
+# and the aligned columns [x0 - 4, x0 + TW + 4), beside the collocated
+# luma.  Chosen on the card by tools/alf_tiles.py's sweep (PERF.md).
+TILE = (16, 32)
+# copy chunks of 4 columns (the kernel's 16-byte copies)
+_CHUNK = 4
 
 
 def _check(planes, a, chroma, W, H, ctb_log2, bit_depth, luma):
@@ -298,7 +308,7 @@ def _check(planes, a, chroma, W, H, ctb_log2, bit_depth, luma):
 
 
 def alf_planes(planes, alf, *, chroma: bool, W: int, H: int, ctb_log2: int,
-               bit_depth: int, luma=None):
+               bit_depth: int, luma=None, overlap: bool = False):
   """ALF over the padded planes of one frame: deblock -> SAO -> ALF, the
   last in-loop stage (the frame program's `_alf_pass`, one call per
   component kind).
@@ -310,7 +320,11 @@ def alf_planes(planes, alf, *, chroma: bool, W: int, H: int, ctb_log2: int,
   the luma banks `banks_coeff` / `banks_clipv` (B, 25, 12) int16, the
   chroma alternatives (8, 6) int16 and the CC-ALF coefficients (2, 5, 7)
   int16.  W, H: the cropped luma picture.  luma: for a chroma call, the
-  pre-ALF padded luma plane that CC-ALF reads.
+  pre-ALF padded luma plane that CC-ALF reads.  overlap (chroma calls
+  on the card): the caller queued the luma call whose input is `luma`
+  just before this one on the current stream, and keeps that call's
+  inputs referenced until this call is queued (the frame program's
+  pair); the chroma launch may then start while the luma launch runs.
   Returns the filtered planes, (nch, Hp, Wp) int32, a new tensor: the
   picture filtered, the padding copied.  A CUDA tensor launches the
   kernel; a CPU tensor runs the plain version; nothing falls back from
@@ -320,7 +334,7 @@ def alf_planes(planes, alf, *, chroma: bool, W: int, H: int, ctb_log2: int,
   kw = dict(chroma=chroma, W=W, H=H, ctb_log2=ctb_log2, bit_depth=bit_depth,
             luma=luma)
   if dev.type == "cuda":
-    return _alf_cuda(planes, alf, **kw)
+    return _alf_cuda(planes, alf, **kw, overlap=overlap and chroma)
   if dev.type != "cpu":
     raise ValueError(f"alf: unsupported device {dev}")
   return alf_planes_plain(planes, alf, **kw)
@@ -376,9 +390,274 @@ def alf_planes_plain(planes, alf, *, chroma: bool, W: int, H: int,
   return torch.stack(out)
 
 
+# ----------------------------------------------------------------------
+# the kernel's decomposition on the CPU
+# ----------------------------------------------------------------------
+
+# the transpose as the kernel applies it (csrc/alf.cu transpose12): the
+# permutation of dir_hv (TRANSPOSE_IDX[1]), then with dir_d the swaps
+# (1 3) (4 8) (5 7) (TRANSPOSE_IDX[2])
+_SIGMA = TRANSPOSE_IDX[1].tolist()
+_SWAPS = TRANSPOSE_IDX[2].tolist()
+
+
+def _load_rows(plane, oy, ox, R, C, h, w, vec):
+  """csrc/alf.cu load_rows for a batch of tiles: rows [oy, oy + R) x
+  columns [ox, ox + C) of a plane (oy, ox: (n,) tensors, ox a multiple
+  of 4), each position clamped to [0, h) x [0, w), as (n, R, C).  A chunk
+  of 4 columns inside [0, w) is copied as it lies (the 16-byte copy)
+  when vec; any other chunk column by column, clamped."""
+  dev = plane.device
+  rows = (oy[:, None] + _ar(R, dev)).clamp(0, h - 1)
+  gx = ox[:, None] + _CHUNK * _ar(C // _CHUNK, dev)
+  whole = (gx >= 0) & (gx + _CHUNK <= w) & vec
+  cols = gx[:, :, None] + _ar(_CHUNK, dev)
+  cols = torch.where(whole[:, :, None], cols, cols.clamp(0, w - 1))
+  return plane[rows[:, :, None], cols.reshape(len(ox), 1, C)]
+
+
+def _put(out, written, rows, cols, vals, mask):
+  """out[rows, cols] = vals where mask (broadcast), each write counted."""
+  rows, cols, vals, mask = torch.broadcast_tensors(rows, cols, vals, mask)
+  r, c = rows[mask], cols[mask]
+  out[r, c] = vals[mask].to(out.dtype)
+  written.index_put_((r, c), torch.ones_like(r, dtype=written.dtype),
+                     accumulate=True)
+
+
+def _luma_tiles(plane, out, written, y0, x0, a, H, W, ctb_log2, bit_depth,
+                th, tw, vec):
+  """One stage of the persistent grid on luma: the tiles at (y0, x0)
+  ((n,) each).  Dimensions of the threads' values: (tile, block row by,
+  block column bx, row q of the block, sample j of the run)."""
+  dev = plane.device
+  n = len(y0)
+  buf = _load_rows(plane, y0 - 3, x0 - 4, th + 6, tw + 8, H, W, vec)
+  ctb = 1 << ctb_log2
+  m, vb = ctb - 1, ctb - 4
+  ni = _ar(n, dev)[:, None, None, None, None]
+  by = _ar(th // 4, dev)[None, :, None, None, None]
+  bx = _ar(tw // 4, dev)[None, None, :, None, None]
+  q = _ar(4, dev)[None, None, None, :, None]
+  j = _ar(4, dev)[None, None, None, None, :]
+  yb = y0[:, None, None, None, None] + 4 * by
+  x = x0[:, None, None, None, None] + 4 * bx
+  inside = (yb < H) & (x < W)
+  g = a["ctb"]
+  gv = g[(yb >> ctb_log2).clamp(max=g.shape[0] - 1),
+         (x >> ctb_log2).clamp(max=g.shape[1] - 1)].long()
+  on = inside & (gv[..., 0] > 0)
+  nb = a["banks_coeff"].shape[0]
+  bank = torch.where(inside, gv[..., 1].clamp(0, nb - 1), 0)
+
+  def at(rows, cols):
+    return buf[ni, rows, cols].long()
+
+  # classification: thread q's window row (gradients on row r = yb - 3 +
+  # 2q, columns x - 2 + 2j), buffer rows from 4 by + 2q
+  r = yb - 3 + 2 * q
+  lr = r & m
+  br = 4 * by + 2 * q
+  R0 = torch.where(lr == ctb - 5, br + 1, br)
+  R3 = torch.where(lr == ctb - 7, br + 2, br + 3)
+  k = 4 * bx + 2 * j + 2
+  v0 = at(br + 1, k) * 2
+  v1 = at(br + 2, k + 1) * 2
+  sv = (v0 - at(R0, k) - at(br + 2, k)).abs() + \
+      (v1 - at(br + 1, k + 1) - at(R3, k + 1)).abs()
+  sh = (v0 - at(br + 1, k - 1) - at(br + 1, k + 1)).abs() + \
+      (v1 - at(br + 2, k) - at(br + 2, k + 2)).abs()
+  sd0 = (v0 - at(R0, k - 1) - at(br + 2, k + 1)).abs() + \
+      (v1 - at(br + 1, k) - at(R3, k + 2)).abs()
+  sd1 = (v0 - at(R0, k + 1) - at(br + 2, k - 1)).abs() + \
+      (v1 - at(br + 1, k + 2) - at(R3, k)).abs()
+  ly = yb & m
+  live = (q >= (ly == vb).long()) & (q < torch.where(ly == vb - 4, 3, 4))
+  # each thread's row over its 4 positions, then the 4 rows (shuffles)
+  sv, sh, sd0, sd1 = (torch.where(live, s.sum(-1, keepdim=True), 0)
+                      .sum(-2, keepdim=True) for s in (sv, sh, sd0, sd1))
+  ac = torch.where((ly == vb) | (ly == vb - 4), 3, 2)
+  dir_hv, dir_d = sv <= sh, sd0 <= sd1
+  hv1, hv0 = torch.maximum(sv, sh), torch.minimum(sv, sh)
+  d1, d0 = torch.maximum(sd0, sd1), torch.minimum(sd0, sd1)
+  dir1 = d1 * hv0 <= hv1 * d0
+  hvd1 = torch.where(dir1, hv1, d1)
+  hvd0 = torch.where(dir1, hv0, d0)
+  act = (((sv + sh) * ac) >> (bit_depth - 1)).clamp(0, 15)
+  cls = _const(ARG_VAR, dev).long()[act]
+  cls = torch.where(hvd1 * 2 > 9 * hvd0, cls + (dir1.long() * 2 + 2) * 5,
+                    torch.where(hvd1 > 2 * hvd0,
+                                cls + (dir1.long() * 2 + 1) * 5, cls))
+
+  def bank_row(t):
+    v = t[bank, cls].long()                         # (..., 12)
+    v = torch.where(dir_hv[..., None], v[..., _SIGMA], v)
+    return torch.where(dir_d[..., None], v[..., _SWAPS], v)
+
+  cf, kp = bank_row(a["banks_coeff"]), bank_row(a["banks_clipv"])
+  # the 7x7 diamond: the thread's row y, its row offsets once
+  y = yb + q
+  ly1 = y & m
+  e = {0: torch.zeros_like(ly1)}
+  e[1] = torch.where((ly1 == vb - 1) | (ly1 == vb), 0, 1)
+  e[2] = torch.where((ly1 >= vb - 2) & (ly1 <= vb + 1), e[1], 2)
+  e[3] = torch.where((ly1 >= vb - 3) & (ly1 <= vb + 2), e[2], 3)
+  Cr = 4 * by + q + 3
+  col = 4 * bx + 4 + j
+  curr = at(Cr, col)
+  tot = torch.zeros_like(curr)
+  for t, pair in enumerate(LUMA_TAPS):
+    side = 0
+    for dy, dx in pair:
+      off = e[abs(dy)] if dy >= 0 else -e[abs(dy)]
+      side = side + torch.minimum(torch.maximum(
+          at(Cr + off, col + dx) - curr, -kp[..., t]), kp[..., t])
+    tot = tot + cf[..., t] * side
+  near = (ly1 >= vb - 1) & (ly1 <= vb)
+  sh_ = torch.where(near, (tot + (1 << 9)) >> 10, (tot + 64) >> 7)
+  val = torch.where(on, (curr + sh_).clamp(0, (1 << bit_depth) - 1), curr)
+  _put(out, written, y, x + j, val, inside)
+
+
+def _chroma_tiles(planes, luma, out, written, y0, x0, a, H, W, ctb_log2,
+                  bit_depth, th, cw, vec):
+  """One stage of the persistent grid on chroma: the tiles at (y0, x0)
+  of both planes.  Dimensions: (tile, plane, row ty, run rx, sample j)."""
+  dev = luma.device
+  n = len(y0)
+  Hc, Wc = H >> 1, W >> 1
+  cb = torch.stack([_load_rows(p, y0 - 2, x0 - 4, th + 4, cw + 8, Hc, Wc,
+                               vec) for p in planes], 1)
+  lb = _load_rows(luma, 2 * y0 - 1, 2 * x0 - 4, 2 * th + 2, 2 * cw + 8, H,
+                  W, vec)
+  ni = _ar(n, dev)[:, None, None, None, None]
+  pl = _ar(2, dev)[None, :, None, None, None]
+  ty = _ar(th, dev)[None, None, :, None, None]
+  rx = _ar(cw // 4, dev)[None, None, None, :, None]
+  j = _ar(4, dev)[None, None, None, None, :]
+  y = y0[:, None, None, None, None] + ty
+  x = x0[:, None, None, None, None] + 4 * rx
+  run = (y < Hc) & (x < Wc)
+  lc = ctb_log2 - 1
+  g = a["ctb"]
+  gv = g[(y >> lc).clamp(max=g.shape[0] - 1),
+         (x >> lc).clamp(max=g.shape[1] - 1)].long()     # (..., 8)
+
+  def byte(cb, cr):
+    return torch.cat([gv[..., cb], gv[..., cr]], 1)
+
+  # each component c's flag 2c, alternative 2c + 1, CC-ALF index 5 + c
+  flag, alt, idc = byte(2, 4), byte(3, 5), byte(6, 7)
+  S = ty + 2
+  col = 4 * rx + 4 + j
+  curr = cb[ni, pl, S, col].long()
+  maxv = (1 << bit_depth) - 1
+  # the 5x5 diamond
+  known = (alt >= 0) & (alt < 8)
+  alt = torch.where(known, alt, 0)
+  cf = torch.where(known[..., None], a["chroma_coeff"][alt].long(), 0)
+  kp = torch.where(known[..., None], a["chroma_clipv"][alt].long(), 0)
+  ctb_c = 1 << lc
+  mc, vbc = ctb_c - 1, ctb_c - 2
+  ly = y & mc
+  e = {0: torch.zeros_like(ly)}
+  e[1] = torch.where((ly == vbc - 1) | (ly == vbc), 0, 1)
+  e[2] = torch.where((ly >= vbc - 2) & (ly <= vbc + 1), e[1], 2)
+  tot = torch.zeros_like(curr)
+  for t, pair in enumerate(CHROMA_TAPS):
+    side = 0
+    for dy, dx in pair:
+      off = e[abs(dy)] if dy >= 0 else -e[abs(dy)]
+      side = side + torch.minimum(torch.maximum(
+          cb[ni, pl, S + off, col + dx].long() - curr, -kp[..., t]),
+          kp[..., t])
+    tot = tot + cf[..., t] * side
+  near = (ly >= vbc - 1) & (ly <= vbc)
+  sh = torch.where(near, (tot + (1 << 9)) >> 10, (tot + 64) >> 7)
+  pc = torch.where(flag > 0, (curr + sh).clamp(0, maxv), curr)
+  # CC-ALF from the collocated luma: row 2y is buffer row 2 ty + 1,
+  # sample j's column 8 rx + 4 + 2j
+  known = idc < 5
+  wt = a["cc_coeff"].long()[pl, torch.where(known, idc, 0)]
+  wt = torch.where(known[..., None], wt, 0)
+  ctb = 1 << ctb_log2
+  m, vb = ctb - 1, ctb - 4
+  pos = (2 * y) & m
+  sub_all = (pos == vb - 1) | (pos == vb)
+  sub_s3 = (pos == vb - 2) | (pos == vb + 1)
+  r1 = torch.where(sub_all, 0, 1)
+  rows_of = {-1: torch.where(sub_all, 0, -1), 0: torch.zeros_like(r1),
+             1: r1, 2: torch.where(sub_all, 0, torch.where(sub_s3, r1, 2))}
+  L = 2 * ty + 1
+  lcol = 8 * rx + 4 + 2 * j
+  center = lb[ni, L, lcol].long()
+  tot = torch.zeros_like(center)
+  for t, (dy, dx) in enumerate(CC_TAPS):
+    tot = tot + wt[..., t] * (lb[ni, L + rows_of[dy], lcol + dx].long()
+                              - center)
+  half = 1 << (bit_depth - 1)
+  cc = ((tot + 64) >> 7).clamp(-half, half - 1)
+  pc = torch.where(idc > 0, (pc + cc).clamp(0, maxv), pc)
+  for p in range(2):
+    _put(out[p], written[p], y[:, 0], (x + j)[:, 0], pc[:, p],
+         (run & (x + j < Wc))[:, 0])
+
+
+def alf_tiled_plain(planes, alf, *, chroma: bool, W: int, H: int,
+                    ctb_log2: int, bit_depth: int, luma=None, grid=7,
+                    aligned=True, tile=None):
+  """The kernel's algorithm on the CPU, with alf_planes's arguments and
+  result: the padding ring copied, then the tiles (tile: (TH, TW), TILE
+  by default) in the persistent grid's order (`grid` blocks; block b
+  takes tiles b, b + grid, ...; each stage, every block's next tile, as
+  one batch), each loaded into its buffer with csrc/alf.cu's copies
+  (aligned=False: the 4-byte path of a misaligned plane) and filtered
+  from the buffer alone, per thread as the kernel does: the window rows
+  and their shuffle sum, the transposed coefficients, the per-row
+  virtual-boundary offsets.  Raises unless every sample of the planes is
+  written exactly once.  Equal to alf_planes_plain
+  (tests/test_torch_alf_tiles.py)."""
+  _check(planes, alf, chroma, W, H, ctb_log2, bit_depth, luma)
+  th, tw = tile or TILE
+  Hp, Wp = planes[0].shape
+  dev = planes[0].device
+  out = torch.empty((len(planes), Hp, Wp), dtype=torch.int32, device=dev)
+  written = torch.zeros(out.shape, dtype=torch.int32, device=dev)
+  h, w = (H >> 1, W >> 1) if chroma else (H, W)
+  for c, p in enumerate(planes):           # the ring: outside the picture
+    out[c, :h, w:], out[c, h:] = p[:h, w:], p[h:]
+    written[c, :h, w:] += 1
+    written[c, h:] += 1
+  cw = tw // 2 if chroma else tw
+  ntx = -(-w // cw)
+  ntiles = ntx * -(-h // th)
+  grid = max(1, min(grid, ntiles))
+  for k in range(0, ntiles, grid):
+    tiles = _ar(min(ntiles, k + grid) - k, dev) + k
+    y0, x0 = (tiles // ntx) * th, (tiles % ntx) * cw
+    if chroma:
+      _chroma_tiles(planes, luma, out, written, y0, x0, alf, H, W, ctb_log2,
+                    bit_depth, th, cw, aligned)
+    else:
+      _luma_tiles(planes[0], out[0], written[0], y0, x0, alf, H, W,
+                  ctb_log2, bit_depth, th, tw, aligned)
+  if not bool((written == 1).all()):
+    raise AssertionError("alf_tiled_plain: samples written "
+                         f"{sorted(set(written.unique().tolist()))} times")
+  return out
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernel (csrc/alf.cu), built with nvcc at first use and bound
+# with ctypes
+# ----------------------------------------------------------------------
+
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "alf.cu")
 _lib = None
+# launch flags of csrc/alf.cu: the launch may start while the luma launch
+# before it runs; 4-byte copies only
+_F_OVERLAP, _F_SCALAR = 1, 2
 
 
 def _get_kernel():
@@ -386,36 +665,66 @@ def _get_kernel():
   if _lib is None:
     from ..utils.build import build_cuda
 
-    lib = ctypes.CDLL(build_cuda("alf", [_SRC],
-                                 defines=(("ALF_TILE", TILE),)))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.alf_luma_launch.restype = ctypes.c_int
-    lib.alf_luma_launch.argtypes = [
-        p, p, i, i, i, i,   # src, dst, Hp, Wp, H, W
-        p, i, i,            # ctb grid, cbh, cbw
-        p, p, i,            # banks_coeff, banks_clipv, bank count
-        i, i, p]            # ctb_log2, bit_depth, stream
-    lib.alf_chroma_launch.restype = ctypes.c_int
-    lib.alf_chroma_launch.argtypes = [
-        p, p, i, i,         # src pointers (2,), dst, Hp, Wp
-        p, i, i, i, i,      # pre-ALF luma, its Hp, Wp; H, W (luma)
-        p, i, i,            # ctb grid, cbh, cbw
-        p, p, p,            # chroma_coeff, chroma_clipv, cc_coeff
-        i, i, p]            # ctb_log2, bit_depth, stream
-    lib.alf_error_string.restype = ctypes.c_char_p
-    lib.alf_error_string.argtypes = [ctypes.c_int]
-    _lib = lib
+    _lib = _bind(build_cuda("alf", [_SRC], defines=(
+        ("ALF_TH", TILE[0]), ("ALF_TW", TILE[1]))))
   return _lib
 
 
-def _alf_cuda(planes, a, *, chroma, W, H, ctb_log2, bit_depth, luma):
+def _bind(path):
+  """The built library at `path`, its functions typed."""
+  lib = ctypes.CDLL(path)
+  p, i = ctypes.c_void_p, ctypes.c_int
+  lib.alf_luma_launch.restype = ctypes.c_int
+  lib.alf_luma_launch.argtypes = [
+      p, p, i, i, i, i,   # src, dst, Hp, Wp, H, W
+      p, i, i,            # ctb grid, cbh, cbw
+      p, p, i,            # banks_coeff, banks_clipv, bank count
+      i, i, i, i, p]      # ctb_log2, bit_depth, max blocks, flags, stream
+  lib.alf_chroma_launch.restype = ctypes.c_int
+  lib.alf_chroma_launch.argtypes = [
+      p, p, i, i,         # src pointers (2,), dst, Hp, Wp
+      p, i, i, i, i,      # pre-ALF luma, its Hp, Wp; H, W (luma)
+      p, i, i,            # ctb grid, cbh, cbw
+      p, p, p,            # chroma_coeff, chroma_clipv, cc_coeff
+      i, i, i, i, p]      # ctb_log2, bit_depth, max blocks, flags, stream
+  lib.alf_plan.restype = ctypes.c_int
+  lib.alf_plan.argtypes = [i, i, i, i, p]
+  lib.alf_error_string.restype = ctypes.c_char_p
+  lib.alf_error_string.argtypes = [ctypes.c_int]
+  return lib
+
+
+def launch_plan(*, chroma: bool, W: int, H: int):
+  """A call's launch on the current card, without launching: its tiles,
+  blocks (the persistent grid: the resident blocks the card holds, at
+  most the tiles), resident blocks per SM, tiles per block (the most any
+  block takes), dynamic shared bytes, SMs and threads per block."""
+  lib = _get_kernel()
+  out = (ctypes.c_int * 6)()
+  rc = lib.alf_plan(int(chroma), H, W, 0, out)
+  if rc != 0:
+    raise RuntimeError(f"alf plan failed: {lib.alf_error_string(rc).decode()}")
+  tiles, blocks, per_sm, smem, sms, threads = out
+  return {"tiles": tiles, "blocks": blocks, "blocks_per_sm": per_sm,
+          "tiles_per_block": -(-tiles // blocks), "smem": smem, "sms": sms,
+          "threads": threads, "tile": TILE if not chroma else
+          (TILE[0], TILE[1] // 2)}
+
+
+def _alf_cuda(planes, a, *, chroma, W, H, ctb_log2, bit_depth, luma,
+              overlap=False, max_blocks=0, scalar=False):
   """One launch on the planes' device's current stream into a new
-  (nch, Hp, Wp) tensor, which every thread block writes its tile of."""
+  (nch, Hp, Wp) tensor, which the launch writes whole.  overlap: a
+  chroma launch may start while the luma launch queued just before it
+  runs (csrc/alf.cu; alf_planes says when a caller may ask).  max_blocks
+  (a cap on the grid) and scalar (4-byte copies only) serve the kernel's
+  ablations (tools/alf_tiles.py)."""
   Hp, Wp = planes[0].shape
   dev = planes[0].device
   lib = _get_kernel()
   dst = torch.empty((len(planes), Hp, Wp), dtype=torch.int32, device=dev)
   g = a["ctb"]
+  flags = (_F_SCALAR if scalar else 0) | (_F_OVERLAP if overlap else 0)
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if chroma:
@@ -424,15 +733,16 @@ def _alf_cuda(planes, a, *, chroma, W, H, ctb_log2, bit_depth, luma):
           dst.data_ptr(), Hp, Wp, luma.data_ptr(), *luma.shape, H, W,
           g.data_ptr(), g.shape[0], g.shape[1], a["chroma_coeff"].data_ptr(),
           a["chroma_clipv"].data_ptr(), a["cc_coeff"].data_ptr(), ctb_log2,
-          bit_depth, stream)
+          bit_depth, max_blocks, flags, stream)
     else:
       rc = lib.alf_luma_launch(
           planes[0].data_ptr(), dst.data_ptr(), Hp, Wp, H, W, g.data_ptr(),
           g.shape[0], g.shape[1], a["banks_coeff"].data_ptr(),
           a["banks_clipv"].data_ptr(), a["banks_coeff"].shape[0], ctb_log2,
-          bit_depth, stream)
+          bit_depth, max_blocks, flags, stream)
   if rc != 0:
     raise RuntimeError("alf kernel launch failed: "
                        f"{lib.alf_error_string(rc).decode()}")
   LAUNCHES["alf"] += 1
+  OVERLAPS["alf"] += bool(chroma and overlap)
   return dst

@@ -335,6 +335,36 @@ def test_frame_program_alf_calls_full1080():
   assert n_alf == 5
 
 
+@pytest.mark.parametrize("hooked", [False, True], ids=["session", "hook"])
+def test_frame_program_asks_alf_overlap_without_hook(monkeypatch, hooked):
+  """Launching the kernels itself (the session), the frame program asks
+  every alf chroma call to overlap the luma call just before it
+  (overlap=True) and no luma call; through a call hook, which may queue
+  work between the two calls, it never asks."""
+  from ffmpeg_tpu_torch.models.vvc import pipeline as P
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+
+  wrapper, plain = P.KERNELS["alf"]
+  asked = []
+
+  def spy(**kw):
+    asked.append((kw["chroma"], kw.get("overlap")))
+    return wrapper(**kw)
+
+  monkeypatch.setitem(P.KERNELS, "alf", (spy, plain))
+  data = _stream(TOOL_CASES["alf-inter"])
+  if hooked:
+    aus = VVCDecoder(device="cpu")._split_aus(data)
+    frames = sum(1 for _ in P.walk_frames(
+        aus, "cpu", lambda name, label, kw: P.KERNELS[name][0](**kw)))
+  else:
+    frames = len(_port_md5s(data))
+  n = sum(1 for chroma, _ in asked if not chroma)
+  assert frames == 4 and n > 0
+  want = [(False, None), (True, None if hooked else True)] * n
+  assert asked == want
+
+
 # ---- the wrapper's checks ---------------------------------------------------
 
 BAD = ("two-luma-planes", "one-chroma-plane", "chroma-without-luma",
@@ -511,6 +541,115 @@ def test_alf_build_failure_raises(cuda, tmp_path, monkeypatch):
   monkeypatch.setattr(TA, "_lib", None)
   with pytest.raises(RuntimeError, match="nvcc failed"):
     TA._get_kernel()
+
+
+def _misaligned(t):
+  """t's values in a contiguous tensor whose storage starts 4 bytes past
+  a 16-byte boundary (the kernel's 4-byte copy path)."""
+  buf = torch.empty(t.numel() + 3, dtype=t.dtype, device=t.device)
+  o = (4 - buf.data_ptr() % 16) % 16 // t.element_size()
+  out = buf[o:o + t.numel()].view(t.shape)
+  out.copy_(t)
+  assert out.is_contiguous() and out.data_ptr() % 16 == 4
+  return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("draw", [(8, 5), (10, 6), (12, 7)], ids=_draw_id)
+def test_alf_kernel_misaligned_planes_on_card(cuda, draw, kind):
+  """Planes (and for chroma the pre-ALF luma) whose base is 4 bytes off
+  16-byte alignment: the kernel copies them 4 bytes at a time, and the
+  result equals the plain version's on the aligned planes."""
+  kw = _call(kind, *_draw(*draw), cuda)
+  want = TA.alf_planes_plain(**kw)
+  mis = dict(kw, planes=[_misaligned(p) for p in kw["planes"]])
+  if kind == "chroma":
+    mis["luma"] = _misaligned(kw["luma"])
+  assert torch.equal(TA.alf_planes(**mis), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("lg", CTB_LOG2S)
+def test_alf_kernel_band_shapes_on_card(cuda, T, lg):
+  """The band planes parallel/spatial.py alf_luma_tiled passes for a
+  1920x1080 luma plane in T bands: each band with a CTB row of halo above
+  and below, no padding (Wp = W = 1920, Hp = H), its ALF tree cut to the
+  band; the kernel equal to the plain version on each."""
+  planes, tree, geo = _draw(8, lg, size=(1080, 1920))
+  ctb = 1 << lg
+  H, W = geo["H"], geo["W"]
+  rows = -(-H // (T * ctb)) * ctb
+  ly = torch.from_numpy(planes[0][:H, :W])
+  ly = torch.cat([ly, ly[-1:].expand(rows * T - H, W)])
+  for k in range(T):
+    lo, hi = max(0, k * rows - ctb), min(rows * T, (k + 1) * rows + ctb)
+    band = ly[lo:hi].contiguous()
+    g = tree["ctb"][lo // ctb:-(-hi // ctb)]
+    g = np.concatenate([g, np.zeros_like(g[:1]).repeat(
+        -(-band.shape[0] // ctb) - len(g), 0)])
+    kw = _call("luma", [band.numpy()], dict(tree, ctb=g),
+               dict(geo, H=band.shape[0]), cuda)
+    assert torch.equal(TA.alf_planes(**kw), TA.alf_planes_plain(**kw)), k
+
+
+@pytest.mark.gpu
+def test_alf_kernel_overlapped_pairs_on_card(cuda):
+  """20 luma and chroma call pairs queued back to back on one stream, as
+  the frame program queues them, the chroma call asking to overlap the
+  luma launch (overlap=True): 20 overlapped launches, each output equal
+  to the plain version; then the same without the request: none."""
+  from ffmpeg_tpu_torch.tools.deblock_tiles import b_frame_calls
+
+  calls = dict(b_frame_calls(os.path.join(TESTDATA, "full1080.vvc"), "alf"))
+  kl, kc = calls["luma"], calls["chroma"]
+  assert kc["luma"] is kl["planes"][0]
+  want = [TA.alf_planes_plain(**kl), TA.alf_planes_plain(**kc)]
+  for overlap in (True, False):
+    torch.cuda.synchronize()
+    TA.OVERLAPS["alf"] = 0
+    outs = [TA.alf_planes(**kw) for _ in range(20)
+            for kw in (kl, dict(kc, overlap=overlap))]
+    torch.cuda.synchronize()
+    assert TA.OVERLAPS["alf"] == (20 if overlap else 0)
+    bad = [i for i, o in enumerate(outs) if not torch.equal(o, want[i % 2])]
+    assert not bad, f"calls {bad} differ"
+
+
+@pytest.mark.gpu
+def test_alf_session_overlaps_on_card(cuda):
+  """The session (no call hook) decodes full1080 to its committed MD5s
+  with 2 alf launches a frame, each frame's chroma launch overlapping
+  its luma launch: a lost overlap fails here."""
+  import json
+
+  with open(os.path.join(TESTDATA, "full1080.md5.json")) as f:
+    want = json.load(f)["md5"]
+  TA.LAUNCHES["alf"] = TA.OVERLAPS["alf"] = 0
+  assert _port_md5s(_read("full1080"), device="cuda") == want
+  assert (TA.LAUNCHES["alf"], TA.OVERLAPS["alf"]) == (10, 5)
+
+
+@pytest.mark.gpu
+def test_alf_wrapper_returns_with_card_busy(cuda):
+  """The wrapper queues its launch and returns: the card is still busy
+  with the work queued before it when the call comes back."""
+  import time
+
+  kw = _call("luma", *_draw(8, 6, size=(1080, 1920)), cuda)
+  want = TA.alf_planes_plain(**kw)
+  TA.alf_planes(**kw)                # the build and the first launch
+  torch.cuda.synchronize()
+  torch.cuda._sleep(400_000_000)     # cycles: about 0.2 s
+  t0 = time.perf_counter()
+  got = TA.alf_planes(**kw)
+  after = torch.cuda.Event()
+  after.record()
+  host_s = time.perf_counter() - t0
+  assert not after.query(), f"the call waited ({host_s} s)"
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
 
 
 @pytest.mark.slow
