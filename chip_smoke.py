@@ -9,7 +9,8 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     with the full toolset (bench.py FULL_KW: B slices with TMVP,
     affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
     with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
-    the five kernels (residual, inter_pred, recon, deblock, alf);
+    the eight kernels (residual, inter_pred, recon, lmcs_scales,
+    lmcs_inv, deblock, sao, alf);
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra;
@@ -26,8 +27,8 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
 Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
-  2. build    host parser (make) and every CUDA kernel (nvcc: residual,
-              recon, inter_pred, deblock, alf), in
+  2. build    host parser (make) and every CUDA kernel library (nvcc:
+              residual, recon, inter_pred, deblock, alf, sao, lmcs), in
               parallel, from the sources in this checkout; each kernel
               function's registers, shared memory and spills (ptxas)
   3. kernels  each kernel call of the frame program (recorded through
@@ -37,8 +38,9 @@ Phases, one JSON line each:
               kernel's two calls, luma, then Cb and Cr; the deblock
               kernel's two calls, both passes in one launch, and each
               call's passes alone in its one-pass mode; the alf kernel's
-              two calls, luma, then Cb and Cr with CC-ALF) on the first B
-              frame
+              two calls, luma, then Cb and Cr with CC-ALF; the sao
+              kernel's two calls, luma, then Cb and Cr; the LMCS chroma
+              scales and inverse map) on the first B frame
               of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
               and DMVR units under LMCS with ALF-on CTBs (the inter calls
               carry DMVR windows and the luma forward map; its real,
@@ -58,15 +60,18 @@ Phases, one JSON line each:
               the residual wrapper called twice a frame, each call
               launching one to three work groups (counted apart),
               the alf kernel twice on each frame with ALF on (the traced
-              alf spans count those frames)
+              alf spans count those frames), the sao kernel twice on
+              each frame with SAO on, lmcs_inv once on each frame with
+              LMCS on and lmcs_scales once on each frame with chroma
+              residual scaling on (the sao, lmcs and lmcs_scales spans)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
               with the fetch, full1080 fps at host_threads 1, 4 and 8,
               twice each in the order 1, 4, 8, 8, 4, 1 (the session's
               parse pool; os.cpu_count() beside it),
               full1080 per-stage ms (the DMVR round trip
-              per DMVR frame among them), the device ms of the LMCS and
-              DMVR torch ops per call and per frame (CUDA events
+              per DMVR frame among them), the device ms of the DMVR
+              search's torch ops per call and per frame (CUDA events
               around each call, queued behind a held card), kernel vs
               plain ms (CUDA events, the launches queued behind a short
               sleep of the card so that the host's Python between them is
@@ -88,7 +93,8 @@ Phases, one JSON line each:
               kernel's ms per call (its plane fill and each work group's
               launch apart, with each group's TUs, blocks, shared bytes
               and resident blocks per SM; the wrapper's host ms per
-              call beside it), on the full1080 B frame and the
+              call beside it), the sao, lmcs_inv and lmcs_scales
+              kernels' ms per call, on the full1080 B frame and the
               coding-tool frames; every
               timed launch of the kernels held
               against the plain version (for recon, the race check); and
@@ -104,8 +110,8 @@ Phases, one JSON line each:
               times: the race check with other streams in flight), fps
               per width, the card's busy ms and stream concurrency of
               the waves (profiler); full1080 (DMVR) refused; the
-              band-split deblock and ALF luma (the kernels on each band)
-              and SAO (parallel/spatial.py) at 1920x1088 in 4 bands equal
+              band-split deblock, SAO and ALF luma (parallel/spatial.py;
+              the kernels on each band) at 1920x1088 in 4 bands equal
               to the whole-plane ops, with card ms; tools/decode.py on an MP4 of
               ra1080 made by the
               port's muxer, to the annex-B MD5s
@@ -134,21 +140,33 @@ CTU128 = "ctu128_1080"
 TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
 FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
             "gop720")
-KERNELS = ("residual", "inter_pred", "recon", "deblock", "alf")
-# the kernels each fixture's path must launch (every fixture has
-# residuals and deblock on; full1080, ctu128_1080 and gop720 have ALF on)
+KERNELS = ("residual", "inter_pred", "recon", "deblock", "alf", "sao",
+           "lmcs_inv", "lmcs_scales")
+# the CUDA libraries (utils/build.py names): one per kernel, lmcs for both
+# LMCS kernels
+LIBS = KERNELS[:6] + ("lmcs",)
+# the kernels each fixture's path must launch: every fixture has
+# residuals and deblock on; all but ciip64 SAO; full1080 and gop720 LMCS
+# with chroma residual scaling; ctu128_1080 LMCS without it;
+# full1080, ctu128_1080 and gop720 ALF
 NO_ALF = KERNELS[:4]
-INTRA = ("residual", "recon", "deblock")
-PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF, "ai720": INTRA,
-                "ai256x128_10b": INTRA, CTU128: KERNELS,
+INTRA = ("residual", "recon", "deblock", "sao")
+PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF + ("sao",), "ai720": INTRA,
+                "ai256x128_10b": INTRA,
+                CTU128: KERNELS[:6] + ("lmcs_inv",),
                 "ciip64": NO_ALF, "gop720": KERNELS}
+# the traced span that counts a path's frames with a filter on (ALF, SAO,
+# LMCS, chroma residual scaling), and the kernel's launches per such
+# 4:2:0 frame (luma, then Cb and Cr; or one call)
+FRAME_SPANS = {"alf": ("alf", 2), "sao": ("sao", 2), "lmcs_inv": ("lmcs", 1),
+               "lmcs_scales": ("lmcs_scales", 1)}
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
 GOP_WIDTHS = (1, 2, 4)
 
 # NVIDIA H100 SXM data sheet (dense): the HBM rate, and the int32 rate
 # outside the tensor cores, used for the kernels' least-time bounds (all
-# five kernels compute in integers): 64 INT32 lanes per SM (half the 128
+# eight kernels compute in integers): 64 INT32 lanes per SM (half the 128
 # FP32 lanes behind the 67e12 float32 rate), a multiply-add counted as two
 # operations: 132 SMs x 64 x 2 x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
@@ -171,10 +189,12 @@ def _read(name):
 
 def _counts():
   """The launch and plain-run counters of every kernel wrapper."""
-  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon, transform
+  from ffmpeg_tpu_torch.ops import (alf, deblock, inter, lmcs, recon, sao,
+                                    transform)
 
   return {"residual": transform, "inter_pred": inter, "recon": recon,
-          "deblock": deblock, "alf": alf}
+          "deblock": deblock, "alf": alf, "sao": sao, "lmcs_inv": lmcs,
+          "lmcs_scales": lmcs}
 
 
 def _zero_counts():
@@ -207,7 +227,8 @@ def phase_device(torch):
 
 def phase_build():
   from ffmpeg_tpu_torch.models.vvc import host
-  from ffmpeg_tpu_torch.ops import alf, deblock, inter, recon, transform
+  from ffmpeg_tpu_torch.ops import (alf, deblock, inter, lmcs, recon, sao,
+                                    transform)
   from ffmpeg_tpu_torch.utils.build import BUILD_LOG
 
   errors = []
@@ -225,7 +246,8 @@ def phase_build():
   threads = [threading.Thread(target=run, args=a) for a in (
       ("vvc_host", host._get_lib), ("recon", recon._get_kernel),
       ("inter_pred", inter._get_kernel), ("deblock", deblock._get_kernel),
-      ("alf", alf._get_kernel), ("residual", transform._get_kernel))]
+      ("alf", alf._get_kernel), ("residual", transform._get_kernel),
+      ("sao", sao._get_kernel), ("lmcs", lmcs._get_kernel))]
   t0 = time.perf_counter()
   for t in threads:
     t.start()
@@ -236,7 +258,7 @@ def phase_build():
   emit({"phase": "build", "seconds": time.perf_counter() - t0,
         "seconds_each": times,
         "ptxas": {k: _ptxas(BUILD_LOG.get(k, {}).get("ptxas", []))
-                  for k in KERNELS}})
+                  for k in LIBS}})
 
 
 def _ptxas(lines):
@@ -356,6 +378,25 @@ def _bytes_moved(name, kw):
   samples (mc_tiles)."""
   from ffmpeg_tpu_torch.models.vvc.mc_tiles import nbytes
 
+  if name == "sao":
+    # each plane in and out; per plane its component's CTB grids (type,
+    # band position, EO class and 5 offsets: 8 words a CTB)
+    cbh, cbw = kw["sao"]["type"].shape[:2]
+    return sum(p.numel() * 4 * 2 for p in kw["planes"]) + \
+        len(kw["planes"]) * cbh * cbw * 8 * 4
+  if name == "lmcs_inv":  # the plane in and out (the tables are a few words)
+    return kw["x"].numel() * 4 * 2
+  if name == "lmcs_scales":
+    # the distinct samples of the VPDUs' available left columns and top
+    # rows in, the scales out
+    import numpy as np
+
+    nvy, nvx, vsz = *_vpdu_grid(kw), kw["vsz"]
+    al, at = _vpdu_avail(kw)
+    rows = np.minimum(kw["H"] - np.arange(nvy) * vsz, vsz)
+    cols = np.minimum(kw["W"] - np.arange(nvx) * vsz, vsz)
+    read = int((al * rows[:, None]).sum() + (at * cols[None, :]).sum())
+    return (read + nvy * nvx) * 4
   if name == "deblock":   # each plane in and out, each pass's grids in
     return sum(p.numel() * 4 * 2 for p in kw["planes"]) + sum(
         t.numel() * 4 for g in kw["grids_v"] + kw["grids_h"] for t in g)
@@ -398,6 +439,25 @@ def _bytes_moved(name, kw):
   if kw.get("cclm") is not None:
     b += kw["cclm"][1].numel() * 4 + 4 * 4 * intra["mat"].shape[1]
   return b
+
+
+def _vpdu_grid(kw):
+  """An lmcs_scales call's VPDU rows and columns."""
+  return -(-kw["H"] // kw["vsz"]), -(-kw["W"] // kw["vsz"])
+
+
+def _vpdu_avail(kw):
+  """An lmcs_scales call's per-VPDU availability of the left column and
+  the top row (ops/lmcs.py), as (nvy, nvx) numpy int arrays."""
+  import numpy as np
+
+  nvy, nvx = _vpdu_grid(kw)
+  vy = np.arange(nvy) * kw["vsz"]
+  vx = np.arange(nvx) * kw["vsz"]
+  al = (vx > 0) & ~np.isin(vx, kw["tile_bds"][0])
+  at = (vy > 0) & ~np.isin(vy, kw["tile_bds"][1])
+  return (np.broadcast_to(al[None, :], (nvy, nvx)).astype(int),
+          np.broadcast_to(at[:, None], (nvy, nvx)).astype(int))
 
 
 def _ref_samples(kw):
@@ -502,11 +562,30 @@ def _ops(name, kw):
   with its flag on the 5x5 diamond (about 60), with a CC-ALF index
   above 0 the 7 taps (about 27); 1 per sample of each padded plane
   (the select or copy).
-  residual: counted from the call's rows (_residual_ops)."""
+  residual: counted from the call's rows (_residual_ops).
+  sao: per picture sample of a band CTB about 8 (the band index, its
+  test, the offset's load, the add and the clip), of an edge CTB about
+  24 (8 in-picture compares, the two neighbours' clamped addresses, two
+  wrapped differences and signs, the slot, the add and the clip), of an
+  SAO-off CTB 2 (the clip); 1 per padding sample (the copy).
+  lmcs_inv: per sample 2 per pivot scanned (max_bin - min_bin + 1: the
+  compare and the add) and about 12 (the bin's test, the multiply, the
+  rounding, the shifts, the add and the clip).
+  lmcs_scales: 1 per sample read (the add), per VPDU about 30 (the
+  shuffle sum, the availability, the mean) and 2 per pivot scanned."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
   if name == "residual":
     return _residual_ops(kw)
+  if name == "sao":
+    return _sao_ops(kw)
+  if name in ("lmcs_inv", "lmcs_scales"):
+    tab = kw["lm"]["inv_host"]
+    scan = 2 * (min(int(tab[34]), 15) - max(int(tab[33]), 0) + 1)
+    if name == "lmcs_inv":
+      return kw["x"].numel() * (scan + 12)
+    nvy, nvx = _vpdu_grid(kw)
+    return _bytes_moved(name, kw) // 4 - nvy * nvx + nvy * nvx * (30 + scan)
   if name == "alf":
     return _alf_ops(kw)
   if name == "deblock":
@@ -568,6 +647,26 @@ def _residual_ops(kw):
         macs += 16 * (48 if w >= 8 and h >= 8 else 16) * int(
             (m[k("lf_sel")] >= 0).sum())
       total += 6 * n * zh * zw + 2 * macs + per_sample * n * w * h
+  return total
+
+
+def _sao_ops(kw):
+  """_ops for a sao call, counted from its tree: the picture samples of
+  each CTB by its type, per plane."""
+  import numpy as np
+
+  cs = kw["comps"]
+  typ = kw["sao"]["type"].cpu().numpy()
+  ctb, H, W = kw["ctb"], kw["pic_h"], kw["pic_w"]
+  hs = np.clip(H - np.arange(typ.shape[0]) * ctb, 0, ctb)
+  ws = np.clip(W - np.arange(typ.shape[1]) * ctb, 0, ctb)
+  area = hs[:, None] * ws[None, :]
+  total = 0
+  for pl, c in zip(kw["planes"], cs):
+    t = typ[..., c]
+    total += pl.numel() - int(area.sum())
+    total += 8 * int(area[t == 1].sum()) + 24 * int(area[t == 2].sum()) \
+        + 2 * int(area[(t != 1) & (t != 2)].sum())
   return total
 
 
@@ -717,6 +816,16 @@ def phase_kernels(torch):
           and out["frames"]["ciip64"]["ciip64"]):
     fail("kernels", "the coding-tool frames hold no 64-edge unit, no cell-1 "
          "call or no 64x64 CIIP unit")
+  # the SAO and LMCS kernels' calls on the frames that make them
+  filt = {MAIN: ("sao", "sao", "lmcs_inv", "lmcs_scales"),
+          "ra1080": ("sao", "sao"), "ai720": ("sao", "sao"),
+          "ai256x128_10b": ("sao", "sao"),
+          CTU128 + "/I": ("sao", "sao", "lmcs_inv"),
+          CTU128 + "/B": ("sao", "sao", "lmcs_inv"), "ciip64": ()}
+  for key, want in filt.items():
+    got = tuple(sorted(n for n, _, _ in calls[key] if n in KERNELS[5:]))
+    if got != tuple(sorted(want)):
+      fail("kernels", f"{key}: SAO and LMCS calls {got}, expected {want}")
   for name in calls:
     _check_calls(name, calls[name], out, torch)
   worst = {k: max(c["max_abs_err"] for c in out["cases"] if c["kernel"] == k)
@@ -741,9 +850,9 @@ def _decode_md5s(name, torch):
 
 def phase_decode(torch):
   """Each fixture is its own path: the counts are zeroed just before its
-  decode and read just after; the decode is traced, so that its alf
-  spans count the frames with ALF on.  Returns the launches of each
-  path."""
+  decode and read just after; the decode is traced, so that its alf,
+  sao, lmcs and lmcs_scales spans count the frames with each filter on
+  (FRAME_SPANS).  Returns the launches of each path."""
   from ffmpeg_tpu_torch.utils import trace
 
   res = {"phase": "decode", "fixtures": {}}
@@ -759,7 +868,10 @@ def phase_decode(torch):
       got = _decode_md5s(name, torch)
     finally:
       trace.enable(False)
-    alf_frames = trace.summary().get("alf", {}).get("n", 0)
+    spans = trace.summary()
+    frames = {k: spans.get(span, {}).get("n", 0)
+              for k, (span, _) in FRAME_SPANS.items()}
+    alf_frames = frames["alf"]
     counts = _counts()
     launches[name] = {k: m.LAUNCHES[k] for k, m in counts.items()}
     launches[name]["inter_pred_by_class"] = dict(
@@ -778,7 +890,7 @@ def phase_decode(torch):
             launches[name]["residual_calls"] / len(got),
         "residual_launches_per_frame":
             launches[name]["residual"] / len(got),
-        "alf_frames": alf_frames,
+        "alf_frames": alf_frames, "filter_frames": frames,
         "alf_launches_per_alf_frame":
             launches[name]["alf"] / max(alf_frames, 1),
         "peak_device_bytes": torch.cuda.max_memory_allocated()}
@@ -804,17 +916,18 @@ def phase_decode(torch):
       fail("decode", f"{name}: the residual wrapper was not called twice a "
            "frame (luma; Cb and Cr), each call launching 1 to 3 work "
            f"groups: {calls} calls, {launches[name]['residual_by_group']}")
-    if launches[name]["alf"] != 2 * alf_frames or \
-        bool(alf_frames) != ("alf" in PATH_KERNELS[name]):
-      emit(res)
-      fail("decode", f"{name}: the alf kernel was launched "
-           f"{launches[name]['alf']} times for {alf_frames} frames with ALF "
-           "on, not twice each (luma; Cb and Cr)")
     if launches[name]["alf_overlapped"] != alf_frames:
       emit(res)
       fail("decode", f"{name}: {launches[name]['alf_overlapped']} alf "
            f"chroma launches overlapped the luma launch for {alf_frames} "
            "frames with ALF on, not one each")
+    for k, (span, per) in FRAME_SPANS.items():
+      if launches[name][k] != per * frames[k] or \
+          bool(frames[k]) != (k in PATH_KERNELS[name]):
+        emit(res)
+        fail("decode", f"{name}: the {k} kernel was launched "
+             f"{launches[name][k]} times for {frames[k]} {span} frames, not "
+             f"{per} each")
   emit(res)
   return launches
 
@@ -877,12 +990,11 @@ def _fps(name, torch, traced=False, host_threads=None):
 
 
 def _op_device_ms(name, torch):
-  """Device ms of the LMCS and DMVR torch ops over a decode of a fixture:
-  each call of pipeline.lmcs_inv, lmcs_vpdu_scales and
-  ops/dmvr.refine_subblocks is queued behind a held card and bracketed by
-  CUDA events, so the events time the card's work, not the host's
-  launches.  Returns per op its calls, ms per call and ms per frame."""
-  from ffmpeg_tpu_torch.models.vvc import pipeline
+  """Device ms of the DMVR search's torch ops over a decode of a fixture:
+  each call of ops/dmvr.refine_subblocks is queued behind a held card
+  and bracketed by CUDA events, so the events time the card's work, not
+  the host's launches.  Returns its calls, ms per call and ms per
+  frame."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.ops import dmvr
 
@@ -901,9 +1013,7 @@ def _op_device_ms(name, torch):
       return out
     return run
 
-  patches = [(pipeline, "lmcs_inv", "lmcs_inv"),
-             (pipeline, "lmcs_vpdu_scales", "lmcs_chroma_scales"),
-             (dmvr, "refine_subblocks", "dmvr_search")]
+  patches = [(dmvr, "refine_subblocks", "dmvr_search")]
   saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
   for mod, attr, key in patches:
     setattr(mod, attr, timed(key, getattr(mod, attr)))
@@ -1017,7 +1127,8 @@ def _time_inter(kw, torch, reps, rounds):
 
 
 def _whole_call_runs(name, kw, want, torch, reps):
-  """reps calls of the deblock or alf wrapper on one call's inputs, queued
+  """reps calls of a one-launch wrapper (deblock, alf, sao, lmcs_inv,
+  lmcs_scales) on one call's inputs, queued
   behind _hold_card and timed with CUDA events: the launch is the whole
   call (the output is a fresh tensor, no copy).  Every output is held
   against `want`, the plain version's (deblock's shared-memory atomics'
@@ -1037,7 +1148,7 @@ def _whole_call_runs(name, kw, want, torch, reps):
 
 
 def _time_whole_call(name, kw, torch, reps, rounds):
-  """One deblock or alf call: ms per call (mean of `rounds` rounds of
+  """One call of a one-launch wrapper: ms per call (mean of `rounds` rounds of
   `reps` calls), and the calls that differ from the plain version."""
   want = _plain(name, kw)
   runs = [_whole_call_runs(name, kw, want, torch, reps)
@@ -1158,9 +1269,9 @@ def _time_call(name, label, kw, levels, torch, reps, rounds):
     return _time_residual(kw, torch, reps, rounds)
   if name == "alf":
     return _time_alf(kw, torch, reps, rounds)
-  if name == "deblock":
-    return _time_whole_call(name, kw, torch, reps, rounds)
-  return _time_inter(kw, torch, reps, rounds)
+  if name == "inter_pred":
+    return _time_inter(kw, torch, reps, rounds)
+  return _time_whole_call(name, kw, torch, reps, rounds)
 
 
 def _alf_registers():
@@ -1277,17 +1388,22 @@ def phase_timing(torch, card, calls, levels):
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
   deblock, alf, residual = {}, {}, {}
+  filt = {k: {} for k in KERNELS[5:]}
+  per = {"recon": recon[MAIN], "deblock": deblock, "alf": alf,
+         "residual": residual, "inter_pred": inter, **filt}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
     r = _time_call(name, label, kw, levels[MAIN], torch, 20, 2)
-    {"recon": recon[MAIN], "deblock": deblock, "alf": alf,
-     "residual": residual}.get(name, inter)[label] = r
+    per[name][label] = r
     kern[f"{name}/{label}"] = r["ms"]
     p2 = _events_ms(lambda: _plain(name, kw), torch, 1)
     plain[f"{name}/{label}"] = (p1 + p2) / 2
   print(f"chip_smoke: timing {MAIN} deblock ms per launch: " + ", ".join(
       f"{label} {r['ms']} (plain {plain[f'deblock/{label}']})"
       for label, r in deblock.items()), flush=True)
+  print(f"chip_smoke: timing {MAIN} ms per call: " + ", ".join(
+      f"{name} {label} {r['ms']} (plain {plain[f'{name}/{label}']})"
+      for name, rr in filt.items() for label, r in rr.items()), flush=True)
   alf_pair = {MAIN: _time_alf_pair(calls[MAIN], torch, 20, 2)}
   _print_alf(MAIN, alf, alf_pair[MAIN], plain)
   for label, r in residual.items():
@@ -1311,7 +1427,7 @@ def phase_timing(torch, card, calls, levels):
         f"{r['us_per_level']} us per level)"
         for label, r in t["recon"].items()) + "".join(
         f", {name} {label} {r['ms']} ms"
-        for name in ("residual", "inter_pred", "deblock", "alf")
+        for name in KERNELS if name != "recon"
         for label, r in t[name].items()), flush=True)
     alf_pair[key] = t["alf_pair"] = _time_alf_pair(calls[key], torch, 20, 1)
     if t["alf"]:
@@ -1322,6 +1438,7 @@ def phase_timing(torch, card, calls, levels):
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
   out["alf"], out["alf_pair"], out["residual"] = alf, alf_pair, residual
+  out["sao_lmcs"] = filt
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
@@ -1330,20 +1447,23 @@ def phase_timing(torch, card, calls, levels):
          for f, rr in recon.items() for label, r in rr.items()
          if r["launches_unequal"]}
   for name, rr in (("inter_pred", inter), ("deblock", deblock),
-                   ("alf", alf), ("residual", residual)):
+                   ("alf", alf), ("residual", residual), *filt.items()):
     bad.update({f"{name} {label}": r["calls_unequal"]
                 for label, r in rr.items() if r["calls_unequal"]})
   for key, t in tools.items():
     bad.update({f"recon {key} {label}": r["launches_unequal"]
                 for label, r in t["recon"].items() if r["launches_unequal"]})
-    for name in ("inter_pred", "deblock", "alf", "residual"):
+    for name in KERNELS:
+      if name == "recon":
+        continue
       bad.update({f"{name} {key} {label}": r["calls_unequal"]
                   for label, r in t[name].items() if r["calls_unequal"]})
   bad.update({f"alf pair {key}": r["calls_unequal"]
               for key, r in alf_pair.items() if r and r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
-  return kern, plain, recon, inter, deblock, alf, alf_pair, residual, tools
+  return (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
+          tools)
 
 
 def _union_us(work):
@@ -1475,14 +1595,14 @@ def _tiled_filters(torch):
   T = 4 row bands on cuda:0, each equal to the whole-plane op on the same
   seeded inputs (tolerance 0): deblock's luma vertical pass (the deblock
   kernel on the whole plane, and once on each band), SAO and ALF luma
-  (the alf kernel on the whole plane, there equal to its plain version,
-  and once on each band); the card ms of each, whole and split (CUDA
-  events, mean of 5 calls queued behind a held card)."""
+  (the sao and alf kernels on the whole plane, there equal to their
+  plain versions, and once on each band); the card ms of each, whole and
+  split (CUDA events, mean of 5 calls queued behind a held card)."""
   import numpy as np
 
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock
-  from ffmpeg_tpu_torch.ops.sao import sao_plane
+  from ffmpeg_tpu_torch.ops import sao as TS
   from ffmpeg_tpu_torch.parallel import spatial
   from ffmpeg_tpu_torch.parallel.mesh import make_mesh
 
@@ -1534,7 +1654,7 @@ def _tiled_filters(torch):
           lambda: spatial.deblock_vertical_tiled(plane, *db, mesh=mesh,
                                                  **dkw)),
       "sao": (
-          lambda: sao_plane(plane, *sao, Wp, H, ctb=ctb, bit_depth=bd),
+          lambda: TS.sao_plane(plane, *sao, Wp, H, ctb=ctb, bit_depth=bd),
           lambda: spatial.sao_plane_tiled(plane, *sao, Wp, H, ctb=ctb,
                                           bit_depth=bd, mesh=mesh)),
       "alf_luma": (
@@ -1546,25 +1666,25 @@ def _tiled_filters(torch):
   for name, (whole, tiled) in ops.items():
     want = whole()
     kernel = {"deblock_luma_vertical": (deblock, "deblock"),
-              "alf_luma": (A, "alf")}.get(name)
-    n = kernel[0].LAUNCHES[kernel[1]] if kernel else 0
+              "sao": (TS, "sao"), "alf_luma": (A, "alf")}[name]
+    n = kernel[0].LAUNCHES[kernel[1]]
     equal = torch.equal(want, tiled())
-    if kernel:
-      n = kernel[0].LAUNCHES[kernel[1]] - n
+    n = kernel[0].LAUNCHES[kernel[1]] - n
     res[name] = {"equal": equal, "whole_ms": _events_ms(whole, torch, 5),
                  "tiled_ms": _events_ms(tiled, torch, 5)}
     if not equal:
       fail("parallel", f"tiled {name} != the whole-plane op")
-    if name == "alf_luma":
-      res[name]["whole_equals_plain"] = torch.equal(want, alf_plain())
+    if name in ("alf_luma", "sao"):
+      res[name]["whole_equals_plain"] = torch.equal(
+          want, alf_plain() if name == "alf_luma" else TS.sao_rows_plain(
+              plane, *sao, Wp, H, ctb=ctb, bit_depth=bd))
       if not res[name]["whole_equals_plain"]:
-        fail("parallel", "the alf kernel on the whole 1080p plane != its "
-             "plain version")
-    if kernel:
-      res[name]["band_launches"] = n
-      if n != 4:
-        fail("parallel", f"the band-split {kernel[1]} launched the kernel "
-             f"{n} times, not once per band")
+        fail("parallel", f"the {kernel[1]} kernel on the whole 1080p plane "
+             "!= its plain version")
+    res[name]["band_launches"] = n
+    if n != 4:
+      fail("parallel", f"the band-split {kernel[1]} launched the kernel "
+           f"{n} times, not once per band")
   return {"shape": [Hp, Wp], "bands": 4, "ctb": ctb, "tolerance": 0,
           "ops": res}
 
@@ -1695,7 +1815,9 @@ def _tool_row(name, calls, timed):
   """One kernel's numbers on a coding-tool frame: ms per call summed over
   the plane kinds (for alf, the overlapped pair's ms per frame, with the
   calls alone beside it), the plain version's, and the bound, as for the
-  main path's row."""
+  main path's row; None where the frame makes no call of it."""
+  if not timed[name]:
+    return None
   row = {"ms": sum(r["ms"] for r in timed[name].values()),
          "plain_ms": sum(v for k, v in timed["plain_ms"].items()
                          if k.startswith(name + "/")),
@@ -1738,6 +1860,16 @@ KERNEL_INFO = {
                 "ffmpeg_tpu/ops/deblock.py:67,300 (deblock_vertical_luma, "
                 "deblock_vertical_chroma, run by loopfilters at "
                 "ffmpeg_tpu/models/vvc/pipeline.py:1315; XLA, not Pallas)"),
+    "sao": ("ffmpeg_tpu_torch/csrc/sao.cu",
+            "ffmpeg_tpu/ops/sao.py:93,34 (sao_plane over sao_rows, called "
+            "per component at ffmpeg_tpu/models/vvc/pipeline.py:1347; band "
+            "form ffmpeg_tpu/parallel/spatial.py:139; XLA, not Pallas)"),
+    "lmcs_inv": ("ffmpeg_tpu_torch/csrc/lmcs.cu",
+                 "ffmpeg_tpu/models/vvc/pipeline.py:373 (_lmcs_inv, called "
+                 "at 1308; XLA, not Pallas)"),
+    "lmcs_scales": ("ffmpeg_tpu_torch/csrc/lmcs.cu",
+                    "ffmpeg_tpu/models/vvc/pipeline.py:393 "
+                    "(_lmcs_vpdu_scales, called at 1297; XLA, not Pallas)"),
 }
 
 
@@ -1753,8 +1885,8 @@ def main() -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
-  kern, plain, recon, inter, deblock, alf, alf_pair, residual, tools = \
-      phase_timing(torch, card, calls, levels)
+  (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
+   tools) = phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
   paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
@@ -1779,9 +1911,10 @@ def main() -> int:
           for label, r in recon[MAIN].items()}
       rows[-1]["launches_by_edge"] = {
           f: launches[f]["recon_by_edge"] for f in FIXTURES}
-    elif name == "deblock":
-      rows[-1]["split_ms"] = {label: {"ms": r["ms"]}
-                              for label, r in deblock.items()}
+    elif name in ("deblock", *filt):
+      rows[-1]["split_ms"] = {label: {"ms": r["ms"]} for label, r in
+                              (deblock if name == "deblock" else
+                               filt[name]).items()}
     elif name == "alf":
       _alf_pair_ms(rows[-1], alf_pair[MAIN])
       rows[-1]["split_ms"] = {label: {"ms": r["ms"], "launch": r["launch"]}

@@ -7,8 +7,8 @@ the host loops need stay Python ints.  Each layout's control rows
 travel as one (len(KEYS), n) matrix whose rows
 are exposed under their names, with a host copy kept for the checks
 and the chunk bounds (so do the MC batch's tile offsets and work
-lists, and the LMCS forward table, which the inter kernel takes in its
-parameter block).
+lists, and the LMCS tables that the inter and LMCS kernels take in
+their parameter blocks).
 """
 from __future__ import annotations
 
@@ -57,12 +57,17 @@ def _inter(inter: dict, n_inter: int, device) -> dict:
 
 
 def _lmcs(lm: dict, device) -> dict:
-  """The LMCS tables as tensors, and the inter kernel's forward table
-  (pivot[0:16] then fwd_scale), which travels in its parameter block, as
-  a host array."""
+  """The LMCS tables as tensors, and as host arrays the tables that
+  travel in kernels' parameter blocks: the inter kernel's forward table
+  (pivot[0:16] then fwd_scale) and the LMCS kernels' table (ops/lmcs.py:
+  pivot, inv_scale, min_bin, max_bin, then chroma_scale when present)."""
   out = {k: _t(v, device) for k, v in lm.items()}
   out["fwd_host"] = np.concatenate(
       [np.asarray(lm["pivot"])[:16], lm["fwd_scale"]]).astype(np.int32)
+  out["inv_host"] = np.concatenate(
+      [lm["pivot"], lm["inv_scale"], lm["bins"]]
+      + ([lm["chroma_scale"]] if "chroma_scale" in lm else [])).astype(
+          np.int32)
   return out
 
 

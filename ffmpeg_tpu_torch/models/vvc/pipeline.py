@@ -9,15 +9,16 @@ form), stage by stage on one device:
   MC batch + DPB refs ──inter kernel──> prediction tiles (P/B frames; the
                                         luma mapped forward under LMCS)
   tiles + intra layout ──recon kernel──> luma (in the LMCS-mapped domain)
-  mapped luma ──> per-VPDU chroma residual scales (LMCS)
+  mapped luma ──LMCS scales kernel──> per-VPDU chroma residual scales
   chroma buckets ──residual kernel, scaled──> Cb+Cr residual planes (one
                                              launch for both)
   tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
                                          reconstructed luma)
-  luma ──LMCS inverse──> edge grids ──deblock kernel──> V, then H (one
-       launch for luma, one for Cb+Cr) ──> SAO ──ALF kernel──> luma
-       (classification + 7x7 diamond), then Cb+Cr (5x5 diamond + CC-ALF
-       from the pre-ALF luma) ──> packed bytes
+  luma ──LMCS inverse kernel──> edge grids ──deblock kernel──> V, then H
+       (one launch for luma, one for Cb+Cr) ──SAO kernel──> luma, then
+       Cb+Cr ──ALF kernel──> luma (classification + 7x7 diamond), then
+       Cb+Cr (5x5 diamond + CC-ALF from the pre-ALF luma) ──> packed
+       bytes
 
 DMVR frames first run their refinement (ops/dmvr.py, `refine_dmvr`)
 against the DPB, which the session does in decode order.
@@ -34,9 +35,10 @@ from ...ops.alf import alf_planes, alf_planes_plain
 from ...ops.deblock import deblock_planes, deblock_planes_plain
 from ...ops.dmvr import refine_frame
 from ...ops.inter import inter_pred, inter_pred_plain_kind
-from ...ops.lmcs import lmcs_inv, lmcs_vpdu_scales
+from ...ops.lmcs import (lmcs_inv, lmcs_inv_plain, lmcs_vpdu_scales,
+                        lmcs_vpdu_scales_plain)
 from ...ops.recon import recon_plane, recon_plane_plain_kind
-from ...ops.sao import sao_plane
+from ...ops.sao import sao_planes, sao_planes_plain
 from ...ops.transform import (error_word, raise_on_error, residual_planes,
                                residual_planes_plain)
 from ...utils import trace
@@ -57,7 +59,10 @@ def _sync_for(device):
 KERNELS = {"residual": (residual_planes, residual_planes_plain),
            "inter_pred": (inter_pred, inter_pred_plain_kind),
            "recon": (recon_plane, recon_plane_plain_kind),
+           "lmcs_scales": (lmcs_vpdu_scales, lmcs_vpdu_scales_plain),
+           "lmcs_inv": (lmcs_inv, lmcs_inv_plain),
            "deblock": (deblock_planes, deblock_planes_plain),
+           "sao": (sao_planes, sao_planes_plain),
            "alf": (alf_planes, alf_planes_plain)}
 
 
@@ -90,11 +95,14 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   dbo/dto: effective deblock beta/tc offsets per component.
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
   of KERNELS, in order: residual of luma, inter_pred of luma then
-  chroma (P/B frames), recon of luma, residual of chroma (Cb and Cr
-  together, after the LMCS chroma scales that read the luma recon),
-  recon of chroma, deblock of luma then chroma (frames with deblock
-  on), alf of luma then chroma (frames with ALF on; the chroma call
-  reads the pre-ALF luma); a 4:0:0 frame makes only the luma calls.
+  chroma (P/B frames), recon of luma, lmcs_scales of luma (the chroma
+  residual scales, which read the mapped luma recon; frames with chroma
+  residual scaling on), residual of chroma (Cb and Cr together), recon
+  of chroma, lmcs_inv of luma (frames with LMCS on), deblock of luma
+  then chroma (frames with deblock on), sao of luma then chroma (frames
+  with SAO on), alf of luma then chroma (frames with ALF on; the chroma
+  call reads the pre-ALF luma); a 4:0:0 frame makes only the luma
+  calls.
   The default runs the wrapper, and asks for the alf chroma launch to
   overlap the luma launch (alf_planes overlap=True); a check passes its
   own hook to hold each call against the plain version, and gets no
@@ -156,9 +164,10 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     if lm is not None and "chroma_scale" in lm:
       # chroma residual scaling reads the mapped luma recon around each
       # VPDU, so the chroma residuals wait for it
-      with trace.span("lmcs", sync):
-        scale = lmcs_vpdu_scales(planes[0][:H, :W], lm, W, H,
-                                 min(maxs_y, 64), bd, tile_bds)
+      with trace.span("lmcs_scales", sync):
+        scale = call("lmcs_scales", "luma", dict(
+            plane_y=planes[0][:H, :W], lm=lm, W=W, H=H,
+            vsz=min(maxs_y, 64), bit_depth=bd, tile_bds=tile_bds))
     res_c = residual("chroma", scale)
     cclm = None
     if "cclm_vc" in inp:
@@ -172,14 +181,15 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     # the whole luma plane back to the original domain before the loop
     # filters (ff_vvc_lmcs_filter, vvc_filter.c:1322-1331)
     with trace.span("lmcs", sync):
-      planes[0] = lmcs_inv(planes[0], lm, bd)
+      planes[0] = call("lmcs_inv", "luma", dict(x=planes[0], lm=lm,
+                                                bit_depth=bd))
 
+  # the loop filters' calls: luma, then Cb and Cr together
+  comps = [("luma", (0,))] + ([] if mono else [("chroma", (1, 2))])
   if "deblock" in inp:
     d = inp["deblock"]
-    # vertical edges, then horizontal edges on the result, in one call:
-    # luma, then Cb and Cr together; the horizontal pass's grids are laid
-    # out for the transposed plane
-    comps = [("luma", (0,))] + ([] if mono else [("chroma", (1, 2))])
+    # vertical edges, then horizontal edges on the result, in one call;
+    # the horizontal pass's grids are laid out for the transposed plane
     with trace.span("deblock", sync):
       for label, cs in comps:
         out = call("deblock", label, dict(
@@ -193,14 +203,17 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
           planes[c] = pl
 
   if "sao" in inp:
+    # out of place (the edge offset reads the unfiltered neighbours),
+    # each call into a new tensor
     with trace.span("sao", sync):
-      s = inp["sao"]
-      for c in range(n_comp):
-        ss = 0 if c == 0 else 1
-        planes[c] = sao_plane(planes[c], s["type"][..., c],
-                              s["band"][..., c], s["offv"][..., c, :],
-                              s["eo"][..., c], W >> ss, H >> ss,
-                              ctb=(1 << ctb_log2) >> ss, bit_depth=bd)
+      for label, cs in comps:
+        ss = int(label == "chroma")
+        out = call("sao", label, dict(
+            planes=[planes[c] for c in cs], sao=inp["sao"], comps=cs,
+            pic_w=W >> ss, pic_h=H >> ss, ctb=(1 << ctb_log2) >> ss,
+            bit_depth=bd))
+        for c, pl in zip(cs, out):
+          planes[c] = pl
 
   if "alf" in inp:
     # luma into a new plane, then Cb and Cr together, whose CC-ALF reads

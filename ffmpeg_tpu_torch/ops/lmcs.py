@@ -1,22 +1,48 @@
 """LMCS (luma mapping with chroma scaling), spec 8.7.5 / 8.8.2.
 
-Int32 torch port of the JAX frame program's `_lmcs_fwd`, `_lmcs_inv`
-and `_lmcs_vpdu_scales`.  `lm` is the frame's converted LMCS tree
-(inputs._lmcs_inputs on the device): `pivot` (17,), `fwd_scale` and
-`inv_scale` (16,), `bins` (min_bin, max_bin) and, when the picture
-header enables chroma residual scaling, `chroma_scale` (16,).
+Port of the JAX frame program's `_lmcs_fwd`, `_lmcs_inv` and
+`_lmcs_vpdu_scales`.  `lm` is the frame's converted LMCS tree
+(convert._lmcs: inputs._lmcs_inputs on the device): `pivot` (17,),
+`fwd_scale` and `inv_scale` (16,), `bins` (min_bin, max_bin) and, when
+the picture header enables chroma residual scaling, `chroma_scale`
+(16,); and its host copies `fwd_host` (the inter kernel's table) and
+`inv_host` (this module's kernels' tables).
 
 The luma prediction of inter units is mapped forward (the inter kernel
 and ops/inter.py do that per sample with the same formula), intra and
 inter units reconstruct in the mapped domain, chroma residuals are scaled
 per VPDU from the mapped luma around it, and the whole luma plane is
 mapped back before the loop filters.
+
+`lmcs_inv` and `lmcs_vpdu_scales` are the frame program's entry points:
+on a CUDA tensor each launches its kernel (csrc/lmcs.cu, the tables in
+the parameter block from `inv_host`, so neither wrapper reads the
+card), on a CPU tensor it runs its plain version (`lmcs_inv_plain`,
+`lmcs_vpdu_scales_plain`: int32 torch ops, the kernels' oracles);
+nothing falls back from one to the other.
 """
 from __future__ import annotations
 
+import ctypes
+import os
+
+import numpy as np
 import torch
 
 _I32 = torch.int32
+
+# launches of the CUDA kernels and runs of the plain versions: plain
+# integer counters a caller may reset to 0 and read back
+LAUNCHES = {"lmcs_inv": 0, "lmcs_scales": 0}
+PLAIN_RUNS = {"lmcs_inv": 0, "lmcs_scales": 0}
+
+# interior tile boundaries per direction that the chroma scales kernel
+# takes in its parameter block (csrc/lmcs.cu LMCS_MAX_BDS)
+MAX_TILE_BDS = 64
+# inv_host: pivot (17), inv_scale (16), min_bin, max_bin, then
+# chroma_scale (16) when chroma residual scaling is on
+INV_TABLE = 35
+INV_TABLE_CRS = 51
 
 
 def lmcs_fwd(x: torch.Tensor, lm: dict, bit_depth: int) -> torch.Tensor:
@@ -47,7 +73,20 @@ def _pivot_index(x: torch.Tensor, lm: dict) -> torch.Tensor:
 
 def lmcs_inv(x: torch.Tensor, lm: dict, bit_depth: int) -> torch.Tensor:
   """Inverse luma mapping over the non-uniform pivots
-  (ff_vvc_lmcs_filter, vvc_filter.c:1322-1331)."""
+  (ff_vvc_lmcs_filter, vvc_filter.c:1322-1331) of every sample of x,
+  into a new tensor of its shape.  A CUDA tensor (contiguous int32)
+  launches the kernel; a CPU tensor runs lmcs_inv_plain."""
+  dev = x.device
+  if dev.type == "cuda":
+    return _inv_cuda(x, lm, bit_depth)
+  if dev.type != "cpu":
+    raise ValueError(f"lmcs_inv: unsupported device {dev}")
+  return lmcs_inv_plain(x, lm, bit_depth)
+
+
+def lmcs_inv_plain(x: torch.Tensor, lm: dict, bit_depth: int) -> torch.Tensor:
+  """lmcs_inv's plain version, with its arguments and result."""
+  PLAIN_RUNS["lmcs_inv"] += 1
   shift = bit_depth - 4
   idx = _pivot_index(x, lm)
   valid = (idx >= 0) & (idx < 16)
@@ -66,8 +105,28 @@ def lmcs_vpdu_scales(plane_y: torch.Tensor, lm: dict, W: int, H: int,
   the VPDU's outside-left column and outside-top row (edge-replicated to
   vsz samples within the picture), mapped through the pivot scan.  A
   neighbour in another tile is unavailable (ff_vvc_get_top/left_available).
-  plane_y: the (H, W) picture of mapped luma.  Returns the flat
-  (nvy * nvx,) int32 scales, indexed by a TU's `vpdu` row."""
+  plane_y: the (H, W) picture of mapped luma, which may be a view of the
+  padded plane (its rows are read through its row stride).  tile_bds:
+  the interior tile boundaries (columns, rows) in luma samples, at most
+  MAX_TILE_BDS each (more raise ValueError).  Returns the flat
+  (nvy * nvx,) int32 scales, indexed by a TU's `vpdu` row.  A CUDA
+  tensor launches the kernel; a CPU tensor runs lmcs_vpdu_scales_plain."""
+  if any(len(b) > MAX_TILE_BDS for b in tile_bds):
+    raise ValueError(f"lmcs_vpdu_scales: {[len(b) for b in tile_bds]} "
+                     f"tile boundaries, at most {MAX_TILE_BDS} a direction")
+  dev = plane_y.device
+  if dev.type == "cuda":
+    return _scales_cuda(plane_y, lm, W, H, vsz, bit_depth, tile_bds)
+  if dev.type != "cpu":
+    raise ValueError(f"lmcs_vpdu_scales: unsupported device {dev}")
+  return lmcs_vpdu_scales_plain(plane_y, lm, W, H, vsz, bit_depth, tile_bds)
+
+
+def lmcs_vpdu_scales_plain(plane_y: torch.Tensor, lm: dict, W: int, H: int,
+                           vsz: int, bit_depth: int,
+                           tile_bds=((), ())) -> torch.Tensor:
+  """lmcs_vpdu_scales's plain version, with its arguments and result."""
+  PLAIN_RUNS["lmcs_scales"] += 1
   dev = plane_y.device
   nvx, nvy = -(-W // vsz), -(-H // vsz)
   vy = torch.arange(nvy, dtype=torch.long, device=dev) * vsz
@@ -93,3 +152,98 @@ def lmcs_vpdu_scales(plane_y: torch.Tensor, lm: dict, W: int, H: int,
                      torch.full_like(total, 1 << (bit_depth - 1)))
   idx = _pivot_index(luma, lm).clamp(max=15)
   return lm["chroma_scale"][idx.reshape(-1).long()]
+
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "lmcs.cu")
+_lib = None
+
+
+def _get_kernel():
+  global _lib
+  if _lib is None:
+    from ..utils.build import build_cuda
+
+    lib = ctypes.CDLL(build_cuda("lmcs", [_SRC]))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lmcs_inv_launch.restype = ctypes.c_int
+    lib.lmcs_inv_launch.argtypes = [
+        p, p, ll,           # src, dst, samples
+        p, i, i, p]         # tables, their length, bit_depth, stream
+    lib.lmcs_scales_launch.restype = ctypes.c_int
+    lib.lmcs_scales_launch.argtypes = [
+        p, ll, i, i, i, i,  # plane, row stride, W, H, vsz, bit_depth
+        p, i,               # tables, their length
+        p, i, p, i,         # tile columns, their count, tile rows, count
+        p, p]               # dst, stream
+    lib.lmcs_error_string.restype = ctypes.c_char_p
+    lib.lmcs_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+  return _lib
+
+
+def _table(lm: dict, name: str, crs: bool):
+  """lm's `inv_host` as a ctypes array and its length; raises
+  ValueError when it is missing or malformed (the kernels read nothing
+  else of the tree)."""
+  if "inv_host" not in lm:
+    raise ValueError(f"{name}: the LMCS tree has no inv_host table "
+                     "(models/vvc/convert.py _lmcs)")
+  t = np.ascontiguousarray(lm["inv_host"], np.int32)
+  want = (INV_TABLE_CRS,) if crs else (INV_TABLE, INV_TABLE_CRS)
+  if t.shape not in [(n,) for n in want]:
+    raise ValueError(f"{name}: inv_host of shape {t.shape}, expected "
+                     f"one of {want} entries")
+  if crs and t[33] < 0:
+    raise ValueError(f"{name}: min_bin {t[33]} below 0")
+  return (ctypes.c_int * len(t))(*t.tolist()), len(t)
+
+
+def _raise_on(rc: int, lib, name: str) -> None:
+  if rc != 0:
+    raise RuntimeError(f"{name} kernel launch failed: "
+                       f"{lib.lmcs_error_string(rc).decode()}")
+
+
+def _inv_cuda(x, lm, bit_depth):
+  """One launch on x's device's current stream into a new tensor."""
+  if x.dtype != _I32 or not x.is_contiguous():
+    raise ValueError(f"lmcs_inv: expected a contiguous int32 tensor, got "
+                     f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+  tab, n_tab = _table(lm, "lmcs_inv", False)
+  lib = _get_kernel()
+  dst = torch.empty_like(x)
+  with torch.cuda.device(x.device):
+    rc = lib.lmcs_inv_launch(
+        x.data_ptr(), dst.data_ptr(), x.numel(), tab, n_tab, bit_depth,
+        torch.cuda.current_stream(x.device).cuda_stream)
+  _raise_on(rc, lib, "lmcs_inv")
+  LAUNCHES["lmcs_inv"] += 1
+  return dst
+
+
+def _scales_cuda(plane_y, lm, W, H, vsz, bit_depth, tile_bds):
+  """One launch on the plane's device's current stream into a new
+  (nvy * nvx,) tensor; the plane is read through its row stride."""
+  if plane_y.dtype != _I32 or plane_y.dim() != 2 \
+      or plane_y.stride(1) != 1 or plane_y.shape[0] < H \
+      or plane_y.shape[1] < W:
+    raise ValueError("lmcs_vpdu_scales: expected an int32 (H, W) plane "
+                     "with unit column stride, got "
+                     f"{plane_y.dtype} {tuple(plane_y.shape)} strides "
+                     f"{plane_y.stride()}")
+  if vsz < 1 or vsz & (vsz - 1):
+    raise ValueError(f"lmcs_vpdu_scales: vsz {vsz} is not a power of 2")
+  tab, n_tab = _table(lm, "lmcs_vpdu_scales", True)
+  bx, by = ((ctypes.c_int * max(len(b), 1))(*b) for b in tile_bds)
+  lib = _get_kernel()
+  dev = plane_y.device
+  dst = torch.empty(-(-W // vsz) * -(-H // vsz), dtype=_I32, device=dev)
+  with torch.cuda.device(dev):
+    rc = lib.lmcs_scales_launch(
+        plane_y.data_ptr(), plane_y.stride(0), W, H, vsz, bit_depth, tab,
+        n_tab, bx, len(tile_bds[0]), by, len(tile_bds[1]), dst.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+  _raise_on(rc, lib, "lmcs_vpdu_scales")
+  LAUNCHES["lmcs_scales"] += 1
+  return dst

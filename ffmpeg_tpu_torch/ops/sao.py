@@ -1,4 +1,4 @@
-"""Sample Adaptive Offset as a full-plane int32 torch pass.
+"""Sample Adaptive Offset: the SAO kernel and its plain version.
 
 Bit-exact port of the JAX package's SAO (spec 8.8.2; parity target
 vvc_filter_template.c sao_band_filter/sao_edge_filter +
@@ -6,13 +6,30 @@ ff_vvc_sao_filter, vvc_filter.c:154-306).  The whole plane is filtered
 out of place from the deblocked input, so every edge comparison reads
 the unfiltered neighbour by construction.  Edge offsets are not applied
 where the needed neighbour lies outside the picture.
+
+`sao_planes` is the frame program's entry point: a luma plane, or the
+Cb and Cr planes together, with the frame's SAO tree; `sao_rows` (the
+band form) and `sao_plane` take one plane and its per-CTB grids.  A
+CUDA tensor launches the kernel (csrc/sao.cu: one launch per call into
+a new tensor, the grids read in place through their strides); a CPU
+tensor runs the plain version (`sao_rows_plain`, `sao_planes_plain`:
+int32 torch ops, the kernel's oracle); nothing falls back from one to
+the other.
 """
 from __future__ import annotations
+
+import ctypes
+import os
 
 import numpy as np
 import torch
 
 from .tables import on_device
+
+# launches of the CUDA kernel and runs of the plain version: plain
+# integer counters a caller may reset to 0 and read back
+LAUNCHES = {"sao": 0}
+PLAIN_RUNS = {"sao": 0}
 
 # per-eo-class neighbour offsets (a, b): (dx, dy)
 _EO_DIRS = np.array([
@@ -32,7 +49,30 @@ def sao_rows(plane_ext, sao_type, band_pos, offv, eo_class, pic_w, pic_h,
   whose first/last `halo` rows carry neighbour rows from the adjacent
   band.  `y0` is the global picture row of the band's first real row;
   sao_type / band_pos / eo_class / offv are the band's own CTB rows.
-  Returns the filtered (Hs, Wp) real rows."""
+  Returns the filtered (Hs, Wp) real rows, a new tensor.  A CUDA tensor
+  launches the kernel; a CPU tensor runs sao_rows_plain."""
+  dev = plane_ext.device
+  if dev.type == "cuda":
+    return _sao_cuda([plane_ext], [(sao_type, band_pos, offv, eo_class)],
+                     pic_w=pic_w, pic_h=pic_h, ctb=ctb, bit_depth=bit_depth,
+                     y0=y0, halo=halo)[0]
+  if dev.type != "cpu":
+    raise ValueError(f"sao: unsupported device {dev}")
+  return sao_rows_plain(plane_ext, sao_type, band_pos, offv, eo_class, pic_w,
+                        pic_h, ctb=ctb, bit_depth=bit_depth, y0=y0, halo=halo)
+
+
+def sao_rows_plain(plane_ext, sao_type, band_pos, offv, eo_class, pic_w,
+                   pic_h, *, ctb: int, bit_depth: int, y0=0, halo: int = 0):
+  """sao_rows's plain version, with its arguments and result."""
+  PLAIN_RUNS["sao"] += 1
+  return _sao_rows_torch(plane_ext, sao_type, band_pos, offv, eo_class,
+                         pic_w, pic_h, ctb=ctb, bit_depth=bit_depth, y0=y0,
+                         halo=halo)
+
+
+def _sao_rows_torch(plane_ext, sao_type, band_pos, offv, eo_class, pic_w,
+                    pic_h, *, ctb: int, bit_depth: int, y0=0, halo: int = 0):
   He, Wp = plane_ext.shape
   Hs = He - 2 * halo
   dev = plane_ext.device
@@ -84,6 +124,124 @@ def sao_plane(plane, sao_type, band_pos, offv, eo_class, pic_w, pic_h, *,
               ctb: int, bit_depth: int):
   """plane: (Hp, Wp) int32 (padded; only the picture area is filtered).
   sao_type/band_pos/eo_class: (CBH, CBW) int32 per-CTB grids.
-  offv: (CBH, CBW, 5) int32 offsets.  Returns the filtered plane."""
+  offv: (CBH, CBW, 5) int32 offsets.  Returns the filtered plane, a new
+  tensor (the kernel on a CUDA tensor, as sao_rows)."""
   return sao_rows(plane, sao_type, band_pos, offv, eo_class, pic_w, pic_h,
                   ctb=ctb, bit_depth=bit_depth, y0=0, halo=0)
+
+
+def _grids(sao: dict, c: int):
+  """Component c's grids of the frame's SAO tree, as views: type, band
+  position, offsets, EO class."""
+  return (sao["type"][..., c], sao["band"][..., c], sao["offv"][..., c, :],
+          sao["eo"][..., c])
+
+
+def sao_planes(planes, sao, comps, *, pic_w: int, pic_h: int, ctb: int,
+               bit_depth: int):
+  """SAO of one frame's luma plane, or of its Cb and Cr planes together
+  (the frame program's calls).
+
+  planes: [luma] or [Cb, Cr], (Hp, Wp) int32 padded planes with unit
+  column stride (views of one tensor, or separate ones).  sao: the
+  frame's converted SAO tree (inputs.build_host_inputs "sao"): `type`,
+  `band` and `eo` (CBH, CBW, 3) int32 and `offv` (CBH, CBW, 3, 5) int32,
+  indexed by component.  comps: the planes' components, (0,) or (1, 2).
+  pic_w, pic_h, ctb: the component's picture size and CTB size.
+  Returns the filtered planes, (nch, Hp, Wp) int32, a new tensor: the
+  picture filtered, the padding copied.  A CUDA tensor launches the
+  kernel once; a CPU tensor runs sao_planes_plain."""
+  if len(planes) != len(comps) or not 1 <= len(planes) <= 2:
+    raise ValueError(f"sao: {len(planes)} planes for components {comps}")
+  dev = planes[0].device
+  if dev.type == "cuda":
+    return _sao_cuda(planes, [_grids(sao, c) for c in comps], pic_w=pic_w,
+                     pic_h=pic_h, ctb=ctb, bit_depth=bit_depth, y0=0, halo=0)
+  if dev.type != "cpu":
+    raise ValueError(f"sao: unsupported device {dev}")
+  return sao_planes_plain(planes, sao, comps, pic_w=pic_w, pic_h=pic_h,
+                          ctb=ctb, bit_depth=bit_depth)
+
+
+def sao_planes_plain(planes, sao, comps, *, pic_w: int, pic_h: int, ctb: int,
+                     bit_depth: int):
+  """sao_planes's plain version, with its arguments and result: the
+  whole-plane pass per plane, stacked."""
+  PLAIN_RUNS["sao"] += 1
+  return torch.stack([
+      _sao_rows_torch(pl, *_grids(sao, c), pic_w, pic_h, ctb=ctb,
+                      bit_depth=bit_depth) for pl, c in zip(planes, comps)])
+
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "sao.cu")
+_lib = None
+
+
+def _get_kernel():
+  global _lib
+  if _lib is None:
+    from ..utils.build import build_cuda
+
+    lib = ctypes.CDLL(build_cuda("sao", [_SRC]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sao_launch.restype = ctypes.c_int
+    lib.sao_launch.argtypes = [
+        p, p, p, i,         # src pointers (nch,), their row strides, dst, nch
+        i, i, i, i,         # He, Wp, halo, y0
+        i, i, i, i,         # pic_w, pic_h, ctb, bit_depth
+        p, p, p, p,         # type pointers (nch,), strides; band, strides
+        p, p, p, p,         # eo pointers, strides; offv pointers, strides
+        i, i, p]            # cbh, cbw, stream
+    lib.sao_error_string.restype = ctypes.c_char_p
+    lib.sao_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+  return _lib
+
+
+def _sao_cuda(planes, grids, *, pic_w, pic_h, ctb, bit_depth, y0, halo):
+  """One launch on the planes' device's current stream into a new
+  (nch, He - 2 * halo, Wp) tensor.  grids: per plane (type, band
+  position, offsets, EO class), int32 views read through their strides
+  (the planes' grids share their strides and shape)."""
+  dev = planes[0].device
+  He, Wp = planes[0].shape
+  for pl in planes:
+    if pl.dtype != torch.int32 or pl.device != dev or pl.dim() != 2 \
+        or tuple(pl.shape) != (He, Wp) or pl.stride(1) != 1:
+      raise ValueError("sao: expected int32 planes of one shape on one "
+                       f"device with unit column stride, got {pl.dtype} "
+                       f"{tuple(pl.shape)} strides {pl.stride()} on "
+                       f"{pl.device}")
+  cbh, cbw = grids[0][0].shape
+  for g in grids:
+    for k, t in enumerate(g):
+      shape = (cbh, cbw, 5) if k == 2 else (cbh, cbw)
+      if t.dtype != torch.int32 or t.device != dev \
+          or tuple(t.shape) != shape or t.stride() != grids[0][k].stride():
+        raise ValueError(f"sao: grid {k} expected int32 {shape} on {dev} "
+                         "with the first plane's strides, got "
+                         f"{t.dtype} {tuple(t.shape)} strides {t.stride()} "
+                         f"on {t.device}")
+  n = len(planes)
+  ptrs = ctypes.c_longlong * n
+
+  def grid(k):
+    st = (list(grids[0][k].stride()) + [0])[:3]   # (sy, sx[, slot])
+    return (ptrs(*(g[k].data_ptr() for g in grids)),
+            (ctypes.c_longlong * 3)(*st))
+
+  lib = _get_kernel()
+  dst = torch.empty((n, He - 2 * halo, Wp), dtype=torch.int32, device=dev)
+  with torch.cuda.device(dev):
+    rc = lib.sao_launch(
+        ptrs(*(pl.data_ptr() for pl in planes)),
+        ptrs(*(pl.stride(0) for pl in planes)), dst.data_ptr(), n, He, Wp,
+        halo, y0, pic_w, pic_h, ctb, bit_depth, *grid(0), *grid(1),
+        *grid(3), *grid(2), cbh, cbw,
+        torch.cuda.current_stream(dev).cuda_stream)
+  if rc != 0:
+    raise RuntimeError("sao kernel launch failed: "
+                       f"{lib.sao_error_string(rc).decode()}")
+  LAUNCHES["sao"] += 1
+  return dst

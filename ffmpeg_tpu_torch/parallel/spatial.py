@@ -128,7 +128,8 @@ def sao_plane_tiled(plane, sao_type, band_pos, offv, eo_class,
                     pic_w, pic_h, *, ctb: int, bit_depth: int, mesh,
                     axis: str = "tile"):
   """Bit-exact sao_plane, computed as CTB-row bands over `axis` with a
-  one-row halo from each neighbour.
+  one-row halo from each neighbour: each band one sao_rows call (on a
+  card, one launch of the SAO kernel in its band form).
 
   plane: (Hp, Wp) int32.  Returns the filtered (Hp, Wp) plane.
   """

@@ -3,13 +3,12 @@ analog, reference vvc_thread.c:568-603).
 
 Enable with FFMPEG_TPU_TRACE=1 (or `enable()`): the decoder records
 wall-clock spans for each stage (host_parse, inputs, dmvr, h2d,
-residual, inter, recon, lmcs, deblock, sao, alf, pack, fetch) and
-`summary()` aggregates them.  A span
-given a `sync` callable (torch.cuda.synchronize for a CUDA device)
-calls it at both edges, so the span holds the device work it queued;
-that costs the overlap of host and device and happens only while
-tracing is on.  Zero overhead when disabled (module-level flag, no-op
-span).
+residual, inter, recon, lmcs_scales, lmcs, deblock, sao, alf, pack,
+fetch) and `summary()` aggregates them.  A span given a `sync`
+callable (torch.cuda.synchronize for a CUDA device) calls it at both
+edges, so the span holds the device work it queued; that costs the
+overlap of host and device and happens only while tracing is on.
+Zero overhead when disabled (module-level flag, no-op span).
 """
 from __future__ import annotations
 

@@ -547,6 +547,40 @@ def test_frame_program_kernel_calls():
                      ("inter_pred", "chroma"), *luma]
 
 
+def test_frame_program_kernel_calls_full_toolset():
+  """The main path's first two frames (I, then B; full1080: LMCS with
+  chroma residual scaling, deblock, SAO, ALF): every kernel call
+  through the hook, in order: residual of luma, inter_pred of luma and
+  chroma (B), recon of luma, lmcs_scales, residual and recon of chroma,
+  lmcs_inv, deblock, sao and alf of luma then chroma."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
+
+  seen = []
+
+  def record(name, label, kw):
+    seen.append((name, label))
+    return KERNELS[name][0](**kw)
+
+  aus = VVCDecoder(device="cpu")._split_aus(_read("full1080"))[:2]
+  frames = []
+  for fs, h in walk_frames(aus, "cpu", record):
+    assert all(k in h for k in ("deblock", "sao", "alf"))
+    assert "chroma_scale" in h["lmcs"]
+    frames.append((fs.slice_type, list(seen)))
+    seen.clear()
+  pair = [("luma",), ("chroma",)]
+  inter = [("inter_pred",) + k for k in pair]
+  for slice_type, calls in frames:
+    want = [("residual", "luma"), *(inter if slice_type != 2 else []),
+            ("recon", "luma"), ("lmcs_scales", "luma"),
+            ("residual", "chroma"), ("recon", "chroma"),
+            ("lmcs_inv", "luma")]
+    want += [(k,) + p for k in ("deblock", "sao", "alf") for p in pair]
+    assert calls == want
+  assert [t for t, _ in frames] == [2, 0]
+
+
 @pytest.mark.parametrize("errors", ["raise", "contain"])
 def test_missing_reference(errors):
   """A P frame whose reference was lost: errors="raise" raises, the
@@ -592,6 +626,19 @@ def test_frame_planes_layout():
 
 
 # ---- on the card ---------------------------------------------------------
+
+# the SAO and LMCS kernels, which a frame calls as its inputs ask
+FILTER_KERNELS = ("sao", "lmcs_inv", "lmcs_scales")
+# per fixture, its frames with SAO, with LMCS and with chroma residual
+# scaling on (the traced sao, lmcs and lmcs_scales spans)
+FIXTURE_FILTER_FRAMES = {
+    "full1080": {"sao": 5, "lmcs": 5, "lmcs_scales": 5},
+    "gop720": {"sao": 9, "lmcs": 9, "lmcs_scales": 9},
+    "ctu128_1080": {"sao": 5, "lmcs": 5, "lmcs_scales": 0},
+    "ra1080": {"sao": 5, "lmcs": 0, "lmcs_scales": 0},
+    "ai720": {"sao": 4, "lmcs": 0, "lmcs_scales": 0},
+    "ai256x128_10b": {"sao": 2, "lmcs": 0, "lmcs_scales": 0},
+    "ciip64": {"sao": 0, "lmcs": 0, "lmcs_scales": 0}}
 
 @pytest.fixture
 def cuda():
@@ -653,13 +700,16 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import inter as P
+  from ffmpeg_tpu_torch.ops import lmcs as L
   from ffmpeg_tpu_torch.ops import recon as R
+  from ffmpeg_tpu_torch.ops import sao as S
   from ffmpeg_tpu_torch.ops import transform as T
 
   launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES,
               "deblock": D.LAUNCHES, "alf": A.LAUNCHES,
-              "residual": T.LAUNCHES}
-  called = set()
+              "residual": T.LAUNCHES, "sao": S.LAUNCHES,
+              "lmcs_inv": L.LAUNCHES, "lmcs_scales": L.LAUNCHES}
+  called, frame = set(), []
 
   def per_call(name, kw):
     """Launches counted per call: recon, deblock and alf 1; inter_pred 1
@@ -680,13 +730,20 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
       assert torch.equal(got, want), f"{name} {label} launch {i}"
     assert launches[name][name] == before + repeats * per_call(name, kw)
     called.add(name)
+    frame.append(name)
     if kinds is not None and name == "recon":
       kinds.update(unit_kinds(kw))
     return got
 
   aus = VVCDecoder(device=device)._split_aus(data)[:n_frames]
-  for _ in walk_frames(aus, device, check):
-    pass
+  for fs, h in walk_frames(aus, device, check):
+    # the SAO and LMCS kernels' calls, as the frame's inputs ask
+    mono = fs.chroma_format_idc == 0
+    assert frame.count("sao") == ("sao" in h) * (1 if mono else 2)
+    assert frame.count("lmcs_inv") == ("lmcs" in h)
+    assert frame.count("lmcs_scales") == (
+        not mono and "chroma_scale" in h.get("lmcs", {}))
+    frame.clear()
   return called
 
 
@@ -694,7 +751,7 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
 @pytest.mark.parametrize("name", ["ai256x128_10b", "ai720"])
 def test_recon_kernel_matches_plain_on_card(cuda, name):
   assert _kernels_vs_plain(_read(name), cuda, n_frames=1) == {
-      "residual", "recon", "deblock"}
+      "residual", "recon", "deblock", "sao"}
 
 
 @pytest.mark.gpu
@@ -853,8 +910,8 @@ def test_kernels_match_plain_on_card_inter(cuda, case):
   """Every kernel against its plain version on every frame of a P/B
   case, with the frame's real references."""
   called = _kernels_vs_plain(_stream(INTER_CASES[case]), cuda)
-  assert called - {"deblock", "alf"} == {"residual", "inter_pred",
-                                         "recon"}
+  assert called - {"deblock", "alf", *FILTER_KERNELS} == {
+      "residual", "inter_pred", "recon"}
   assert "deblock" in called or not INTER_CASES[case].get("deblock")
   assert ("alf" in called) == bool(INTER_CASES[case].get("alf"))
 
@@ -866,8 +923,9 @@ def test_kernels_match_plain_on_card_tools(cuda, case):
   with DMVR (its search and the refined controls run in the walk) or with
   LMCS and ALF, with the frame's real references."""
   called = _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda)
-  assert called - {"deblock", "alf"} == {"residual", "inter_pred",
-                                         "recon"}
+  assert called - {"deblock", "alf", *FILTER_KERNELS} == {
+      "residual", "inter_pred", "recon"}
+  assert "lmcs_inv" in called or not TOOL_CASES[case].get("lmcs")
   assert "deblock" in called or not TOOL_CASES[case].get("deblock")
   assert ("alf" in called) == bool(TOOL_CASES[case].get("alf"))
 
@@ -879,10 +937,14 @@ def _counts_zeroed():
   from ffmpeg_tpu_torch.ops import recon as R
   from ffmpeg_tpu_torch.ops import transform as T
 
+  from ffmpeg_tpu_torch.ops import lmcs as L
+  from ffmpeg_tpu_torch.ops import sao as S
+
   for d in (P.LAUNCHES, P.CLASS_LAUNCHES, P.PLAIN_RUNS, R.LAUNCHES,
             R.EDGE_LAUNCHES, R.PLAIN_RUNS, D.LAUNCHES, D.PLAIN_RUNS,
             A.LAUNCHES, A.PLAIN_RUNS, T.LAUNCHES, T.CALLS, T.GROUP_LAUNCHES,
-            T.PLAIN_RUNS):
+            T.PLAIN_RUNS, S.LAUNCHES, S.PLAIN_RUNS, L.LAUNCHES,
+            L.PLAIN_RUNS):
     for k in d:
       d[k] = 0
   return P, R
@@ -967,7 +1029,8 @@ def test_kernels_match_plain_on_card_ctu128_1080(cuda):
   kinds = set()
   assert _kernels_vs_plain(_read("ctu128_1080"), cuda, n_frames=2, repeats=3,
                            kinds=kinds) == {"residual", "inter_pred",
-                                            "recon", "deblock", "alf"}
+                                            "recon", "deblock", "alf", "sao",
+                                            "lmcs_inv"}
   assert {"edge64", "high1", "cell1"} <= kinds, kinds
 
 
@@ -1040,10 +1103,15 @@ def test_coding_case_decodes_on_card(cuda, case):
 def test_fixture_decodes_on_card(cuda, name):
   """Each fixture to its MD5s through the kernels: the residual wrapper
   twice a frame (luma; Cb and Cr; one to three launches each), the ALF
-  kernel twice on each frame with ALF on (the traced alf spans count
-  them), no plain version run."""
+  and SAO kernels twice on each frame with ALF or SAO on, the LMCS
+  inverse map once on each frame with LMCS on and the chroma scales
+  once on each frame with chroma residual scaling on (the traced alf,
+  sao, lmcs and lmcs_scales spans count those frames), no plain
+  version run."""
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
+  from ffmpeg_tpu_torch.ops import lmcs as L
+  from ffmpeg_tpu_torch.ops import sao as S
   from ffmpeg_tpu_torch.ops import transform as T
   from ffmpeg_tpu_torch.utils import trace
 
@@ -1055,7 +1123,8 @@ def test_fixture_decodes_on_card(cuda, name):
     assert got == _fixture_md5s(name)
   finally:
     trace.enable(False)
-  alf_frames = trace.summary().get("alf", {}).get("n", 0)
+  spans = trace.summary()
+  alf_frames = spans.get("alf", {}).get("n", 0)
   assert R.LAUNCHES["recon"] > 0 and D.LAUNCHES["deblock"] > 0
   assert (P.LAUNCHES["inter_pred"] > 0) == (not name.startswith("ai"))
   assert R.PLAIN_RUNS["recon"] == 0 and P.PLAIN_RUNS["inter_pred"] == 0
@@ -1065,6 +1134,13 @@ def test_fixture_decodes_on_card(cuda, name):
   assert T.PLAIN_RUNS["residual"] == 0
   assert (alf_frames > 0) == (name in ("full1080", "ctu128_1080", "gop720"))
   assert A.LAUNCHES["alf"] == 2 * alf_frames
+  frames = {k: spans.get(k, {}).get("n", 0)
+            for k in ("sao", "lmcs", "lmcs_scales")}
+  assert frames == FIXTURE_FILTER_FRAMES[name]
+  assert S.LAUNCHES["sao"] == 2 * frames["sao"]
+  assert L.LAUNCHES["lmcs_inv"] == frames["lmcs"]
+  assert L.LAUNCHES["lmcs_scales"] == frames["lmcs_scales"]
+  assert S.PLAIN_RUNS["sao"] == 0 and not any(L.PLAIN_RUNS.values())
 
 
 # DMVR-free single-IRAP-period cases for the wave path on the card:

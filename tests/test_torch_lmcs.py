@@ -1,0 +1,283 @@
+"""LMCS kernels' entry points: lmcs_inv and lmcs_vpdu_scales (their plain
+versions on the CPU) against the JAX frame program's `_lmcs_inv` and
+`_lmcs_vpdu_scales`, bit for bit (tolerance 0: integer arithmetic), on
+LMCS tables drawn from a seed the way the parser derives them (bin
+codewords, the pivots, the inverse and chroma scales) at 8, 10 and 12
+bits; the chroma scales read through the padded plane's row stride
+(W < Wp) with tile boundaries at VPDU sizes 32 and 64; a tile list over
+the kernel's cap raising; the host table `inv_host` equal to the
+device tables; and (on the card) the CUDA kernels csrc/lmcs.cu against
+the plain versions, the inverse map on every value from -64 to
+2^bd + 64 and on int32 values far outside that range.
+
+JAX is imported inside the tests that need it, so that the card, which
+has no JAX, collects the `gpu` tests:
+
+  python -m pytest --noconftest -m gpu tests/test_torch_lmcs.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from ffmpeg_tpu_torch.models.vvc.convert import _lmcs
+from ffmpeg_tpu_torch.ops import lmcs as TL
+
+torch.set_num_threads(2)
+
+BDS = (8, 10, 12)
+# (min_bin, max_bin): the parser's max_bin = 15 - min_bin, and max_bin 15
+# (a sample past the last pivot takes bin 16 and maps to 0)
+BINS = ((1, 14), (3, 12), (2, 15))
+TILES = (((), ()), ((64,), (64,)), ((128,), ()), ((), (64, 128)))
+
+
+def draw_lmcs(bd, bins, seed, crs=True):
+  """An LMCS host tree (inputs._lmcs_inputs's layout) derived as the
+  native parser derives it (decode.cc derive_lmcs) from bin codewords
+  drawn from a seed: org_cw + delta in [org_cw / 8, 2 org_cw) for the
+  bins in [min_bin, max_bin], 0 elsewhere, scaled down where their sum
+  would pass 2^bd - 1 (a conforming stream's limit)."""
+  rng = np.random.default_rng(seed)
+  org = (1 << bd) // 16
+  shift = org.bit_length() - 1
+  mb, xb = bins
+  cw = np.zeros(16, np.int64)
+  cw[mb:xb + 1] = rng.integers(org // 8, 2 * org, xb - mb + 1)
+  if cw.sum() > (1 << bd) - 1:
+    cw = np.maximum(cw * ((1 << bd) - 1) // cw.sum(), 1) * (cw > 0)
+  pivot = np.concatenate([[0], np.cumsum(cw)])
+  fwd = (cw * (1 << 11) + (1 << (shift - 1))) >> shift
+  inv = np.where(cw > 0, org * (1 << 11) // np.maximum(cw, 1), 0)
+  delta_crs = int(rng.integers(-7, 8))
+  chroma = np.where(cw > 0, org * (1 << 11)
+                    // np.maximum(cw + delta_crs, 1), 1 << 11)
+  lm = {"pivot": pivot, "fwd_scale": fwd, "inv_scale": inv,
+        "bins": np.array([mb, xb])}
+  if crs:
+    lm["chroma_scale"] = chroma
+  return {k: v.astype(np.int32) for k, v in lm.items()}
+
+
+def _ids(b):
+  return f"bins{b[0]}-{b[1]}"
+
+
+def _jax_lm(host):
+  import jax.numpy as jnp
+
+  return {k: jnp.asarray(v) for k, v in host.items()}
+
+
+def padded_plane(bd, H, W, seed):
+  """A (Hp, Wp) int32 plane padded past the (H, W) picture (its padding
+  at the maximum, which a read past the picture would pick up)."""
+  rng = np.random.default_rng(seed)
+  Hp, Wp = H + 24, W + 40
+  plane = np.full((Hp, Wp), (1 << bd) - 1, np.int32)
+  plane[:H, :W] = rng.integers(0, 1 << bd, (H, W))
+  # flat regions: whole VPDU borders at one level
+  plane[:H, 60:70] = rng.integers(0, 1 << bd)
+  return plane
+
+
+@pytest.mark.parametrize("bins", BINS, ids=_ids)
+@pytest.mark.parametrize("bd", BDS)
+def test_lmcs_inv_matches_jax(bd, bins):
+  """Every value from -64 to 2^bd + 64 (the JAX form's clip and its bin
+  16), through the wrapper (the plain version on the CPU)."""
+  import jax.numpy as jnp
+
+  from ffmpeg_tpu.models.vvc import pipeline as JP
+
+  host = draw_lmcs(bd, bins, seed=bd + bins[0])
+  lm = _lmcs(host, "cpu")
+  x = np.arange(-64, (1 << bd) + 64, dtype=np.int32)
+  runs = TL.PLAIN_RUNS["lmcs_inv"]
+  got = TL.lmcs_inv(torch.from_numpy(x), lm, bd).numpy()
+  assert TL.PLAIN_RUNS["lmcs_inv"] == runs + 1
+  want = np.asarray(JP._lmcs_inv(jnp.asarray(x), _jax_lm(host), bd))
+  np.testing.assert_array_equal(got, want)
+  if bins[1] == 15:
+    # past the last pivot: bin 16, mapped to 0
+    assert want[-1] == 0 and x[-1] >= host["pivot"][16]
+
+
+@pytest.mark.parametrize("vsz", [32, 64])
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("bd", BDS)
+def test_lmcs_vpdu_scales_strided_matches_jax(bd, tiles, vsz):
+  """The chroma scales from the picture as a view of its padded plane
+  (rows read through the plane's stride), against JAX on the contiguous
+  picture."""
+  import jax.numpy as jnp
+
+  from ffmpeg_tpu.models.vvc import pipeline as JP
+
+  H, W = 152, 200
+  host = draw_lmcs(bd, BINS[len(tiles[0]) % 3], seed=bd * 7 + vsz)
+  lm = _lmcs(host, "cpu")
+  plane = padded_plane(bd, H, W, seed=bd + vsz)
+  view = torch.from_numpy(plane)[:H, :W]
+  assert not view.is_contiguous()
+  runs = TL.PLAIN_RUNS["lmcs_scales"]
+  got = TL.lmcs_vpdu_scales(view, lm, W, H, vsz, bd, tiles).numpy()
+  assert TL.PLAIN_RUNS["lmcs_scales"] == runs + 1
+  want = np.asarray(JP._lmcs_vpdu_scales(
+      jnp.asarray(plane[:H, :W]), _jax_lm(host), W, H, vsz, bd, tiles))
+  np.testing.assert_array_equal(got, want)
+  assert got.shape == (-(-W // vsz) * -(-H // vsz),)
+  assert len(np.unique(want)) > 1
+
+
+def test_lmcs_vpdu_scales_tile_cap():
+  """More tile boundaries than the kernel's parameter block holds raise
+  (on any device: the call is refused, not cut short)."""
+  host = draw_lmcs(8, BINS[0], seed=1)
+  lm = _lmcs(host, "cpu")
+  plane = torch.zeros((64, 64), dtype=torch.int32)
+  over = tuple(range(1, TL.MAX_TILE_BDS + 2))
+  for bds in ((over, ()), ((), over)):
+    with pytest.raises(ValueError, match="tile boundaries"):
+      TL.lmcs_vpdu_scales(plane, lm, 64, 64, 32, 8, bds)
+  at_cap = tuple(range(1, TL.MAX_TILE_BDS + 1))
+  assert TL.lmcs_vpdu_scales(plane, lm, 64, 64, 32, 8,
+                             (at_cap, at_cap)).shape == (4,)
+
+
+@pytest.mark.parametrize("crs", [True, False])
+@pytest.mark.parametrize("bd", BDS)
+def test_inv_host_equals_device_tables(bd, crs):
+  """convert._lmcs's host table for the LMCS kernels holds the device
+  tables, in the order csrc/lmcs.cu reads them."""
+  lm = _lmcs(draw_lmcs(bd, BINS[2], seed=bd, crs=crs), "cpu")
+  keys = ("pivot", "inv_scale", "bins") + (("chroma_scale",) if crs else ())
+  want = torch.cat([lm[k] for k in keys]).numpy()
+  assert lm["inv_host"].dtype == np.int32
+  np.testing.assert_array_equal(lm["inv_host"], want)
+  assert len(want) == (TL.INV_TABLE_CRS if crs else TL.INV_TABLE)
+
+
+def test_lmcs_refuses_other_devices():
+  lm = _lmcs(draw_lmcs(8, BINS[0], seed=2), "cpu")
+  x = torch.zeros((8, 8), dtype=torch.int32, device="meta")
+  with pytest.raises(ValueError, match="device"):
+    TL.lmcs_inv(x, lm, 8)
+  with pytest.raises(ValueError, match="device"):
+    TL.lmcs_vpdu_scales(x, lm, 8, 8, 32, 8)
+
+
+def test_frame_program_lmcs_tables_on_host():
+  """The frame program's LMCS trees carry inv_host: the full1080 frame
+  0's converted tree."""
+  import os
+
+  from ffmpeg_tpu_torch.models.vvc.convert import inputs_from_numpy
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+  from ffmpeg_tpu_torch.models.vvc.host import HostDecoder
+  from ffmpeg_tpu_torch.models.vvc.inputs import build_host_inputs
+
+  path = os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), "ffmpeg_tpu_torch", "testdata",
+      "full1080.vvc")
+  with open(path, "rb") as f:
+    au = VVCDecoder(device="cpu")._split_aus(f.read())[0][2]
+  h = build_host_inputs(HostDecoder().decode_au(au, 0))
+  lm = inputs_from_numpy(h, "cpu")["lmcs"]
+  assert len(lm["inv_host"]) == TL.INV_TABLE_CRS
+  np.testing.assert_array_equal(lm["inv_host"][:17], h["lmcs"]["pivot"])
+  np.testing.assert_array_equal(lm["inv_host"][35:],
+                                h["lmcs"]["chroma_scale"])
+
+
+# ---- on the card -------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (on the card: python -m pytest "
+                "--noconftest -m gpu tests/test_torch_lmcs.py)")
+  return torch.device("cuda")
+
+
+def _launched(name, fn):
+  """fn's result, and that it launched the `name` kernel once and ran no
+  plain version."""
+  before, runs = TL.LAUNCHES[name], TL.PLAIN_RUNS[name]
+  out = fn()
+  torch.cuda.synchronize()
+  assert TL.LAUNCHES[name] == before + 1 and TL.PLAIN_RUNS[name] == runs
+  return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bins", BINS, ids=_ids)
+@pytest.mark.parametrize("bd", BDS)
+def test_lmcs_inv_kernel_every_value(cuda, bd, bins):
+  """Every value from -64 to 2^bd + 64, then int32 values drawn over the
+  whole range (the products wrap), as a 1-D tensor whose length is not
+  a multiple of 4, and as a 2-D plane 4 bytes off alignment."""
+  lm = _lmcs(draw_lmcs(bd, bins, seed=bd + bins[0]), cuda)
+  x = torch.arange(-64, (1 << bd) + 64, dtype=torch.int32, device=cuda)
+  got = _launched("lmcs_inv", lambda: TL.lmcs_inv(x, lm, bd))
+  assert torch.equal(got, TL.lmcs_inv_plain(x, lm, bd))
+  rng = np.random.default_rng(bd)
+  wide = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 4099).astype(
+      np.int32)).to(cuda)
+  got = _launched("lmcs_inv", lambda: TL.lmcs_inv(wide, lm, bd))
+  assert torch.equal(got, TL.lmcs_inv_plain(wide, lm, bd))
+  big = torch.from_numpy(rng.integers(-64, (1 << bd) + 64, 1 + 96 * 136)
+                         .astype(np.int32)).to(cuda)
+  plane = big[1:].view(96, 136)
+  got = _launched("lmcs_inv", lambda: TL.lmcs_inv(plane, lm, bd))
+  assert torch.equal(got, TL.lmcs_inv_plain(plane, lm, bd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vsz", [32, 64])
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("bd", BDS)
+def test_lmcs_scales_kernel_matches_plain(cuda, bd, tiles, vsz):
+  H, W = 152, 200
+  lm = _lmcs(draw_lmcs(bd, BINS[len(tiles[0]) % 3], seed=bd * 7 + vsz),
+             cuda)
+  view = torch.from_numpy(padded_plane(bd, H, W, seed=bd + vsz)).to(
+      cuda)[:H, :W]
+  got = _launched("lmcs_scales", lambda: TL.lmcs_vpdu_scales(
+      view, lm, W, H, vsz, bd, tiles))
+  assert torch.equal(got, TL.lmcs_vpdu_scales_plain(view, lm, W, H, vsz, bd,
+                                                    tiles))
+
+
+@pytest.mark.gpu
+def test_lmcs_scales_kernel_1080p(cuda):
+  """A 1920x1080 picture in its 1920x1088 plane, VPDU 64, with a tile
+  boundary at every VPDU edge."""
+  lm = _lmcs(draw_lmcs(8, BINS[0], seed=5), cuda)
+  plane = torch.from_numpy(padded_plane(8, 1088, 1920, seed=5)).to(cuda)
+  view = plane[:1080, :1920]
+  tiles = (tuple(range(64, 1920, 64)), tuple(range(64, 1080, 64)))
+  got = _launched("lmcs_scales", lambda: TL.lmcs_vpdu_scales(
+      view, lm, 1920, 1080, 64, 8, tiles))
+  assert torch.equal(got, TL.lmcs_vpdu_scales_plain(view, lm, 1920, 1080,
+                                                    64, 8, tiles))
+
+
+@pytest.mark.gpu
+def test_lmcs_kernels_refuse(cuda):
+  """A strided tensor for the inverse map, a tree without its host table
+  and a plane with a column stride raise; nothing is launched."""
+  host = draw_lmcs(8, BINS[0], seed=3)
+  lm = _lmcs(host, cuda)
+  x = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+  before = dict(TL.LAUNCHES)
+  with pytest.raises(ValueError):
+    TL.lmcs_inv(x[:, :32], lm, 8)
+  with pytest.raises(ValueError, match="inv_host"):
+    TL.lmcs_inv(x, {k: v for k, v in lm.items() if k != "inv_host"}, 8)
+  with pytest.raises(ValueError):
+    TL.lmcs_vpdu_scales(x.T, lm, 64, 64, 32, 8)
+  no_crs = _lmcs({k: v for k, v in host.items() if k != "chroma_scale"},
+                 cuda)
+  with pytest.raises(ValueError):
+    TL.lmcs_vpdu_scales(x, no_crs, 64, 64, 32, 8)
+  assert TL.LAUNCHES == before
