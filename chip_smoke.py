@@ -9,8 +9,8 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     with the full toolset (bench.py FULL_KW: B slices with TMVP,
     affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
     with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
-    the eight kernels (residual, inter_pred, recon, lmcs_scales,
-    lmcs_inv, deblock, sao, alf);
+    the nine kernels (dmvr, the DMVR search of POC 2, 1 and 3; residual,
+    inter_pred, recon, lmcs_scales, lmcs_inv, deblock, sao, alf);
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra;
@@ -28,9 +28,10 @@ Phases, one JSON line each:
 
   1. device   card name, count, nvidia-smi name + power limit
   2. build    host parser (make) and every CUDA kernel library (nvcc:
-              residual, recon, inter_pred, deblock, alf, sao, lmcs), in
-              parallel, from the sources in this checkout; each kernel
-              function's registers, shared memory and spills (ptxas)
+              residual, recon, inter_pred, deblock, alf, sao, lmcs, dmvr),
+              in parallel, from the sources in this checkout; each kernel
+              function's registers, shared memory and spills (ptxas; the
+              dmvr kernel's on a line of its own)
   3. kernels  each kernel call of the frame program (recorded through
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
@@ -40,7 +41,7 @@ Phases, one JSON line each:
               call's passes alone in its one-pass mode; the alf kernel's
               two calls, luma, then Cb and Cr with CC-ALF; the sao
               kernel's two calls, luma, then Cb and Cr; the LMCS chroma
-              scales and inverse map) on the first B frame
+              scales and inverse map; the DMVR search) on the first B frame
               of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
               and DMVR units under LMCS with ALF-on CTBs (the inter calls
               carry DMVR windows and the luma forward map; its real,
@@ -51,7 +52,10 @@ Phases, one JSON line each:
               largest frame's MC tile bytes (models/vvc/mc_tiles.py);
               both kernels on ctu128_1080's I frame and first B frame and
               on ciip64's first frame with a 64x64 CIIP unit, with their
-              64-edge, 1-high and CIIP-64 unit counts and readiness cell
+              64-edge, 1-high and CIIP-64 unit counts and readiness cell;
+              every DMVR search call of the walked fixtures' frames
+              (full1080's and ctu128_1080's POC 2, 1 and 3) against the
+              plain version, with its subblocks
   4. decode   each fixture decoded on the card; frame MD5s must equal
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
@@ -63,16 +67,19 @@ Phases, one JSON line each:
               alf spans count those frames), the sao kernel twice on
               each frame with SAO on, lmcs_inv once on each frame with
               LMCS on and lmcs_scales once on each frame with chroma
-              residual scaling on (the sao, lmcs and lmcs_scales spans)
+              residual scaling on, the dmvr kernel once on each DMVR
+              frame (the sao, lmcs, lmcs_scales and dmvr spans)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
               with the fetch, full1080 fps at host_threads 1, 4 and 8,
               twice each in the order 1, 4, 8, 8, 4, 1 (the session's
               parse pool; os.cpu_count() beside it),
               full1080 per-stage ms (the DMVR round trip
-              per DMVR frame among them), the device ms of the DMVR
-              search's torch ops per call and per frame (CUDA events
-              around each call, queued behind a held card), kernel vs
+              per DMVR frame among them, and its halves: dmvr_search, the
+              search with its fetch, and dmvr_apply, the host's apply),
+              the device ms of the DMVR search per call and per frame
+              (CUDA events around each call, queued behind a held card;
+              the kernel, one launch a call), kernel vs
               plain ms (CUDA events, the launches queued behind a short
               sleep of the card so that the host's Python between them is
               not timed) on the full1080 B frame; the inter kernel's time
@@ -84,7 +91,8 @@ Phases, one JSON line each:
               ai720's frame 0, and on ctu128_1080's I and B frames (its
               recon levels and us per level, its inter kernel); the
               deblock and alf kernels' ms per launch (luma, then Cb and
-              Cr; the launch is the whole call; for alf each call's
+              Cr; the launch is the whole call; the dmvr kernel's on the
+              POC 2 call with its bound and subblocks; for alf each call's
               launch: grid, resident blocks per SM, tiles and tiles per
               block, shared bytes and ptxas's registers, and the frame's
               pair, the Cb and Cr launch overlapping the luma launch,
@@ -141,32 +149,35 @@ TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
 FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
             "gop720")
 KERNELS = ("residual", "inter_pred", "recon", "deblock", "alf", "sao",
-           "lmcs_inv", "lmcs_scales")
+           "lmcs_inv", "lmcs_scales", "dmvr")
+# the one-launch filter kernels: SAO, the LMCS inverse map and scales
+FILTERS = ("sao", "lmcs_inv", "lmcs_scales")
 # the CUDA libraries (utils/build.py names): one per kernel, lmcs for both
 # LMCS kernels
-LIBS = KERNELS[:6] + ("lmcs",)
+LIBS = KERNELS[:6] + ("lmcs", "dmvr")
 # the kernels each fixture's path must launch: every fixture has
 # residuals and deblock on; all but ciip64 SAO; full1080 and gop720 LMCS
 # with chroma residual scaling; ctu128_1080 LMCS without it;
-# full1080, ctu128_1080 and gop720 ALF
+# full1080, ctu128_1080 and gop720 ALF; full1080 and ctu128_1080 DMVR
+# (POC 2, 1 and 3 of each)
 NO_ALF = KERNELS[:4]
 INTRA = ("residual", "recon", "deblock", "sao")
 PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF + ("sao",), "ai720": INTRA,
                 "ai256x128_10b": INTRA,
-                CTU128: KERNELS[:6] + ("lmcs_inv",),
-                "ciip64": NO_ALF, "gop720": KERNELS}
+                CTU128: KERNELS[:6] + ("lmcs_inv", "dmvr"),
+                "ciip64": NO_ALF, "gop720": KERNELS[:8]}
 # the traced span that counts a path's frames with a filter on (ALF, SAO,
-# LMCS, chroma residual scaling), and the kernel's launches per such
-# 4:2:0 frame (luma, then Cb and Cr; or one call)
+# LMCS, chroma residual scaling) or with DMVR units, and the kernel's
+# launches per such 4:2:0 frame (luma, then Cb and Cr; or one call)
 FRAME_SPANS = {"alf": ("alf", 2), "sao": ("sao", 2), "lmcs_inv": ("lmcs", 1),
-               "lmcs_scales": ("lmcs_scales", 1)}
+               "lmcs_scales": ("lmcs_scales", 1), "dmvr": ("dmvr", 1)}
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
 GOP_WIDTHS = (1, 2, 4)
 
 # NVIDIA H100 SXM data sheet (dense): the HBM rate, and the int32 rate
 # outside the tensor cores, used for the kernels' least-time bounds (all
-# eight kernels compute in integers): 64 INT32 lanes per SM (half the 128
+# nine kernels compute in integers): 64 INT32 lanes per SM (half the 128
 # FP32 lanes behind the 67e12 float32 rate), a multiply-add counted as two
 # operations: 132 SMs x 64 x 2 x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
@@ -189,12 +200,12 @@ def _read(name):
 
 def _counts():
   """The launch and plain-run counters of every kernel wrapper."""
-  from ffmpeg_tpu_torch.ops import (alf, deblock, inter, lmcs, recon, sao,
-                                    transform)
+  from ffmpeg_tpu_torch.ops import (alf, deblock, dmvr, inter, lmcs, recon,
+                                    sao, transform)
 
   return {"residual": transform, "inter_pred": inter, "recon": recon,
           "deblock": deblock, "alf": alf, "sao": sao, "lmcs_inv": lmcs,
-          "lmcs_scales": lmcs}
+          "lmcs_scales": lmcs, "dmvr": dmvr}
 
 
 def _zero_counts():
@@ -227,8 +238,8 @@ def phase_device(torch):
 
 def phase_build():
   from ffmpeg_tpu_torch.models.vvc import host
-  from ffmpeg_tpu_torch.ops import (alf, deblock, inter, lmcs, recon, sao,
-                                    transform)
+  from ffmpeg_tpu_torch.ops import (alf, deblock, dmvr, inter, lmcs, recon,
+                                    sao, transform)
   from ffmpeg_tpu_torch.utils.build import BUILD_LOG
 
   errors = []
@@ -247,7 +258,8 @@ def phase_build():
       ("vvc_host", host._get_lib), ("recon", recon._get_kernel),
       ("inter_pred", inter._get_kernel), ("deblock", deblock._get_kernel),
       ("alf", alf._get_kernel), ("residual", transform._get_kernel),
-      ("sao", sao._get_kernel), ("lmcs", lmcs._get_kernel))]
+      ("sao", sao._get_kernel), ("lmcs", lmcs._get_kernel),
+      ("dmvr", dmvr._get_kernel))]
   t0 = time.perf_counter()
   for t in threads:
     t.start()
@@ -255,10 +267,12 @@ def phase_build():
     t.join()
   if errors:
     fail("build", "; ".join(errors))
+  ptxas = {k: _ptxas(BUILD_LOG.get(k, {}).get("ptxas", [])) for k in LIBS}
   emit({"phase": "build", "seconds": time.perf_counter() - t0,
-        "seconds_each": times,
-        "ptxas": {k: _ptxas(BUILD_LOG.get(k, {}).get("ptxas", []))
-                  for k in LIBS}})
+        "seconds_each": times, "ptxas": ptxas})
+  print("chip_smoke: build dmvr: " + "; ".join(
+      f"{fn}: {', '.join(lines)}" for fn, lines in ptxas["dmvr"].items()),
+      flush=True)
 
 
 def _ptxas(lines):
@@ -274,13 +288,14 @@ def _ptxas(lines):
   return out
 
 
-def _walk_calls(name, pick=None):
+def _walk_calls(name, pick=None, searches=None):
   """Walk a fixture's frames through the frame program on the card
   (pipeline.walk_frames), each kernel call running its wrapper.
   pick(fs, host inputs) -> bool marks the frame to keep: returns (fs,
   that frame's kernel calls [(kernel, plane kind, kwargs)], per-frame
   unit records) for the first picked frame (frame 0, and no further
-  walk, without pick)."""
+  walk, without pick).  searches, a list, gathers the kwargs of every
+  DMVR search call of the walk."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
 
@@ -288,6 +303,8 @@ def _walk_calls(name, pick=None):
 
   def record(kernel, label, kw):
     frame_calls.append((kernel, label, kw))
+    if kernel == "dmvr" and searches is not None:
+      searches.append(kw)
     return KERNELS[kernel][0](**kw)
 
   aus = VVCDecoder(device="cuda")._split_aus(_read(name))
@@ -386,6 +403,11 @@ def _bytes_moved(name, kw):
         len(kw["planes"]) * cbh * cbw * 8 * 4
   if name == "lmcs_inv":  # the plane in and out (the tables are a few words)
     return kw["x"].numel() * 4 * 2
+  if name == "dmvr":
+    # the distinct samples of the subblocks' two windows in, the rows in
+    # and out
+    n = kw["ctrl"].shape[1]
+    return (_dmvr_samples(kw) + 10 * n + 3 * n) * 4
   if name == "lmcs_scales":
     # the distinct samples of the VPDUs' available left columns and top
     # rows in, the scales out
@@ -530,6 +552,54 @@ def _ref_samples(kw):
   return total
 
 
+def _dmvr_samples(kw):
+  """Reference samples a dmvr call must read, each once: the union of
+  its subblocks' two 21 x 21 windows, clamped to the picture as the
+  kernel reads them, marked in one mask per distinct plane (planes told
+  apart by their storage, so that list entries naming one picture count
+  once)."""
+  import numpy as np
+
+  from ffmpeg_tpu_torch.ops.dmvr import _WIN, CTRL_KEYS
+
+  c = dict(zip(CTRL_KEYS, kw["ctrl"].cpu().numpy().astype(np.int64)))
+  H, W = kw["H"], kw["W"]
+  ids: dict = {}
+  plane_of = np.array([ids.setdefault(t.data_ptr(), len(ids))
+                       for t in kw["planes"]])
+  mask = np.zeros((len(ids), H, W), bool)
+  idx = np.arange(_WIN)
+  for lx in (0, 1):
+    ys = np.clip((c["y"] + (c[f"my{lx}"] >> 4) - 2)[:, None] + idx, 0, H - 1)
+    xs = np.clip((c["x"] + (c[f"mx{lx}"] >> 4) - 2)[:, None] + idx, 0, W - 1)
+    mask[plane_of[c[f"s{lx}"]][:, None, None], ys[:, :, None],
+         xs[:, None, :]] = True
+  return int(mask.sum())
+
+
+def _dmvr_ops(kw):
+  """_ops for a dmvr call, counted from its rows: per subblock and list
+  the 20 x 20 prediction by its branch (a whole MV 1 a sample, the
+  shift; horizontal or vertical 5, two multiplies, two adds and the
+  shift; diagonal 5 for each of the 21 x 20 horizontal taps and 5 for
+  each vertical one), per offset of the 25 three a SAD sample (the
+  difference, its absolute value and the add) over the h / 2 x w
+  samples, and about 100 (the reductions' share, the centre's bias, the
+  argmin and the parametric steps)."""
+  import numpy as np
+
+  from ffmpeg_tpu_torch.ops.dmvr import CTRL_KEYS
+
+  c = dict(zip(CTRL_KEYS, kw["ctrl"].cpu().numpy().astype(np.int64)))
+  total = 0
+  for lx in (0, 1):
+    fx, fy = c[f"mx{lx}"] & 15, c[f"my{lx}"] & 15
+    total += int(np.where((fx == 0) & (fy == 0), 400,
+                          np.where((fx > 0) & (fy > 0), 5 * (420 + 400),
+                                   5 * 400)).sum())
+  return total + int((25 * 3 * (c["h"] // 2) * c["w"] + 100).sum())
+
+
 def _wh_hyp(rows):
   """Per MC unit: width, height and hypothesis count (int64 numpy)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS
@@ -572,13 +642,16 @@ def _ops(name, kw):
   compare and the add) and about 12 (the bin's test, the multiply, the
   rounding, the shifts, the add and the clip).
   lmcs_scales: 1 per sample read (the add), per VPDU about 30 (the
-  shuffle sum, the availability, the mean) and 2 per pivot scanned."""
+  shuffle sum, the availability, the mean) and 2 per pivot scanned.
+  dmvr: counted from the call's rows (_dmvr_ops)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
   if name == "residual":
     return _residual_ops(kw)
   if name == "sao":
     return _sao_ops(kw)
+  if name == "dmvr":
+    return _dmvr_ops(kw)
   if name in ("lmcs_inv", "lmcs_scales"):
     tab = kw["lm"]["inv_host"]
     scan = 2 * (min(int(tab[34]), 15) - max(int(tab[33]), 0) + 1)
@@ -767,9 +840,10 @@ def phase_kernels(torch):
   fixtures.  Returns the worst error
   per kernel and each fixture's checked calls."""
   out = {"phase": "kernels", "tolerance": 0, "cases": [], "frames": {}}
-  calls, records = {}, {}
+  calls, records, searches = {}, {}, {}
   for name, pick in ((MAIN, _every_tool), ("ra1080", _every_path)):
-    fs, calls[name], records[name] = _walk_calls(name, pick)
+    fs, calls[name], records[name] = _walk_calls(
+        name, pick, searches.setdefault(name, []))
     units = next(r for r in records[name] if r["poc"] == fs.poc)
     out["frames"][name] = {
         **units, "mc_units": {label: {k: len(kw["inter"][k + "_host"])
@@ -797,7 +871,8 @@ def phase_kernels(torch):
   for key, name, pick in ((CTU128 + "/I", CTU128, None),
                           (CTU128 + "/B", CTU128, _is_b),
                           ("ciip64", "ciip64", _has_ciip64)):
-    fs, calls[key], rr = _walk_calls(name, pick)
+    fs, calls[key], rr = _walk_calls(name, pick,
+                                     searches.setdefault(name, []))
     units = next(r for r in rr if r["poc"] == fs.poc)
     units["cell"] = {label: readiness_cell(
         kw["intra"]["mat_host"][:, :int(kw["intra"]["iend_host"][-1])
@@ -823,11 +898,25 @@ def phase_kernels(torch):
           CTU128 + "/I": ("sao", "sao", "lmcs_inv"),
           CTU128 + "/B": ("sao", "sao", "lmcs_inv"), "ciip64": ()}
   for key, want in filt.items():
-    got = tuple(sorted(n for n, _, _ in calls[key] if n in KERNELS[5:]))
+    got = tuple(sorted(n for n, _, _ in calls[key] if n in FILTERS))
     if got != tuple(sorted(want)):
       fail("kernels", f"{key}: SAO and LMCS calls {got}, expected {want}")
   for name in calls:
     _check_calls(name, calls[name], out, torch)
+  # every DMVR search call of the walks (full1080's and ctu128_1080's walk
+  # every frame), against the plain version
+  subblocks = {name: [kw["ctrl"].shape[1] for kw in kws]
+               for name, kws in searches.items() if kws}
+  for name in subblocks:
+    _check_calls(name + "/searches", [("dmvr", "luma", kw)
+                                      for kw in searches[name]], out, torch)
+  if sorted(subblocks) != sorted((MAIN, CTU128)):
+    fail("kernels", f"DMVR searches recorded on {sorted(subblocks)}, not "
+         f"on {MAIN} and {CTU128}")
+  out["dmvr_searches"] = subblocks
+  print(f"chip_smoke: kernels dmvr: "
+        f"{sum(len(v) for v in subblocks.values())} search calls held "
+        f"against the plain version, subblocks {subblocks}", flush=True)
   worst = {k: max(c["max_abs_err"] for c in out["cases"] if c["kernel"] == k)
            for k in KERNELS}
   out["max_abs_err"] = max(worst.values())
@@ -983,18 +1072,21 @@ def _fps(name, torch, traced=False, host_threads=None):
         k: v["total_ms"] / n_frames for k, v in summary.items()
         if "total_ms" in v}
     if "dmvr" in summary:
-      # the search, its fetch and the host's dmvr_apply, per DMVR frame
+      # the search, its fetch and the host's dmvr_apply, per DMVR frame,
+      # and its halves: the search with its fetch, and the apply
       out["dmvr_round_trip_ms_per_dmvr_frame"] = summary["dmvr"]["mean_ms"]
       out["dmvr_frames"] = summary["dmvr"]["n"]
+      for k in ("dmvr_search", "dmvr_apply"):
+        out[f"{k}_ms_per_dmvr_frame"] = summary[k]["mean_ms"]
   return out
 
 
 def _op_device_ms(name, torch):
-  """Device ms of the DMVR search's torch ops over a decode of a fixture:
-  each call of ops/dmvr.refine_subblocks is queued behind a held card
-  and bracketed by CUDA events, so the events time the card's work, not
-  the host's launches.  Returns its calls, ms per call and ms per
-  frame."""
+  """Device ms of the DMVR search over a decode of a fixture: each call
+  of ops/dmvr.refine_subblocks (the kernel, one launch) is queued behind
+  a held card and bracketed by CUDA events, so the events time the
+  card's work, not the host's launches.  Returns its calls, ms per call
+  and ms per frame."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.ops import dmvr
 
@@ -1365,7 +1457,7 @@ def _time_recon(kw, levels, torch, reps, rounds):
 
 def phase_timing(torch, card, calls, levels):
   """fps of full1080 (with traced stages) and ai720, and the device ms of
-  the LMCS and DMVR ops on full1080; then each kernel against its
+  the DMVR search on full1080; then each kernel against its
   plain version on the full1080 B frame's calls, in turns
   (plain, kernel, kernel, plain; recon's kernel launches each checked
   against the plain version), and the recon kernel alone on ai720's
@@ -1385,12 +1477,18 @@ def phase_timing(torch, card, calls, levels):
         + ", ".join(f"{ht}: {[r['fps_on_device'] for r in rr]}"
                     for ht, rr in sweep.items())
         + f" ({os.cpu_count()} CPUs)", flush=True)
+  m = out[MAIN]
+  print(f"chip_smoke: timing {MAIN} dmvr round trip per DMVR frame "
+        f"(traced, {m['dmvr_frames']} frames): "
+        f"{m['dmvr_round_trip_ms_per_dmvr_frame']} ms, dmvr_search "
+        f"{m['dmvr_search_ms_per_dmvr_frame']} ms, dmvr_apply "
+        f"{m['dmvr_apply_ms_per_dmvr_frame']} ms", flush=True)
   out["op_device_ms"] = _op_device_ms(MAIN, torch)
   kern, plain, recon, inter = {}, {}, {MAIN: {}, "ai720": {}}, {}
-  deblock, alf, residual = {}, {}, {}
-  filt = {k: {} for k in KERNELS[5:]}
+  deblock, alf, residual, dmvr = {}, {}, {}, {}
+  filt = {k: {} for k in FILTERS}
   per = {"recon": recon[MAIN], "deblock": deblock, "alf": alf,
-         "residual": residual, "inter_pred": inter, **filt}
+         "residual": residual, "inter_pred": inter, "dmvr": dmvr, **filt}
   for name, label, kw in calls[MAIN]:
     p1 = _events_ms(lambda: _plain(name, kw), torch, 1)
     r = _time_call(name, label, kw, levels[MAIN], torch, 20, 2)
@@ -1404,6 +1502,13 @@ def phase_timing(torch, card, calls, levels):
   print(f"chip_smoke: timing {MAIN} ms per call: " + ", ".join(
       f"{name} {label} {r['ms']} (plain {plain[f'{name}/{label}']})"
       for name, rr in filt.items() for label, r in rr.items()), flush=True)
+  bound = _bound("dmvr", calls[MAIN])
+  for label, r in dmvr.items():
+    kw = next(kw for n, _, kw in calls[MAIN] if n == "dmvr")
+    print(f"chip_smoke: timing {MAIN} dmvr {label}: {r['ms']} ms per call "
+          f"(plain {plain[f'dmvr/{label}']}), bound {bound['bound_ms']} ms "
+          f"({bound['bound_by']}), {kw['ctrl'].shape[1]} subblocks",
+          flush=True)
   alf_pair = {MAIN: _time_alf_pair(calls[MAIN], torch, 20, 2)}
   _print_alf(MAIN, alf, alf_pair[MAIN], plain)
   for label, r in residual.items():
@@ -1438,7 +1543,7 @@ def phase_timing(torch, card, calls, levels):
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
   out["alf"], out["alf_pair"], out["residual"] = alf, alf_pair, residual
-  out["sao_lmcs"] = filt
+  out["sao_lmcs"], out["dmvr"] = filt, dmvr
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
   out["sm_clocks_after"] = _sm_clocks()
@@ -1447,7 +1552,8 @@ def phase_timing(torch, card, calls, levels):
          for f, rr in recon.items() for label, r in rr.items()
          if r["launches_unequal"]}
   for name, rr in (("inter_pred", inter), ("deblock", deblock),
-                   ("alf", alf), ("residual", residual), *filt.items()):
+                   ("alf", alf), ("residual", residual), ("dmvr", dmvr),
+                   *filt.items()):
     bad.update({f"{name} {label}": r["calls_unequal"]
                 for label, r in rr.items() if r["calls_unequal"]})
   for key, t in tools.items():
@@ -1463,7 +1569,7 @@ def phase_timing(torch, card, calls, levels):
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
   return (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
-          tools)
+          dmvr, tools)
 
 
 def _union_us(work):
@@ -1870,6 +1976,9 @@ KERNEL_INFO = {
     "lmcs_scales": ("ffmpeg_tpu_torch/csrc/lmcs.cu",
                     "ffmpeg_tpu/models/vvc/pipeline.py:393 "
                     "(_lmcs_vpdu_scales, called at 1297; XLA, not Pallas)"),
+    "dmvr": ("ffmpeg_tpu_torch/csrc/dmvr.cu",
+             "ffmpeg_tpu/ops/dmvr.py:48,29 (_unit over _bilin, vmapped by "
+             "_refine_jit at 137; XLA, not Pallas)"),
 }
 
 
@@ -1886,7 +1995,7 @@ def main() -> int:
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
   (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
-   tools) = phase_timing(torch, card, calls, levels)
+   dmvr, tools) = phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
   paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
@@ -1915,6 +2024,11 @@ def main() -> int:
       rows[-1]["split_ms"] = {label: {"ms": r["ms"]} for label, r in
                               (deblock if name == "deblock" else
                                filt[name]).items()}
+    elif name == "dmvr":
+      rows[-1]["split_ms"] = {label: {"ms": r["ms"]}
+                              for label, r in dmvr.items()}
+      rows[-1]["subblocks"] = next(kw["ctrl"].shape[1]
+                                   for n, _, kw in calls[MAIN] if n == "dmvr")
     elif name == "alf":
       _alf_pair_ms(rows[-1], alf_pair[MAIN])
       rows[-1]["split_ms"] = {label: {"ms": r["ms"], "launch": r["launch"]}

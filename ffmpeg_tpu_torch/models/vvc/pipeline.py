@@ -20,8 +20,9 @@ form), stage by stage on one device:
        Cb+Cr (5x5 diamond + CC-ALF from the pre-ALF luma) ──> packed
        bytes
 
-DMVR frames first run their refinement (ops/dmvr.py, `refine_dmvr`)
-against the DPB, which the session does in decode order.
+DMVR frames first run their refinement (`refine_dmvr`: the DMVR search
+kernel through ops/dmvr.py, then the host's dmvr_apply) against the DPB,
+which the session does in decode order.
 
 Eager torch needs no compiled program per stream geometry: shapes come
 from each frame's own counts.
@@ -33,7 +34,8 @@ import torch
 from ...ops import intra as I
 from ...ops.alf import alf_planes, alf_planes_plain
 from ...ops.deblock import deblock_planes, deblock_planes_plain
-from ...ops.dmvr import refine_frame
+from ...ops.dmvr import (refine_frame, refine_subblocks,
+                        refine_subblocks_plain)
 from ...ops.inter import inter_pred, inter_pred_plain_kind
 from ...ops.lmcs import (lmcs_inv, lmcs_inv_plain, lmcs_vpdu_scales,
                         lmcs_vpdu_scales_plain)
@@ -63,7 +65,8 @@ KERNELS = {"residual": (residual_planes, residual_planes_plain),
            "lmcs_inv": (lmcs_inv, lmcs_inv_plain),
            "deblock": (deblock_planes, deblock_planes_plain),
            "sao": (sao_planes, sao_planes_plain),
-           "alf": (alf_planes, alf_planes_plain)}
+           "alf": (alf_planes, alf_planes_plain),
+           "dmvr": (refine_subblocks, refine_subblocks_plain)}
 
 
 def _launch(name, label, kw):
@@ -297,15 +300,21 @@ def resolve_refs(fs: FrameSyntax, dpb: dict, device, missing=None) -> list:
 
 
 def refine_dmvr(fs: FrameSyntax, colstore: ColStore, epoch: int, dpb: dict,
-                device) -> None:
+                device, call=None) -> None:
   """A DMVR frame's refinement: the subblock search on `device` against
-  the DPB's planes, its rows fetched, then host.dmvr_apply, which
-  publishes the frame's collocated motion and rereads its unit controls
-  with the refined MVs.  Runs on the main thread in decode order, before
-  the session waits on a later frame's parse (which may need that
-  motion)."""
-  with trace.span("dmvr", _sync_for(device)):
-    dmvr_apply(fs, colstore, epoch, refine_frame(fs, dpb, device))
+  the DPB's planes, its rows fetched (span dmvr_search), then
+  host.dmvr_apply, which publishes the frame's collocated motion and
+  rereads its unit controls with the refined MVs (span dmvr_apply).  Runs
+  on the main thread in decode order, before the session waits on a
+  later frame's parse (which may need that motion).  call: as in
+  frame_program; it runs the search as kernel "dmvr", plane kind
+  "luma"."""
+  sync = _sync_for(device)
+  with trace.span("dmvr", sync):
+    with trace.span("dmvr_search", sync):
+      planes6 = refine_frame(fs, dpb, device, call=call)
+    with trace.span("dmvr_apply"):
+      dmvr_apply(fs, colstore, epoch, planes6)
 
 
 def prepare_frame(fs: FrameSyntax):
@@ -334,7 +343,8 @@ def walk_frames(aus, device, call):
   kept as a reference for the later ones: yields (fs, host inputs)
   after each frame's program ran, its residual error word read (a frame
   with rows out of range raises RuntimeError).  call: as in
-  frame_program.  The card checks walk streams with it, to hold each
+  frame_program; a DMVR frame's search goes through it too, first
+  (refine_dmvr).  The card checks walk streams with it, to hold each
   kernel call of the real program against its plain version."""
   colstore = ColStore()
   host, dpb = HostDecoder(colstore), {}
@@ -343,7 +353,7 @@ def walk_frames(aus, device, call):
     if fs is None:
       continue
     if has_dmvr(fs):
-      refine_dmvr(fs, colstore, epoch, dpb, device)
+      refine_dmvr(fs, colstore, epoch, dpb, device, call=call)
     h = build_host_inputs(fs)
     _, dpb[fs.poc], err = submit_frame(h, fs, device, dpb, call=call)
     raise_on_error(int(err.item()), f" (POC {fs.poc})")

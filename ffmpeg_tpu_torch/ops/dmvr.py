@@ -11,8 +11,18 @@ only the (dmv_x, dmv_y, nobdof) rows come back to the host, where a
 numpy scatter fills the six per-4x4 planes that host.dmvr_apply hands
 the native parser (the refined motion feeds the collocated store that
 later frames read).
+
+`refine_subblocks` is the search's entry point: on CUDA tensors it
+launches the kernel (csrc/dmvr.cu, one launch a frame, the reference
+planes read in place through a table of their pointers in the parameter
+block), on CPU tensors it runs its plain version
+(`refine_subblocks_plain`: int32 torch ops, the kernel's oracle);
+nothing falls back from one to the other.
 """
 from __future__ import annotations
+
+import ctypes
+import os
 
 import numpy as np
 import torch
@@ -31,6 +41,15 @@ _ORDER[13:] += 1
 
 # control rows of a subblock (build_subblock_ctrl)
 CTRL_KEYS = ("x", "y", "w", "h", "mx0", "my0", "mx1", "my1", "s0", "s1")
+
+# reference planes the kernel takes in its parameter block (passed to nvcc
+# as DMVR_MAX_SLOTS): a VVC list holds at most 15 entries, so both fit
+MAX_SLOTS = 32
+
+# launches of the CUDA kernel and runs of the plain version: plain
+# integer counters a caller may reset to 0 and read back
+LAUNCHES = {"dmvr": 0}
+PLAIN_RUNS = {"dmvr": 0}
 
 
 def _bilin(win, mx, my, bd):
@@ -75,9 +94,28 @@ def _parametric(s_minus, s_center, s_plus):
 def refine_subblocks(planes, ctrl: torch.Tensor, *, H: int, W: int,
                      bit_depth: int):
   """The search of n subblocks.  planes: the reference luma planes
-  [L0..., L1...] (padded DPB planes; reads clamp to the H x W picture);
-  ctrl: (10, n) int32 rows (CTRL_KEYS; s1 already indexes the L1 block).
-  Returns (3, n) int32: dmv_x, dmv_y and nobdof."""
+  [L0..., L1...] (padded DPB planes, all of one shape, contiguous int32,
+  at most MAX_SLOTS; reads clamp to the H x W picture); ctrl: (10, n)
+  int32 rows (CTRL_KEYS; s1 already indexes the L1 block; check_rows
+  holds them to the planes).  Returns (3, n) int32: dmv_x, dmv_y and
+  nobdof.  CUDA tensors launch the kernel; CPU tensors run
+  refine_subblocks_plain."""
+  check_planes(planes, H, W)
+  dev = ctrl.device
+  if planes[0].device != dev:
+    raise ValueError(f"refine_subblocks: rows on {dev}, planes on "
+                     f"{planes[0].device}")
+  if dev.type == "cuda":
+    return _search_cuda(planes, ctrl, H, W, bit_depth)
+  if dev.type != "cpu":
+    raise ValueError(f"refine_subblocks: unsupported device {dev}")
+  return refine_subblocks_plain(planes, ctrl, H=H, W=W, bit_depth=bit_depth)
+
+
+def refine_subblocks_plain(planes, ctrl: torch.Tensor, *, H: int, W: int,
+                           bit_depth: int):
+  """refine_subblocks's plain version, with its arguments and result."""
+  PLAIN_RUNS["dmvr"] += 1
   dev = ctrl.device
   c = {k: ctrl[i] for i, k in enumerate(CTRL_KEYS)}
   n = ctrl.shape[1]
@@ -156,11 +194,14 @@ def build_subblock_ctrl(fs) -> np.ndarray:
   return np.ascontiguousarray(np.stack(rows).astype(np.int32))
 
 
-def refine_frame(fs, dpb: dict, device):
+def refine_frame(fs, dpb: dict, device, call=None):
   """The DMVR search of one frame on `device` against the DPB's luma
   planes, and the host scatter of its results: returns the six per-4x4
   (H / 4, W / 4) int32 planes of host.dmvr_apply (refined L0 x/y, L1
-  x/y, valid, nobdof), as the JAX refine_frame_device does."""
+  x/y, valid, nobdof), as the JAX refine_frame_device does.  The rows
+  are checked (check_rows) before they go to the device.  call(kernel
+  name, plane kind, kwargs) -> result, when given, runs the search as
+  kernel "dmvr", plane kind "luma" (the frame program's call hook)."""
   ctrl = build_subblock_ctrl(fs)
   n = ctrl.shape[1]
   pw, ph = fs.width >> 2, fs.height >> 2
@@ -177,9 +218,11 @@ def refine_frame(fs, dpb: dict, device):
       planes.append(dpb[poc][0] if poc in dpb else dpb[next(iter(dpb))][0])
   dctrl = ctrl.copy()
   dctrl[9] += n_l0
-  res = refine_subblocks(planes, torch.from_numpy(dctrl).to(device),
-                         H=fs.height, W=fs.width,
-                         bit_depth=fs.bit_depth).cpu().numpy()
+  check_rows(dctrl, n_l0, len(planes))
+  kw = dict(planes=planes, ctrl=torch.from_numpy(dctrl).to(device),
+            H=fs.height, W=fs.width, bit_depth=fs.bit_depth)
+  res = (call("dmvr", "luma", kw) if call is not None
+         else refine_subblocks(**kw)).cpu().numpy()
   dmv_x, dmv_y = res[0].astype(np.int64), res[1].astype(np.int64)
 
   def clip17(v):
@@ -200,3 +243,94 @@ def refine_frame(fs, dpb: dict, device):
                                np.ones(n, np.int64), res[2])):
     plane.reshape(-1)[flat] = np.repeat(vals.astype(np.int32), reps)
   return tuple(out)
+
+
+def check_planes(planes, H: int, W: int) -> None:
+  """Raises ValueError unless the search can take `planes`: 1 to
+  MAX_SLOTS tensors of one shape, device and dtype (int32), each
+  contiguous and covering the H x W picture."""
+  if not 1 <= len(planes) <= MAX_SLOTS:
+    raise ValueError(f"refine_subblocks: {len(planes)} reference planes, "
+                     f"expected 1 to {MAX_SLOTS}")
+  p0 = planes[0]
+  for k, p in enumerate(planes):
+    if p.dtype != _I32 or p.dim() != 2 or not p.is_contiguous() \
+        or p.shape != p0.shape or p.device != p0.device:
+      raise ValueError(f"refine_subblocks: plane {k} is {p.dtype} "
+                       f"{tuple(p.shape)} strides {p.stride()} on {p.device}; "
+                       "expected contiguous int32 planes of one shape "
+                       f"{tuple(p0.shape)} on {p0.device}")
+  if not (1 <= H <= p0.shape[0] and 1 <= W <= p0.shape[1]):
+    raise ValueError(f"refine_subblocks: picture {W}x{H} outside the planes "
+                     f"{tuple(p0.shape)}")
+
+
+def check_rows(ctrl: np.ndarray, n_l0: int, slots: int) -> None:
+  """Raises ValueError unless the (10, n) control rows (s1 already offset
+  by n_l0) name slots 0 <= s0 < n_l0 <= s1 < slots and subblocks of w, h
+  in {8, 16} with w * h >= 128 (build_subblock_ctrl's shapes)."""
+  c = dict(zip(CTRL_KEYS, ctrl))
+  if not (0 < n_l0 < slots <= MAX_SLOTS):
+    raise ValueError(f"refine_subblocks: {n_l0} L0 slots of {slots}, at "
+                     f"most {MAX_SLOTS}")
+  if len(c["s0"]) and (c["s0"].min() < 0 or c["s0"].max() >= n_l0
+                       or c["s1"].min() < n_l0 or c["s1"].max() >= slots):
+    raise ValueError("refine_subblocks: reference slots outside 0 <= s0 < "
+                     f"{n_l0} <= s1 < {slots}")
+  w, h = c["w"], c["h"]
+  if not np.all(((w == 8) | (w == 16)) & ((h == 8) | (h == 16))
+                & (w * h >= 128)):
+    raise ValueError("refine_subblocks: subblocks other than 16x16, 8x16 "
+                     "and 16x8")
+
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "dmvr.cu")
+_lib = None
+
+
+def _get_kernel():
+  global _lib
+  if _lib is None:
+    from ..utils.build import build_cuda
+
+    lib = ctypes.CDLL(build_cuda("dmvr", [_SRC],
+                                 (("DMVR_MAX_SLOTS", MAX_SLOTS),)))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dmvr_search_launch.restype = ctypes.c_int
+    lib.dmvr_search_launch.argtypes = [
+        p, i, ll,       # plane pointers, their count, row stride
+        i, i, i,        # H, W, bit_depth
+        p, p, i, p]     # ctrl, out, subblocks, stream
+    lib.dmvr_error_string.restype = ctypes.c_char_p
+    lib.dmvr_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+  return _lib
+
+
+def _search_cuda(planes, ctrl, H, W, bit_depth):
+  """One launch on ctrl's device's current stream into a new (3, n)
+  tensor; the planes (checked by the caller, on ctrl's device) are read
+  in place."""
+  dev = ctrl.device
+  if ctrl.dtype != _I32 or ctrl.dim() != 2 or ctrl.shape[0] != len(CTRL_KEYS) \
+      or not ctrl.is_contiguous():
+    raise ValueError(f"refine_subblocks: expected contiguous int32 (10, n) "
+                     f"rows, got {ctrl.dtype} {tuple(ctrl.shape)} strides "
+                     f"{ctrl.stride()}")
+  n = ctrl.shape[1]
+  out = torch.empty((3, n), dtype=_I32, device=dev)
+  if not n:
+    return out
+  ptrs = (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
+  lib = _get_kernel()
+  with torch.cuda.device(dev):
+    rc = lib.dmvr_search_launch(
+        ptrs, len(planes), planes[0].stride(0), H, W, bit_depth,
+        ctrl.data_ptr(), out.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+  if rc != 0:
+    raise RuntimeError("dmvr kernel launch failed: "
+                       f"{lib.dmvr_error_string(rc).decode()}")
+  LAUNCHES["dmvr"] += 1
+  return out

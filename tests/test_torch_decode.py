@@ -699,6 +699,7 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
+  from ffmpeg_tpu_torch.ops import dmvr as DM
   from ffmpeg_tpu_torch.ops import inter as P
   from ffmpeg_tpu_torch.ops import lmcs as L
   from ffmpeg_tpu_torch.ops import recon as R
@@ -708,11 +709,12 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES,
               "deblock": D.LAUNCHES, "alf": A.LAUNCHES,
               "residual": T.LAUNCHES, "sao": S.LAUNCHES,
-              "lmcs_inv": L.LAUNCHES, "lmcs_scales": L.LAUNCHES}
+              "lmcs_inv": L.LAUNCHES, "lmcs_scales": L.LAUNCHES,
+              "dmvr": DM.LAUNCHES}
   called, frame = set(), []
 
   def per_call(name, kw):
-    """Launches counted per call: recon, deblock and alf 1; inter_pred 1
+    """Launches counted per call: recon, deblock, alf and dmvr 1; inter_pred 1
     per size class that has units; residual 1 per work group that has
     TUs."""
     if name == "residual":
@@ -920,11 +922,12 @@ def test_kernels_match_plain_on_card_inter(cuda, case):
 @pytest.mark.parametrize("case", ["dmvr-bdof-tmvp", "alf-lmcs-ra"])
 def test_kernels_match_plain_on_card_tools(cuda, case):
   """Every kernel against its plain version on every frame of a stream
-  with DMVR (its search and the refined controls run in the walk) or with
-  LMCS and ALF, with the frame's real references."""
+  with DMVR (its search kernel and the refined controls run in the walk)
+  or with LMCS and ALF, with the frame's real references."""
   called = _kernels_vs_plain(_stream(TOOL_CASES[case]), cuda)
-  assert called - {"deblock", "alf", *FILTER_KERNELS} == {
+  assert called - {"deblock", "alf", "dmvr", *FILTER_KERNELS} == {
       "residual", "inter_pred", "recon"}
+  assert ("dmvr" in called) == bool(TOOL_CASES[case].get("dmvr"))
   assert "lmcs_inv" in called or not TOOL_CASES[case].get("lmcs")
   assert "deblock" in called or not TOOL_CASES[case].get("deblock")
   assert ("alf" in called) == bool(TOOL_CASES[case].get("alf"))
