@@ -31,7 +31,9 @@ Phases, one JSON line each:
               residual, recon, inter_pred, deblock, alf, sao, lmcs, dmvr),
               in parallel, from the sources in this checkout; each kernel
               function's registers, shared memory and spills (ptxas; the
-              dmvr kernel's on a line of its own)
+              dmvr kernel's on a line of its own); the sao and lmcs
+              kernels' shared, constant and global loads from their SASS
+              (tools/sass_loads.py), in all and in their outermost loop
   3. kernels  each kernel call of the frame program (recorded through
               its call hook, pipeline.walk_frames) against its plain
               torch version on the card, torch.equal, tolerance 0
@@ -65,7 +67,9 @@ Phases, one JSON line each:
               launching one to three work groups (counted apart),
               the alf kernel twice on each frame with ALF on (the traced
               alf spans count those frames), the sao kernel twice on
-              each frame with SAO on, lmcs_inv once on each frame with
+              each frame with SAO on, its Cb and Cr launch overlapping its
+              luma launch (sao_overlapped, one per such frame),
+              lmcs_inv once on each frame with
               LMCS on and lmcs_scales once on each frame with chroma
               residual scaling on, the dmvr kernel once on each DMVR
               frame (the sao, lmcs, lmcs_scales and dmvr spans)
@@ -102,8 +106,11 @@ Phases, one JSON line each:
               launch apart, with each group's TUs, blocks, shared bytes
               and resident blocks per SM; the wrapper's host ms per
               call beside it), the sao, lmcs_inv and lmcs_scales
-              kernels' ms per call, on the full1080 B frame and the
-              coding-tool frames; every
+              kernels' ms per call, and the sao pair (the Cb and Cr
+              launch overlapping the luma launch, which is the sao row's
+              ms in the kernel table) with each call's launch (grid,
+              resident blocks per SM, tiles), on the full1080 B frame and
+              the coding-tool frames; every
               timed launch of the kernels held
               against the plain version (for recon, the race check); and
               the SM clocks before and after
@@ -213,6 +220,7 @@ def _zero_counts():
     mod.LAUNCHES[name] = 0
     mod.PLAIN_RUNS[name] = 0
   _counts()["alf"].OVERLAPS["alf"] = 0
+  _counts()["sao"].OVERLAPS["sao"] = 0
   for d in (_counts()["inter_pred"].CLASS_LAUNCHES,
             _counts()["recon"].EDGE_LAUNCHES,
             _counts()["residual"].GROUP_LAUNCHES,
@@ -268,11 +276,29 @@ def phase_build():
   if errors:
     fail("build", "; ".join(errors))
   ptxas = {k: _ptxas(BUILD_LOG.get(k, {}).get("ptxas", [])) for k in LIBS}
+  sass = _sass_loads()
   emit({"phase": "build", "seconds": time.perf_counter() - t0,
-        "seconds_each": times, "ptxas": ptxas})
-  print("chip_smoke: build dmvr: " + "; ".join(
-      f"{fn}: {', '.join(lines)}" for fn, lines in ptxas["dmvr"].items()),
-      flush=True)
+        "seconds_each": times, "ptxas": ptxas, "sass": sass})
+  for k in ("dmvr", "sao", "lmcs"):
+    print(f"chip_smoke: build {k}: " + "; ".join(
+        f"{fn}: {', '.join(lines)}" for fn, lines in ptxas[k].items()),
+        flush=True)
+  for fn, c in sass.items():
+    print(f"chip_smoke: build sass {fn}: {c}", flush=True)
+
+
+def _sass_loads():
+  """The sao and lmcs kernels' memory instructions from their built
+  libraries' SASS (tools/sass_loads.py): {function: counts}."""
+  from ffmpeg_tpu_torch.ops import lmcs, sao
+  from ffmpeg_tpu_torch.tools import sass_loads
+  from ffmpeg_tpu_torch.utils.build import build_cuda
+
+  out = {}
+  for mod, name in ((sao, "sao"), (lmcs, "lmcs")):
+    out.update({fn: sass_loads.counts(ins) for fn, ins in sass_loads.parse(
+        sass_loads.sass(build_cuda(name, [mod._SRC]))).items()})
+  return out
 
 
 def _ptxas(lines):
@@ -970,6 +996,7 @@ def phase_decode(torch):
         counts["residual"].GROUP_LAUNCHES)
     launches[name]["residual_calls"] = counts["residual"].CALLS["residual"]
     launches[name]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
+    launches[name]["sao_overlapped"] = counts["sao"].OVERLAPS["sao"]
     plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
@@ -1010,6 +1037,11 @@ def phase_decode(torch):
       fail("decode", f"{name}: {launches[name]['alf_overlapped']} alf "
            f"chroma launches overlapped the luma launch for {alf_frames} "
            "frames with ALF on, not one each")
+    if launches[name]["sao_overlapped"] != frames["sao"]:
+      emit(res)
+      fail("decode", f"{name}: {launches[name]['sao_overlapped']} sao "
+           f"chroma launches overlapped the luma launch for {frames['sao']} "
+           "frames with SAO on, not one each")
     for k, (span, per) in FRAME_SPANS.items():
       if launches[name][k] != per * frames[k] or \
           bool(frames[k]) != (k in PATH_KERNELS[name]):
@@ -1361,6 +1393,8 @@ def _time_call(name, label, kw, levels, torch, reps, rounds):
     return _time_residual(kw, torch, reps, rounds)
   if name == "alf":
     return _time_alf(kw, torch, reps, rounds)
+  if name == "sao":
+    return _time_sao(kw, torch, reps, rounds)
   if name == "inter_pred":
     return _time_inter(kw, torch, reps, rounds)
   return _time_whole_call(name, kw, torch, reps, rounds)
@@ -1394,16 +1428,27 @@ def _time_alf(kw, torch, reps, rounds):
   return r
 
 
-def _time_alf_pair(calls, torch, reps, rounds):
-  """A frame's two alf calls as the frame program queues them: luma, then
-  Cb and Cr, whose launch may start while the luma launch runs (the
-  overlap).  ms per pair (mean of `rounds` rounds of `reps` pairs queued
-  behind a held card, CUDA events), each output held against the plain
-  version.  None on a frame without ALF."""
-  kws = [kw for name, _, kw in calls if name == "alf"]
+def _time_sao(kw, torch, reps, rounds):
+  """One sao call alone (_time_whole_call) and its launch: the persistent
+  grid's blocks, resident blocks per SM, tiles and tiles per block,
+  shared bytes and threads."""
+  from ffmpeg_tpu_torch.ops.sao import launch_plan
+
+  r = _time_whole_call("sao", kw, torch, reps, rounds)
+  r["launch"] = launch_plan(len(kw["planes"]), *kw["planes"][0].shape)
+  return r
+
+
+def _time_pair(kernel, calls, torch, reps, rounds):
+  """A frame's two calls of `kernel` (alf or sao) as the frame program
+  queues them: luma, then Cb and Cr, whose launch may start while the
+  luma launch runs (the overlap).  ms per pair (mean of `rounds` rounds
+  of `reps` pairs queued behind a held card, CUDA events), each output
+  held against the plain version.  None on a frame without the filter."""
+  kws = [kw for name, _, kw in calls if name == kernel]
   if len(kws) != 2:
     return None
-  want = [_plain("alf", kw) for kw in kws]
+  want = [_plain(kernel, kw) for kw in kws]
   kws[1] = dict(kws[1], overlap=True)
   ms, bad = 0.0, 0
   for _ in range(rounds):
@@ -1413,12 +1458,30 @@ def _time_alf_pair(calls, torch, reps, rounds):
     _hold_card(torch)
     start.record()
     for _ in range(reps):
-      outs += [_kernel("alf", kw) for kw in kws]
+      outs += [_kernel(kernel, kw) for kw in kws]
     end.record()
     torch.cuda.synchronize()
     ms += start.elapsed_time(end) / reps / rounds
     bad += sum(not torch.equal(o, want[i % 2]) for i, o in enumerate(outs))
   return {"ms": ms, "calls_checked": 2 * reps * rounds, "calls_unequal": bad}
+
+
+def _print_sao(tag, sao, pair, plain_ms):
+  """The sao calls' timing lines: ms per call alone with its launch, and
+  the overlapped pair's ms per frame."""
+  for label, r in sao.items():
+    g = r["launch"]
+    print(f"chip_smoke: timing {tag} sao {label}: {r['ms']} ms per call "
+          f"(plain {plain_ms.get(f'sao/{label}')}); grid {g['blocks']} "
+          f"blocks of {g['threads']} threads ({g['blocks_per_sm']} resident "
+          f"per SM x {g['sms']} SMs), {g['tiles']} tiles of "
+          f"{g['tile'][0]}x{g['tile'][1]} ({g['tiles_per_block']} per "
+          f"block), {g['smem']} B shared", flush=True)
+  if pair is not None:
+    print(f"chip_smoke: timing {tag} sao pair (luma, then Cb and Cr "
+          f"overlapping it): {pair['ms']} ms per frame, against "
+          f"{sum(r['ms'] for r in sao.values())} for the calls alone",
+          flush=True)
 
 
 def _print_alf(tag, alf, pair, plain_ms):
@@ -1509,8 +1572,10 @@ def phase_timing(torch, card, calls, levels):
           f"(plain {plain[f'dmvr/{label}']}), bound {bound['bound_ms']} ms "
           f"({bound['bound_by']}), {kw['ctrl'].shape[1]} subblocks",
           flush=True)
-  alf_pair = {MAIN: _time_alf_pair(calls[MAIN], torch, 20, 2)}
+  alf_pair = {MAIN: _time_pair("alf", calls[MAIN], torch, 20, 2)}
   _print_alf(MAIN, alf, alf_pair[MAIN], plain)
+  sao_pair = {MAIN: _time_pair("sao", calls[MAIN], torch, 20, 2)}
+  _print_sao(MAIN, filt["sao"], sao_pair[MAIN], plain)
   for label, r in residual.items():
     _print_residual(MAIN, label, r, plain[f"residual/{label}"])
   for name, label, kw in calls["ai720"]:
@@ -1534,15 +1599,21 @@ def phase_timing(torch, card, calls, levels):
         f", {name} {label} {r['ms']} ms"
         for name in KERNELS if name != "recon"
         for label, r in t[name].items()), flush=True)
-    alf_pair[key] = t["alf_pair"] = _time_alf_pair(calls[key], torch, 20, 1)
+    alf_pair[key] = t["alf_pair"] = _time_pair("alf", calls[key], torch, 20,
+                                               1)
     if t["alf"]:
       _print_alf(key, t["alf"], alf_pair[key], t["plain_ms"])
+    sao_pair[key] = t["sao_pair"] = _time_pair("sao", calls[key], torch, 20,
+                                               1)
+    if t["sao"]:
+      _print_sao(key, t["sao"], sao_pair[key], t["plain_ms"])
     for label, r in t["residual"].items():
       _print_residual(key, label, r, t["plain_ms"][f"residual/{label}"])
   out["coding_tools"] = tools
   out["kernel_ms"], out["plain_ms"] = kern, plain
   out["inter"], out["recon"], out["deblock"] = inter, recon, deblock
   out["alf"], out["alf_pair"], out["residual"] = alf, alf_pair, residual
+  out["sao_pair"] = sao_pair
   out["sao_lmcs"], out["dmvr"] = filt, dmvr
   out["ai720_frame0_kernel_ms"] = {f"recon/{label}": r["ms"]
                                    for label, r in recon["ai720"].items()}
@@ -1564,12 +1635,13 @@ def phase_timing(torch, card, calls, levels):
         continue
       bad.update({f"{name} {key} {label}": r["calls_unequal"]
                   for label, r in t[name].items() if r["calls_unequal"]})
-  bad.update({f"alf pair {key}": r["calls_unequal"]
-              for key, r in alf_pair.items() if r and r["calls_unequal"]})
+  for name, pairs in (("alf", alf_pair), ("sao", sao_pair)):
+    bad.update({f"{name} pair {key}": r["calls_unequal"]
+                for key, r in pairs.items() if r and r["calls_unequal"]})
   if bad:
     fail("timing", f"launches unequal to the plain version: {bad}")
   return (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
-          dmvr, tools)
+          sao_pair, dmvr, tools)
 
 
 def _union_us(work):
@@ -1853,13 +1925,15 @@ def phase_parallel(torch, card):
       key = f"gop:{name}:w{width}"
       launches[key] = {k: m.LAUNCHES[k] for k, m in counts.items()}
       launches[key]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
+      launches[key]["sao_overlapped"] = counts["sao"].OVERLAPS["sao"]
       plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
       rec["widths"][width] = {"md5_equal": got == want,
                               "launches": launches[key],
                               "plain_runs": plain}
       if got != want or any(plain.values()) or not all(
           launches[key][k] > 0 for k in PATH_KERNELS[name]) or \
-          2 * launches[key]["alf_overlapped"] != launches[key]["alf"]:
+          2 * launches[key]["alf_overlapped"] != launches[key]["alf"] or \
+          2 * launches[key]["sao_overlapped"] != launches[key]["sao"]:
         emit(out)
         fail("parallel", f"{key}: MD5s equal {got == want}, launches "
              f"{launches[key]}, plain runs {plain}")
@@ -1919,9 +1993,9 @@ def _bound(name, calls):
 
 def _tool_row(name, calls, timed):
   """One kernel's numbers on a coding-tool frame: ms per call summed over
-  the plane kinds (for alf, the overlapped pair's ms per frame, with the
-  calls alone beside it), the plain version's, and the bound, as for the
-  main path's row; None where the frame makes no call of it."""
+  the plane kinds (for alf and sao, the overlapped pair's ms per frame,
+  with the calls alone beside it), the plain version's, and the bound, as
+  for the main path's row; None where the frame makes no call of it."""
   if not timed[name]:
     return None
   row = {"ms": sum(r["ms"] for r in timed[name].values()),
@@ -1934,15 +2008,15 @@ def _tool_row(name, calls, timed):
              "host_ms_per_call_card_held", "fill_ms", "group_ms",
              "serial_ms", "groups", "launch")}
              for label, r in timed[name].items()}}
-  if name == "alf":
-    _alf_pair_ms(row, timed["alf_pair"])
+  if name in ("alf", "sao"):
+    _pair_ms(row, timed[name + "_pair"])
   return row
 
 
-def _alf_pair_ms(row, pair):
-  """An alf row's ms becomes the frame's overlapped pair's (pair, from
-  _time_alf_pair; none on a frame without ALF), the calls alone beside it
-  as ms_calls_alone."""
+def _pair_ms(row, pair):
+  """An alf or sao row's ms becomes the frame's overlapped pair's (pair,
+  from _time_pair; none on a frame without the filter), the calls alone
+  beside it as ms_calls_alone."""
   if pair is not None:
     row["ms_calls_alone"], row["ms"] = row["ms"], pair["ms"]
 
@@ -1995,7 +2069,7 @@ def main() -> int:
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
   (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
-   dmvr, tools) = phase_timing(torch, card, calls, levels)
+   sao_pair, dmvr, tools) = phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
   paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
@@ -2021,16 +2095,19 @@ def main() -> int:
       rows[-1]["launches_by_edge"] = {
           f: launches[f]["recon_by_edge"] for f in FIXTURES}
     elif name in ("deblock", *filt):
-      rows[-1]["split_ms"] = {label: {"ms": r["ms"]} for label, r in
-                              (deblock if name == "deblock" else
-                               filt[name]).items()}
+      rows[-1]["split_ms"] = {
+          label: {k: r[k] for k in ("ms", "launch") if k in r}
+          for label, r in (deblock if name == "deblock" else
+                           filt[name]).items()}
+      if name == "sao":
+        _pair_ms(rows[-1], sao_pair[MAIN])
     elif name == "dmvr":
       rows[-1]["split_ms"] = {label: {"ms": r["ms"]}
                               for label, r in dmvr.items()}
       rows[-1]["subblocks"] = next(kw["ctrl"].shape[1]
                                    for n, _, kw in calls[MAIN] if n == "dmvr")
     elif name == "alf":
-      _alf_pair_ms(rows[-1], alf_pair[MAIN])
+      _pair_ms(rows[-1], alf_pair[MAIN])
       rows[-1]["split_ms"] = {label: {"ms": r["ms"], "launch": r["launch"]}
                               for label, r in alf.items()}
     elif name == "residual":

@@ -106,10 +106,11 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   with SAO on), alf of luma then chroma (frames with ALF on; the chroma
   call reads the pre-ALF luma); a 4:0:0 frame makes only the luma
   calls.
-  The default runs the wrapper, and asks for the alf chroma launch to
-  overlap the luma launch (alf_planes overlap=True); a check passes its
-  own hook to hold each call against the plain version, and gets no
-  overlap, since it may queue work between the calls.
+  The default runs the wrapper, and asks for the sao and alf chroma
+  launches to overlap the luma launch before each (sao_planes and
+  alf_planes overlap=True); a check passes its own hook to hold each
+  call against the plain version, and gets no overlap, since it may
+  queue work between the calls.
   Returns {"planes": padded int32 planes, "packed": flat planar bytes
   (uint8, or int16 holding the uint16 sample bytes above 8 bits), "err":
   the frame's residual error word, a one-element int32 tensor on
@@ -122,8 +123,9 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(W, H, ctb_log2)
   n_comp = 1 if mono else 3
   lm = inp.get("lmcs")
-  # with no hook, nothing is queued between the two alf calls
-  alf_pair = call is None
+  # with no hook, nothing is queued between the two calls of the sao and
+  # of the alf pair
+  pair = call is None
   call = call or _launch
   err = error_word(device)
 
@@ -207,16 +209,23 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
 
   if "sao" in inp:
     # out of place (the edge offset reads the unfiltered neighbours),
-    # each call into a new tensor
+    # each call into a new tensor.  Without a hook the Cb+Cr launch
+    # follows the luma launch directly and may run beside it (ops/sao.py
+    # sao_planes, overlap), so `deblocked` keeps the luma call's input
+    # referenced until both calls are queued: the Cb+Cr call's fresh
+    # output must not take memory the luma launch still reads.
     with trace.span("sao", sync):
+      deblocked = planes[0]
       for label, cs in comps:
         ss = int(label == "chroma")
-        out = call("sao", label, dict(
-            planes=[planes[c] for c in cs], sao=inp["sao"], comps=cs,
-            pic_w=W >> ss, pic_h=H >> ss, ctb=(1 << ctb_log2) >> ss,
-            bit_depth=bd))
+        kw = dict(planes=[planes[c] for c in cs], sao=inp["sao"], comps=cs,
+                  pic_w=W >> ss, pic_h=H >> ss, ctb=(1 << ctb_log2) >> ss,
+                  bit_depth=bd)
+        out = call("sao", label, dict(kw, overlap=True) if ss and pair
+                   else kw)
         for c, pl in zip(cs, out):
           planes[c] = pl
+      del deblocked
 
   if "alf" in inp:
     # luma into a new plane, then Cb and Cr together, whose CC-ALF reads
@@ -233,7 +242,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
       if not mono:
         kw = dict(planes=planes[1:3], chroma=True, luma=pre, **geo)
         planes[1], planes[2] = call("alf", "chroma", dict(
-            kw, overlap=True) if alf_pair else kw)
+            kw, overlap=True) if pair else kw)
 
   with trace.span("pack", sync):
     # the cropped planes in planar YCbCr order: the exact byte layout of

@@ -11,10 +11,13 @@ where the needed neighbour lies outside the picture.
 Cb and Cr planes together, with the frame's SAO tree; `sao_rows` (the
 band form) and `sao_plane` take one plane and its per-CTB grids.  A
 CUDA tensor launches the kernel (csrc/sao.cu: one launch per call into
-a new tensor, the grids read in place through their strides); a CPU
-tensor runs the plain version (`sao_rows_plain`, `sao_planes_plain`:
-int32 torch ops, the kernel's oracle); nothing falls back from one to
-the other.
+a new tensor, a persistent grid over TH x TW tiles staged in shared
+memory with their ring, the grids read in place through their strides,
+each tile's CTB parameters once; the Cb+Cr launch may overlap the luma
+launch queued just before it, when the caller says so); a CPU tensor
+runs the plain version (`sao_rows_plain`, `sao_planes_plain`: int32
+torch ops, the kernel's oracle); nothing falls back from one to the
+other.
 """
 from __future__ import annotations
 
@@ -26,10 +29,18 @@ import torch
 
 from .tables import on_device
 
-# launches of the CUDA kernel and runs of the plain version: plain
-# integer counters a caller may reset to 0 and read back
+# launches of the CUDA kernel, the Cb+Cr launches among them that may
+# overlap the luma launch before them, and runs of the plain version:
+# plain integer counters a caller may reset to 0 and read back
 LAUNCHES = {"sao": 0}
+OVERLAPS = {"sao": 0}
 PLAIN_RUNS = {"sao": 0}
+
+# the kernel's tile (csrc/sao.cu TH, TW) and its smallest CTB: it takes
+# CTBs of a power of 2 samples, MIN_CTB or more (a thread's run of 4
+# lies in one)
+TILE = (16, 128)
+MIN_CTB = 8
 
 # per-eo-class neighbour offsets (a, b): (dx, dy)
 _EO_DIRS = np.array([
@@ -138,7 +149,7 @@ def _grids(sao: dict, c: int):
 
 
 def sao_planes(planes, sao, comps, *, pic_w: int, pic_h: int, ctb: int,
-               bit_depth: int):
+               bit_depth: int, overlap: bool = False):
   """SAO of one frame's luma plane, or of its Cb and Cr planes together
   (the frame program's calls).
 
@@ -148,6 +159,10 @@ def sao_planes(planes, sao, comps, *, pic_w: int, pic_h: int, ctb: int,
   `band` and `eo` (CBH, CBW, 3) int32 and `offv` (CBH, CBW, 3, 5) int32,
   indexed by component.  comps: the planes' components, (0,) or (1, 2).
   pic_w, pic_h, ctb: the component's picture size and CTB size.
+  overlap (Cb+Cr calls on the card): the caller queued the luma call
+  just before this one on the current stream, and keeps that call's
+  input plane referenced until this call is queued (the frame program's
+  pair); the Cb+Cr launch may then start while the luma launch runs.
   Returns the filtered planes, (nch, Hp, Wp) int32, a new tensor: the
   picture filtered, the padding copied.  A CUDA tensor launches the
   kernel once; a CPU tensor runs sao_planes_plain."""
@@ -156,7 +171,8 @@ def sao_planes(planes, sao, comps, *, pic_w: int, pic_h: int, ctb: int,
   dev = planes[0].device
   if dev.type == "cuda":
     return _sao_cuda(planes, [_grids(sao, c) for c in comps], pic_w=pic_w,
-                     pic_h=pic_h, ctb=ctb, bit_depth=bit_depth, y0=0, halo=0)
+                     pic_h=pic_h, ctb=ctb, bit_depth=bit_depth, y0=0, halo=0,
+                     overlap=overlap and comps[0] != 0)
   if dev.type != "cpu":
     raise ValueError(f"sao: unsupported device {dev}")
   return sao_planes_plain(planes, sao, comps, pic_w=pic_w, pic_h=pic_h,
@@ -192,18 +208,46 @@ def _get_kernel():
         i, i, i, i,         # pic_w, pic_h, ctb, bit_depth
         p, p, p, p,         # type pointers (nch,), strides; band, strides
         p, p, p, p,         # eo pointers, strides; offv pointers, strides
-        i, i, p]            # cbh, cbw, stream
+        i, i, i, p]         # cbh, cbw, flags, stream
+    lib.sao_plan.restype = ctypes.c_int
+    lib.sao_plan.argtypes = [i, i, i, p]  # nch, Hs, Wp, out (6,)
     lib.sao_error_string.restype = ctypes.c_char_p
     lib.sao_error_string.argtypes = [ctypes.c_int]
     _lib = lib
   return _lib
 
 
-def _sao_cuda(planes, grids, *, pic_w, pic_h, ctb, bit_depth, y0, halo):
+# csrc/sao.cu's flags: the launch may overlap the launch before it
+_F_OVERLAP = 1
+
+
+def launch_plan(nch: int, Hs: int, Wp: int):
+  """The kernel's launch for nch planes of Hs x Wp output samples on the
+  current card: tiles, blocks (the persistent grid), resident blocks per
+  SM, tiles per block (the most any block takes), static shared bytes,
+  SMs and threads per block."""
+  lib = _get_kernel()
+  out = (ctypes.c_int * 6)()
+  rc = lib.sao_plan(nch, Hs, Wp, out)
+  if rc != 0:
+    raise RuntimeError(f"sao plan failed: {lib.sao_error_string(rc).decode()}")
+  tiles, blocks, per_sm, smem, sms, threads = out
+  return {"tiles": tiles, "blocks": blocks, "blocks_per_sm": per_sm,
+          "tiles_per_block": -(-tiles // blocks), "smem": smem, "sms": sms,
+          "threads": threads, "tile": TILE}
+
+
+def _sao_cuda(planes, grids, *, pic_w, pic_h, ctb, bit_depth, y0, halo,
+              overlap=False):
   """One launch on the planes' device's current stream into a new
   (nch, He - 2 * halo, Wp) tensor.  grids: per plane (type, band
   position, offsets, EO class), int32 views read through their strides
-  (the planes' grids share their strides and shape)."""
+  (the planes' grids share their strides and shape).  overlap: the
+  launch may start while the luma launch queued just before it runs
+  (csrc/sao.cu; sao_planes says when a caller may ask)."""
+  if ctb < MIN_CTB or ctb & (ctb - 1):
+    raise ValueError(f"sao: CTB of {ctb} samples; the kernel takes a "
+                     f"power of 2 of at least {MIN_CTB}")
   dev = planes[0].device
   He, Wp = planes[0].shape
   for pl in planes:
@@ -238,10 +282,11 @@ def _sao_cuda(planes, grids, *, pic_w, pic_h, ctb, bit_depth, y0, halo):
         ptrs(*(pl.data_ptr() for pl in planes)),
         ptrs(*(pl.stride(0) for pl in planes)), dst.data_ptr(), n, He, Wp,
         halo, y0, pic_w, pic_h, ctb, bit_depth, *grid(0), *grid(1),
-        *grid(3), *grid(2), cbh, cbw,
+        *grid(3), *grid(2), cbh, cbw, _F_OVERLAP if overlap else 0,
         torch.cuda.current_stream(dev).cuda_stream)
   if rc != 0:
     raise RuntimeError("sao kernel launch failed: "
                        f"{lib.sao_error_string(rc).decode()}")
   LAUNCHES["sao"] += 1
+  OVERLAPS["sao"] += bool(overlap)
   return dst

@@ -8,7 +8,9 @@ bits; the chroma scales read through the padded plane's row stride
 the kernel's cap raising; the host table `inv_host` equal to the
 device tables; and (on the card) the CUDA kernels csrc/lmcs.cu against
 the plain versions, the inverse map on every value from -64 to
-2^bd + 64 and on int32 values far outside that range.
+2^bd + 64 and on int32 values far outside that range, on a 1088x1920
+plane and on lengths around the kernel's per-thread and per-block
+chunks.
 
 JAX is imported inside the tests that need it, so that the card, which
 has no JAX, collects the `gpu` tests:
@@ -230,6 +232,42 @@ def test_lmcs_inv_kernel_every_value(cuda, bd, bins):
   plane = big[1:].view(96, 136)
   got = _launched("lmcs_inv", lambda: TL.lmcs_inv(plane, lm, bd))
   assert torch.equal(got, TL.lmcs_inv_plain(plane, lm, bd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bins", BINS, ids=_ids)
+@pytest.mark.parametrize("bd", (8, 10))
+def test_lmcs_inv_kernel_1080p(cuda, bd, bins):
+  """A 1088x1920 luma plane (the frame program's call on full1080): the
+  kernel's one-wave grid, equal to the plain version."""
+  lm = _lmcs(draw_lmcs(bd, bins, seed=bd * 3 + bins[0]), cuda)
+  rng = np.random.default_rng(bd + bins[1])
+  plane = torch.from_numpy(rng.integers(-64, (1 << bd) + 64, (1088, 1920))
+                           .astype(np.int32)).to(cuda)
+  got = _launched("lmcs_inv", lambda: TL.lmcs_inv(plane, lm, bd))
+  assert torch.equal(got, TL.lmcs_inv_plain(plane, lm, bd))
+
+
+# lengths around the kernel's chunks (csrc/lmcs.cu: 4 samples a run,
+# INV_LOADS = 4 runs a thread, 256 threads a block), and one past a
+# whole wave of the card's blocks, whose threads loop
+INV_CHUNK = 4 * 4 * 256
+LENGTHS = (1, 3, 4, 5, 63, INV_CHUNK - 1, INV_CHUNK, INV_CHUNK + 1,
+           INV_CHUNK + 6, 3 * INV_CHUNK + 17, 5_000_003)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", LENGTHS)
+def test_lmcs_inv_kernel_lengths(cuda, n):
+  """Lengths that are not a multiple of a thread's or a block's samples,
+  contiguous and 4 bytes off 16-byte alignment (the scalar path)."""
+  lm = _lmcs(draw_lmcs(10, BINS[2], seed=11), cuda)
+  rng = np.random.default_rng(n)
+  big = torch.from_numpy(rng.integers(-64, (1 << 10) + 64, n + 1)
+                         .astype(np.int32)).to(cuda)
+  for x in (big[:n], big[1:]):
+    got = _launched("lmcs_inv", lambda: TL.lmcs_inv(x, lm, 10))
+    assert torch.equal(got, TL.lmcs_inv_plain(x, lm, 10))
 
 
 @pytest.mark.gpu

@@ -6,8 +6,10 @@ views of one tensor, as deblock leaves them, and as separate tensors),
 every SAO type and EO class, band positions 28-31 (the band index
 wraps), pictures smaller than their padded planes, samples at 0 and at
 the maximum; the band form (a halo row, y0 > 0, zero ring ends); the
-4:0:0 frame's one call; the wrappers' checks; and (on the card) the CUDA
-kernel csrc/sao.cu against the plain version.
+4:0:0 frame's one call; the frame program asking the Cb+Cr call to
+overlap the luma call only when it launches the kernels itself; the
+wrappers' checks; and (on the card) the CUDA kernel csrc/sao.cu against
+the plain version, at 1080p too, overlapped pairs among them.
 
 JAX is imported inside the tests that need it, so that the card, which
 has no JAX, collects the `gpu` tests:
@@ -23,7 +25,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from test_torch_decode import INTRA_CASES, _stream  # noqa: E402
+from test_torch_decode import (INTRA_CASES, TESTDATA, TOOL_CASES,  # noqa: E402
+                               _fixture_md5s, _port_md5s, _read, _stream)
 
 from ffmpeg_tpu_torch.ops import sao as TS  # noqa: E402
 
@@ -33,9 +36,12 @@ BDS = (8, 10, 12)
 LAYOUTS = ("luma", "chroma-views", "chroma-separate")
 # (Hp, Wp, pic_h, pic_w, luma CTB): CTB-aligned planes with smaller
 # pictures, and a plane width that is not a multiple of the CTB (the
-# last CTB column's grid entry covers the rest: the CTB column clamps)
+# last CTB column's grid entry covers the rest: the CTB column clamps);
+# CTB 128 with a picture width that is not a multiple of it (12 CTBs:
+# the kernel's tiles lie inside one CTB, which covers a tile and more)
 SHAPES = [(96, 128, 88, 120, 32), (128, 136, 120, 130, 32),
-          (192, 256, 180, 250, 64), (64, 96, 64, 96, 16)]
+          (192, 256, 180, 250, 64), (64, 96, 64, 96, 16),
+          (384, 512, 380, 500, 128)]
 
 
 def _plane(rng, H, W, bd):
@@ -243,6 +249,47 @@ def test_sao_mono_frame_one_call():
     assert calls == (["luma"] if on else [])
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_sao_planes_overlap_on_cpu_is_plain(layout):
+  """overlap=True, which the frame program passes on its Cb+Cr call, runs
+  the plain version on the CPU: the same result, no launch."""
+  planes, tree, geo = draw(8, SHAPES[1], layout, seed=7)
+  kw = to_call(planes, tree, geo, layout, "cpu")
+  runs, launches = TS.PLAIN_RUNS["sao"], TS.LAUNCHES["sao"]
+  got = TS.sao_planes(**kw, overlap=True)
+  assert TS.PLAIN_RUNS["sao"] == runs + 1 and TS.LAUNCHES["sao"] == launches
+  assert torch.equal(got, TS.sao_planes_plain(**kw))
+
+
+@pytest.mark.parametrize("hooked", [False, True], ids=["session", "hook"])
+def test_frame_program_asks_sao_overlap_without_hook(monkeypatch, hooked):
+  """Launching the kernels itself (the session, through pipeline._launch),
+  the frame program asks every sao Cb+Cr call to overlap the luma call
+  just before it (overlap=True) and no luma call; through a call hook,
+  which may queue work between the two calls, it never asks."""
+  from ffmpeg_tpu_torch.models.vvc import pipeline as P
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+
+  asked = []
+  launch = P._launch
+
+  def spy(name, label, kw):
+    if name == "sao":
+      asked.append((label, kw.get("overlap")))
+    return launch(name, label, kw)
+
+  data = _stream(TOOL_CASES["alf-inter"])
+  if hooked:
+    aus = VVCDecoder(device="cpu")._split_aus(data)
+    frames = sum(1 for _ in P.walk_frames(aus, "cpu", spy))
+  else:
+    monkeypatch.setattr(P, "_launch", spy)
+    frames = len(_port_md5s(data))
+  n = sum(1 for label, _ in asked if label == "luma")
+  assert frames == 4 and n > 0
+  assert asked == [("luma", None), ("chroma", None if hooked else True)] * n
+
+
 BAD = ("three-planes", "comps-mismatch", "meta-device")
 
 
@@ -335,6 +382,97 @@ def test_sao_kernel_mono_frames(cuda):
   before = TS.LAUNCHES["sao"]
   frames = _mono_sao_calls(cuda, check)
   assert TS.LAUNCHES["sao"] - before == sum(on for on, _ in frames) > 0
+
+
+# 1080p planes padded to their CTB: luma, and Cb with Cr as views
+HD = {"ctb32": (1088, 1920, 1080, 1920, 32),
+      "ctb128": (1152, 1920, 1080, 1920, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("luma", "chroma-views"))
+@pytest.mark.parametrize("hd", HD)
+@pytest.mark.parametrize("bd", (8, 10))
+def test_sao_kernel_1080p(cuda, bd, hd, layout):
+  """A 1080p frame's calls at CTB 32 (1088x1920 luma, 544x960 chroma)
+  and CTB 128 (1152x1920, 576x960): every type and EO class."""
+  planes, tree, geo = draw(bd, HD[hd], layout, seed=bd + len(hd))
+  kw = to_call(planes, tree, geo, layout, cuda)
+  typ = tree["type"][..., geo["comps"][0]]
+  assert set(np.unique(typ)) == {0, 1, 2}
+  assert set(np.unique(tree["eo"][..., geo["comps"][0]][typ == 2])) == \
+      {0, 1, 2, 3}
+  got = _launched(lambda: TS.sao_planes(**kw))
+  assert torch.equal(got, TS.sao_planes_plain(**kw))
+
+
+@pytest.mark.gpu
+def test_sao_kernel_overlapped_pairs_on_card(cuda):
+  """20 luma and Cb+Cr call pairs of full1080's first B frame queued back
+  to back on one stream, as the frame program queues them, the Cb+Cr
+  call asking to overlap the luma launch (overlap=True): 20 overlapped
+  launches, each output equal to the plain version's; then the same
+  without the request: none."""
+  from ffmpeg_tpu_torch.tools.deblock_tiles import b_frame_calls
+
+  calls = dict(b_frame_calls(os.path.join(TESTDATA, "full1080.vvc"), "sao"))
+  kl, kc = calls["luma"], calls["chroma"]
+  want = [TS.sao_planes_plain(**kl), TS.sao_planes_plain(**kc)]
+  for overlap in (True, False):
+    torch.cuda.synchronize()
+    TS.OVERLAPS["sao"] = 0
+    outs = [TS.sao_planes(**kw) for _ in range(20)
+            for kw in (kl, dict(kc, overlap=overlap))]
+    torch.cuda.synchronize()
+    assert TS.OVERLAPS["sao"] == (20 if overlap else 0)
+    bad = [i for i, o in enumerate(outs) if not torch.equal(o, want[i % 2])]
+    assert not bad, f"calls {bad} differ"
+
+
+@pytest.mark.gpu
+def test_sao_session_overlaps_on_card(cuda):
+  """The session (no call hook) decodes full1080 to its committed MD5s
+  with 2 sao launches a frame, each frame's Cb+Cr launch overlapping its
+  luma launch: a lost overlap fails here."""
+  TS.LAUNCHES["sao"] = TS.OVERLAPS["sao"] = 0
+  assert _port_md5s(_read("full1080"), device="cuda") == \
+      _fixture_md5s("full1080")
+  assert (TS.LAUNCHES["sao"], TS.OVERLAPS["sao"]) == (10, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [(24, 40, 1), (8, 30, 2), (16, 48, 1)],
+                         ids=lambda b: f"y{b[0]}-h{b[1]}-halo{b[2]}")
+@pytest.mark.parametrize("bd", (8, 12))
+def test_sao_kernel_band_form_across_tiles(cuda, bd, band):
+  """Bands whose first row and height are not multiples of the kernel's
+  tile rows (ops/sao.py TILE), so that halo rows and CTB rows (16) cross
+  tile boundaries; the band's grids start at its first CTB row."""
+  y0, h, halo = band
+  rng = np.random.default_rng(bd + y0)
+  full = _plane(rng, 128, 136, bd)
+  tree = _tree(rng, 8, 8)
+  ctb = 16
+  ext = torch.from_numpy(full[y0 - halo:y0 + h + halo].copy()).to(cuda)
+  grids = [torch.from_numpy(np.ascontiguousarray(tree[k][y0 // ctb:, :, 0]))
+           .to(cuda) for k in ("type", "band", "offv", "eo")]
+  geo = dict(pic_w=130, pic_h=120, ctb=ctb, bit_depth=bd, y0=y0, halo=halo)
+  got = _launched(lambda: TS.sao_rows(ext, *grids, **geo))
+  assert got.shape == (h, 136)
+  assert torch.equal(got, TS.sao_rows_plain(ext, *grids, **geo))
+
+
+@pytest.mark.gpu
+def test_sao_kernel_refuses_small_ctb(cuda):
+  """A CTB below the kernel's smallest (ops/sao.py MIN_CTB), or not a
+  power of 2, raises; nothing is launched."""
+  planes, tree, geo = draw(8, SHAPES[0], "luma", seed=2)
+  kw = to_call(planes, tree, geo, "luma", cuda)
+  before = TS.LAUNCHES["sao"]
+  for ctb in (4, 10):
+    with pytest.raises(ValueError, match="CTB"):
+      TS.sao_planes(**dict(kw, ctb=ctb))
+  assert TS.LAUNCHES["sao"] == before
 
 
 @pytest.mark.gpu
