@@ -9,8 +9,9 @@ Drives ffmpeg_tpu_torch's main paths through the user entry point
     with the full toolset (bench.py FULL_KW: B slices with TMVP,
     affine/PROF, BDOF, DMVR, CIIP, GPM, MMVD, BCW, AMVR, MIP, CCLM, LMCS
     with chroma residual scaling, deblock, SAO, ALF and CC-ALF) through
-    the nine kernels (dmvr, the DMVR search of POC 2, 1 and 3; residual,
-    inter_pred, recon, lmcs_scales, lmcs_inv, deblock, sao, alf);
+    the eight kernels (dmvr, the DMVR search of POC 2, 1 and 3; residual,
+    whose chroma call derives the LMCS chroma scales in its scaled TUs;
+    inter_pred, recon, lmcs_inv, deblock, sao, alf);
   - ra1080: the same without DMVR, LMCS, ALF and CC-ALF;
   - ai720: 4 frames of 1280x720 8-bit all intra, the intra path;
   - ai256x128_10b: 2 frames of 10-bit all intra;
@@ -31,7 +32,8 @@ Phases, one JSON line each:
               residual, recon, inter_pred, deblock, alf, sao, lmcs, dmvr),
               in parallel, from the sources in this checkout; each kernel
               function's registers, shared memory and spills (ptxas; the
-              dmvr kernel's on a line of its own); the sao and lmcs
+              dmvr, residual and lmcs kernels' on lines of their own);
+              the sao and lmcs
               kernels' shared, constant and global loads from their SASS
               (tools/sass_loads.py), in all and in their outermost loop
   3. kernels  each kernel call of the frame program (recorded through
@@ -42,8 +44,8 @@ Phases, one JSON line each:
               kernel's two calls, both passes in one launch, and each
               call's passes alone in its one-pass mode; the alf kernel's
               two calls, luma, then Cb and Cr with CC-ALF; the sao
-              kernel's two calls, luma, then Cb and Cr; the LMCS chroma
-              scales and inverse map; the DMVR search) on the first B frame
+              kernel's two calls, luma, then Cb and Cr; the LMCS inverse
+              map; the DMVR search) on the first B frame
               of full1080 that holds pure inter, CIIP, GPM, BDOF, PROF
               and DMVR units under LMCS with ALF-on CTBs (the inter calls
               carry DMVR windows and the luma forward map; its real,
@@ -57,7 +59,11 @@ Phases, one JSON line each:
               64-edge, 1-high and CIIP-64 unit counts and readiness cell;
               every DMVR search call of the walked fixtures' frames
               (full1080's and ctu128_1080's POC 2, 1 and 3) against the
-              plain version, with its subblocks
+              plain version, with its subblocks; every chroma residual
+              call with LMCS chroma scaling of full1080's and gop720's
+              walks (the kernel deriving each scaled TU's scale from the
+              mapped luma) against the plain pair, the scales
+              (lmcs_vpdu_scales_plain) then the plain chroma residual
   4. decode   each fixture decoded on the card; frame MD5s must equal
               the committed ones (from the JAX package's decode); per
               fixture, counts zeroed just before its decode: every kernel
@@ -70,9 +76,9 @@ Phases, one JSON line each:
               each frame with SAO on, its Cb and Cr launch overlapping its
               luma launch (sao_overlapped, one per such frame),
               lmcs_inv once on each frame with
-              LMCS on and lmcs_scales once on each frame with chroma
-              residual scaling on, the dmvr kernel once on each DMVR
-              frame (the sao, lmcs, lmcs_scales and dmvr spans)
+              LMCS on, the dmvr kernel once on each DMVR frame (the sao,
+              lmcs and dmvr spans; 3 on full1080 and on ctu128_1080), no
+              LMCS chroma scales launch (the counts' lmcs_scales, 0)
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
               with the fetch, full1080 fps at host_threads 1, 4 and 8,
@@ -105,7 +111,7 @@ Phases, one JSON line each:
               kernel's ms per call (its plane fill and each work group's
               launch apart, with each group's TUs, blocks, shared bytes
               and resident blocks per SM; the wrapper's host ms per
-              call beside it), the sao, lmcs_inv and lmcs_scales
+              call beside it), the sao and lmcs_inv
               kernels' ms per call, and the sao pair (the Cb and Cr
               launch overlapping the luma launch, which is the sao row's
               ms in the kernel table) with each call's launch (grid,
@@ -156,35 +162,38 @@ TOOL_FRAMES = (CTU128 + "/I", CTU128 + "/B", "ciip64")
 FIXTURES = (MAIN, "ra1080", "ai720", "ai256x128_10b", CTU128, "ciip64",
             "gop720")
 KERNELS = ("residual", "inter_pred", "recon", "deblock", "alf", "sao",
-           "lmcs_inv", "lmcs_scales", "dmvr")
-# the one-launch filter kernels: SAO, the LMCS inverse map and scales
-FILTERS = ("sao", "lmcs_inv", "lmcs_scales")
-# the CUDA libraries (utils/build.py names): one per kernel, lmcs for both
-# LMCS kernels
+           "lmcs_inv", "dmvr")
+# the one-launch filter kernels: SAO and the LMCS inverse map
+FILTERS = ("sao", "lmcs_inv")
+# the CUDA libraries (utils/build.py names): one per kernel
 LIBS = KERNELS[:6] + ("lmcs", "dmvr")
 # the kernels each fixture's path must launch: every fixture has
 # residuals and deblock on; all but ciip64 SAO; full1080 and gop720 LMCS
-# with chroma residual scaling; ctu128_1080 LMCS without it;
-# full1080, ctu128_1080 and gop720 ALF; full1080 and ctu128_1080 DMVR
-# (POC 2, 1 and 3 of each)
+# with chroma residual scaling (in the chroma residual call);
+# ctu128_1080 LMCS without it; full1080, ctu128_1080 and gop720 ALF;
+# full1080 and ctu128_1080 DMVR (POC 2, 1 and 3 of each)
 NO_ALF = KERNELS[:4]
 INTRA = ("residual", "recon", "deblock", "sao")
 PATH_KERNELS = {MAIN: KERNELS, "ra1080": NO_ALF + ("sao",), "ai720": INTRA,
-                "ai256x128_10b": INTRA,
-                CTU128: KERNELS[:6] + ("lmcs_inv", "dmvr"),
-                "ciip64": NO_ALF, "gop720": KERNELS[:8]}
+                "ai256x128_10b": INTRA, CTU128: KERNELS,
+                "ciip64": NO_ALF, "gop720": KERNELS[:7]}
+# the fixtures whose frames scale chroma residuals by LMCS, and their
+# frames (one scaled chroma residual call each)
+CRS_FIXTURES = {MAIN: 5, "gop720": 9}
+# the DMVR search's launches on each path: one per DMVR frame
+DMVR_LAUNCHES = {MAIN: 3, CTU128: 3}
 # the traced span that counts a path's frames with a filter on (ALF, SAO,
-# LMCS, chroma residual scaling) or with DMVR units, and the kernel's
-# launches per such 4:2:0 frame (luma, then Cb and Cr; or one call)
+# LMCS) or with DMVR units, and the kernel's launches per such 4:2:0
+# frame (luma, then Cb and Cr; or one call)
 FRAME_SPANS = {"alf": ("alf", 2), "sao": ("sao", 2), "lmcs_inv": ("lmcs", 1),
-               "lmcs_scales": ("lmcs_scales", 1), "dmvr": ("dmvr", 1)}
+               "dmvr": ("dmvr", 1)}
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
 GOP_WIDTHS = (1, 2, 4)
 
 # NVIDIA H100 SXM data sheet (dense): the HBM rate, and the int32 rate
 # outside the tensor cores, used for the kernels' least-time bounds (all
-# nine kernels compute in integers): 64 INT32 lanes per SM (half the 128
+# eight kernels compute in integers): 64 INT32 lanes per SM (half the 128
 # FP32 lanes behind the 67e12 float32 rate), a multiply-add counted as two
 # operations: 132 SMs x 64 x 2 x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
@@ -212,7 +221,16 @@ def _counts():
 
   return {"residual": transform, "inter_pred": inter, "recon": recon,
           "deblock": deblock, "alf": alf, "sao": sao, "lmcs_inv": lmcs,
-          "lmcs_scales": lmcs, "dmvr": dmvr}
+          "dmvr": dmvr}
+
+
+def _lmcs_scales_launches():
+  """Launches of an LMCS kernel other than the inverse map: the chroma
+  scales have no launch of their own (the chroma residual call derives
+  them), so any such count is a standalone scales launch."""
+  from ffmpeg_tpu_torch.ops import lmcs
+
+  return sum(v for k, v in lmcs.LAUNCHES.items() if k != "lmcs_inv")
 
 
 def _zero_counts():
@@ -279,7 +297,7 @@ def phase_build():
   sass = _sass_loads()
   emit({"phase": "build", "seconds": time.perf_counter() - t0,
         "seconds_each": times, "ptxas": ptxas, "sass": sass})
-  for k in ("dmvr", "sao", "lmcs"):
+  for k in ("dmvr", "residual", "lmcs"):
     print(f"chip_smoke: build {k}: " + "; ".join(
         f"{fn}: {', '.join(lines)}" for fn, lines in ptxas[k].items()),
         flush=True)
@@ -314,14 +332,15 @@ def _ptxas(lines):
   return out
 
 
-def _walk_calls(name, pick=None, searches=None):
+def _walk_calls(name, pick=None, gathered=None):
   """Walk a fixture's frames through the frame program on the card
   (pipeline.walk_frames), each kernel call running its wrapper.
   pick(fs, host inputs) -> bool marks the frame to keep: returns (fs,
   that frame's kernel calls [(kernel, plane kind, kwargs)], per-frame
   unit records) for the first picked frame (frame 0, and no further
-  walk, without pick).  searches, a list, gathers the kwargs of every
-  DMVR search call of the walk."""
+  walk, without pick).  gathered, a list, gathers (kernel, plane kind,
+  kwargs) of every DMVR search call and every chroma residual call with
+  LMCS chroma scaling (a scales' source) of the walk."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
 
@@ -329,8 +348,9 @@ def _walk_calls(name, pick=None, searches=None):
 
   def record(kernel, label, kw):
     frame_calls.append((kernel, label, kw))
-    if kernel == "dmvr" and searches is not None:
-      searches.append(kw)
+    if gathered is not None and (kernel == "dmvr"
+                                 or kw.get("scale_src") is not None):
+      gathered.append((kernel, label, kw))
     return KERNELS[kernel][0](**kw)
 
   aus = VVCDecoder(device="cuda")._split_aus(_read(name))
@@ -434,30 +454,20 @@ def _bytes_moved(name, kw):
     # and out
     n = kw["ctrl"].shape[1]
     return (_dmvr_samples(kw) + 10 * n + 3 * n) * 4
-  if name == "lmcs_scales":
-    # the distinct samples of the VPDUs' available left columns and top
-    # rows in, the scales out
-    import numpy as np
-
-    nvy, nvx, vsz = *_vpdu_grid(kw), kw["vsz"]
-    al, at = _vpdu_avail(kw)
-    rows = np.minimum(kw["H"] - np.arange(nvy) * vsz, vsz)
-    cols = np.minimum(kw["W"] - np.arange(nvx) * vsz, vsz)
-    read = int((al * rows[:, None]).sum() + (at * cols[None, :]).sum())
-    return (read + nvy * nvx) * 4
   if name == "deblock":   # each plane in and out, each pass's grids in
     return sum(p.numel() * 4 * 2 for p in kw["planes"]) + sum(
         t.numel() * 4 for g in kw["grids_v"] + kw["grids_h"] for t in g)
   if name == "residual":
     # each live TU's rows and coded levels in, the planes written once,
-    # the chroma scales and scaling lists the call reads
+    # the scaling lists the call reads, and for LMCS chroma scaling the
+    # distinct luma samples of the scaled TUs' VPDUs (_scale_reads)
     b = sum(kw["Hp"] * kw["Wp"] * 4 for _ in kw["buckets"])
     for comp in kw["buckets"]:
       for wh in kw["sizes"]:
         n, lv = int(comp[wh]["n"]), comp[wh]["lv"]
         b += n * (comp[wh]["mat"].shape[0] + lv.shape[1] * lv.shape[2]) * 4
-    extra = [kw["chroma_scale"]] + list((kw["sl"] or {}).values())
-    return b + sum(t.numel() * 4 for t in extra if t is not None)
+    b += sum(t.numel() * 4 for t in (kw["sl"] or {}).values())
+    return b + _scale_reads(kw)[1] * 4
   if name == "alf":
     # each padded plane in and out (the padding is copied), for chroma
     # the picture's pre-ALF luma in, the CTB grid and the tables the call
@@ -489,23 +499,39 @@ def _bytes_moved(name, kw):
   return b
 
 
-def _vpdu_grid(kw):
-  """An lmcs_scales call's VPDU rows and columns."""
-  return -(-kw["H"] // kw["vsz"]), -(-kw["W"] // kw["vsz"])
-
-
-def _vpdu_avail(kw):
-  """An lmcs_scales call's per-VPDU availability of the left column and
-  the top row (ops/lmcs.py), as (nvy, nvx) numpy int arrays."""
+def _scale_reads(kw):
+  """A chroma residual call's LMCS chroma scale work, counted from its
+  rows: the distinct VPDUs its scaled TUs (2-D, more than 4 samples)
+  name, and the distinct luma samples of those VPDUs' available left
+  columns and top rows (ops/lmcs.py lmcs_vpdu_scales_plain), as (VPDUs,
+  samples); (0, 0) without a scales' source."""
   import numpy as np
 
-  nvy, nvx = _vpdu_grid(kw)
-  vy = np.arange(nvy) * kw["vsz"]
-  vx = np.arange(nvx) * kw["vsz"]
-  al = (vx > 0) & ~np.isin(vx, kw["tile_bds"][0])
-  at = (vy > 0) & ~np.isin(vy, kw["tile_bds"][1])
-  return (np.broadcast_to(al[None, :], (nvy, nvx)).astype(int),
-          np.broadcast_to(at[:, None], (nvy, nvx)).astype(int))
+  from ffmpeg_tpu_torch.ops.transform import BUCKET_ROWS
+
+  src = kw.get("scale_src")
+  if src is None:
+    return 0, 0
+  H, W = src["luma"].shape
+  vsz, (bx, by) = src["vsz"], src["tile_bds"]
+  k = BUCKET_ROWS.index("vpdu")
+  v = np.unique(np.concatenate([np.zeros(0, np.int64)] + [
+      comp[(w, h)]["mat"][k, :int(comp[(w, h)]["n"])].cpu().numpy()
+      for comp in kw["buckets"] for w, h in kw["sizes"]
+      if w > 1 and h > 1 and w * h > 4]).astype(np.int64))
+  nvx = -(-W // vsz)
+  vy, vx = v // nvx * vsz, v % nvx * vsz
+  al = (vx > 0) & ~np.isin(vx, bx)
+  at = (vy > 0) & ~np.isin(vy, by)
+  samples = al * np.minimum(H - vy, vsz) + at * np.minimum(W - vx, vsz)
+  return len(v), int(samples.sum())
+
+
+def _pivot_scan_ops(lm):
+  """The pivot scan's operations per value: 2 per pivot scanned (the
+  compare and the add), max_bin - min_bin + 1 pivots."""
+  tab = lm["inv_host"]
+  return 2 * (min(int(tab[34]), 15) - max(int(tab[33]), 0) + 1)
 
 
 def _ref_samples(kw):
@@ -667,8 +693,6 @@ def _ops(name, kw):
   lmcs_inv: per sample 2 per pivot scanned (max_bin - min_bin + 1: the
   compare and the add) and about 12 (the bin's test, the multiply, the
   rounding, the shifts, the add and the clip).
-  lmcs_scales: 1 per sample read (the add), per VPDU about 30 (the
-  shuffle sum, the availability, the mean) and 2 per pivot scanned.
   dmvr: counted from the call's rows (_dmvr_ops)."""
   from ffmpeg_tpu_torch.models.vvc.inputs import INTER_KEYS, INTRA_KEYS
 
@@ -678,13 +702,8 @@ def _ops(name, kw):
     return _sao_ops(kw)
   if name == "dmvr":
     return _dmvr_ops(kw)
-  if name in ("lmcs_inv", "lmcs_scales"):
-    tab = kw["lm"]["inv_host"]
-    scan = 2 * (min(int(tab[34]), 15) - max(int(tab[33]), 0) + 1)
-    if name == "lmcs_inv":
-      return kw["x"].numel() * (scan + 12)
-    nvy, nvx = _vpdu_grid(kw)
-    return _bytes_moved(name, kw) // 4 - nvy * nvx + nvy * nvx * (30 + scan)
+  if name == "lmcs_inv":
+    return kw["x"].numel() * (_pivot_scan_ops(kw["lm"]) + 12)
   if name == "alf":
     return _alf_ops(kw)
   if name == "deblock":
@@ -723,7 +742,10 @@ def _residual_ops(kw):
   zero test); per TU outside transform skip its passes' multiply-adds
   (2-D: h x zw x zh for the columns and h x w x zw for the rows; 1-D: n x
   zn), per LFNST TU 16 x N, 2 operations each; per written sample about
-  4 (rounding, shift, store), 8 more on chroma (joint CbCr, LMCS)."""
+  4 (rounding, shift, store), 8 more on chroma (joint CbCr, LMCS); for
+  LMCS chroma scaling, per distinct VPDU of the scaled TUs 1 per luma
+  sample read (the add), about 30 (the sums' reduction, the
+  availability, the mean) and the pivot scan (_scale_reads)."""
   from ffmpeg_tpu_torch.ops.transform import BUCKET_ROWS
 
   k = BUCKET_ROWS.index
@@ -746,6 +768,9 @@ def _residual_ops(kw):
         macs += 16 * (48 if w >= 8 and h >= 8 else 16) * int(
             (m[k("lf_sel")] >= 0).sum())
       total += 6 * n * zh * zw + 2 * macs + per_sample * n * w * h
+  vpdus, samples = _scale_reads(kw)
+  if vpdus:
+    total += samples + vpdus * (30 + _pivot_scan_ops(kw["scale_src"]["lm"]))
   return total
 
 
@@ -863,13 +888,14 @@ def phase_kernels(torch):
   """Every kernel against its plain version on the B frames of full1080
   (with DMVR, LMCS and ALF) and ra1080 with their real references, and
   on the coding-tool frames; recon and deblock on frame 0 of the intra
-  fixtures.  Returns the worst error
-  per kernel and each fixture's checked calls."""
+  fixtures; every DMVR search call and every chroma residual call with
+  LMCS chroma scaling of the walks (gop720's walked for the latter).
+  Returns the worst error per kernel and each fixture's checked calls."""
   out = {"phase": "kernels", "tolerance": 0, "cases": [], "frames": {}}
-  calls, records, searches = {}, {}, {}
+  calls, records, walked = {}, {}, {}
   for name, pick in ((MAIN, _every_tool), ("ra1080", _every_path)):
     fs, calls[name], records[name] = _walk_calls(
-        name, pick, searches.setdefault(name, []))
+        name, pick, walked.setdefault(name, []))
     units = next(r for r in records[name] if r["poc"] == fs.poc)
     out["frames"][name] = {
         **units, "mc_units": {label: {k: len(kw["inter"][k + "_host"])
@@ -898,7 +924,7 @@ def phase_kernels(torch):
                           (CTU128 + "/B", CTU128, _is_b),
                           ("ciip64", "ciip64", _has_ciip64)):
     fs, calls[key], rr = _walk_calls(name, pick,
-                                     searches.setdefault(name, []))
+                                     walked.setdefault(name, []))
     units = next(r for r in rr if r["poc"] == fs.poc)
     units["cell"] = {label: readiness_cell(
         kw["intra"]["mat_host"][:, :int(kw["intra"]["iend_host"][-1])
@@ -918,7 +944,7 @@ def phase_kernels(torch):
     fail("kernels", "the coding-tool frames hold no 64-edge unit, no cell-1 "
          "call or no 64x64 CIIP unit")
   # the SAO and LMCS kernels' calls on the frames that make them
-  filt = {MAIN: ("sao", "sao", "lmcs_inv", "lmcs_scales"),
+  filt = {MAIN: ("sao", "sao", "lmcs_inv"),
           "ra1080": ("sao", "sao"), "ai720": ("sao", "sao"),
           "ai256x128_10b": ("sao", "sao"),
           CTU128 + "/I": ("sao", "sao", "lmcs_inv"),
@@ -931,11 +957,12 @@ def phase_kernels(torch):
     _check_calls(name, calls[name], out, torch)
   # every DMVR search call of the walks (full1080's and ctu128_1080's walk
   # every frame), against the plain version
-  subblocks = {name: [kw["ctrl"].shape[1] for kw in kws]
-               for name, kws in searches.items() if kws}
+  searches = {name: [c for c in cc if c[0] == "dmvr"]
+              for name, cc in walked.items()}
+  subblocks = {name: [kw["ctrl"].shape[1] for _, _, kw in cc]
+               for name, cc in searches.items() if cc}
   for name in subblocks:
-    _check_calls(name + "/searches", [("dmvr", "luma", kw)
-                                      for kw in searches[name]], out, torch)
+    _check_calls(name + "/searches", searches[name], out, torch)
   if sorted(subblocks) != sorted((MAIN, CTU128)):
     fail("kernels", f"DMVR searches recorded on {sorted(subblocks)}, not "
          f"on {MAIN} and {CTU128}")
@@ -943,6 +970,28 @@ def phase_kernels(torch):
   print(f"chip_smoke: kernels dmvr: "
         f"{sum(len(v) for v in subblocks.values())} search calls held "
         f"against the plain version, subblocks {subblocks}", flush=True)
+  # every chroma residual call with LMCS chroma scaling of full1080's and
+  # gop720's walks (every frame), against the plain pair
+  _walk_calls("gop720", _is_b, walked.setdefault("gop720", []))
+  scaled = {name: [c for c in walked.get(name, []) if c[0] == "residual"]
+            for name in CRS_FIXTURES}
+  for name, cc in scaled.items():
+    _check_calls(name + "/scaled", cc, out, torch)
+  out["scaled_chroma_calls"] = {
+      name: [{"vsz": kw["scale_src"]["vsz"],
+              "tus": sum(int(c[wh]["n"]) for c in kw["buckets"]
+                         for wh in kw["sizes"])} for _, _, kw in cc]
+      for name, cc in scaled.items()}
+  if {k: len(v) for k, v in scaled.items()} != CRS_FIXTURES or any(
+      label != "chroma" for cc in scaled.values() for _, label, _ in cc):
+    fail("kernels", "chroma residual calls with LMCS chroma scaling: "
+         f"{ {k: [c[1] for c in v] for k, v in scaled.items()} }, expected "
+         f"one chroma call a frame: {CRS_FIXTURES}")
+  print("chip_smoke: kernels residual chroma with LMCS chroma scaling: "
+        + ", ".join(f"{name} {len(cc)} calls (vsz "
+                    f"{cc[0][2]['scale_src']['vsz']})"
+                    for name, cc in scaled.items())
+        + " held against the plain pair", flush=True)
   worst = {k: max(c["max_abs_err"] for c in out["cases"] if c["kernel"] == k)
            for k in KERNELS}
   out["max_abs_err"] = max(worst.values())
@@ -966,8 +1015,10 @@ def _decode_md5s(name, torch):
 def phase_decode(torch):
   """Each fixture is its own path: the counts are zeroed just before its
   decode and read just after; the decode is traced, so that its alf,
-  sao, lmcs and lmcs_scales spans count the frames with each filter on
-  (FRAME_SPANS).  Returns the launches of each path."""
+  sao, lmcs and dmvr spans count the frames with each filter on or with
+  DMVR units (FRAME_SPANS); the dmvr kernel's launches are
+  DMVR_LAUNCHES', and no standalone LMCS chroma scales launch runs.
+  Returns the launches of each path."""
   from ffmpeg_tpu_torch.utils import trace
 
   res = {"phase": "decode", "fixtures": {}}
@@ -997,6 +1048,7 @@ def phase_decode(torch):
     launches[name]["residual_calls"] = counts["residual"].CALLS["residual"]
     launches[name]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
     launches[name]["sao_overlapped"] = counts["sao"].OVERLAPS["sao"]
+    launches[name]["lmcs_scales"] = _lmcs_scales_launches()
     plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
@@ -1049,6 +1101,12 @@ def phase_decode(torch):
         fail("decode", f"{name}: the {k} kernel was launched "
              f"{launches[name][k]} times for {frames[k]} {span} frames, not "
              f"{per} each")
+    if launches[name]["dmvr"] != DMVR_LAUNCHES.get(name, 0) or \
+        launches[name]["lmcs_scales"]:
+      emit(res)
+      fail("decode", f"{name}: {launches[name]['dmvr']} dmvr launches (want "
+           f"{DMVR_LAUNCHES.get(name, 0)}), {launches[name]['lmcs_scales']} "
+           "standalone LMCS chroma scales launches (want 0)")
   emit(res)
   return launches
 
@@ -1252,7 +1310,7 @@ def _time_inter(kw, torch, reps, rounds):
 
 def _whole_call_runs(name, kw, want, torch, reps):
   """reps calls of a one-launch wrapper (deblock, alf, sao, lmcs_inv,
-  lmcs_scales) on one call's inputs, queued
+  dmvr) on one call's inputs, queued
   behind _hold_card and timed with CUDA events: the launch is the whole
   call (the output is a fresh tensor, no copy).  Every output is held
   against `want`, the plain version's (deblock's shared-memory atomics'
@@ -1298,7 +1356,7 @@ def _residual_runs(kw, want, torch, reps):
 
   dev, classes = _classes(**kw)
   args = {k: kw[k] for k in ("Hp", "Wp", "bit_depth", "chroma",
-                             "chroma_scale", "sl")}
+                             "scale_src", "sl")}
   err = error_word(dev)
   n = len(GROUPS)
 
@@ -1348,7 +1406,7 @@ def _time_residual(kw, torch, reps, rounds):
   want = _plain("residual", kw)
   runs = [_residual_runs(kw, want, torch, reps) for _ in range(rounds)]
   dev, classes = _classes(**kw)
-  plan = launch_plan(classes)
+  plan = launch_plan(classes, kw["scale_src"] is not None)
   call = dict(kw, err=error_word(dev))
   return {"ms": sum(r[0] for r in runs) / rounds,
           "fill_ms": sum(r[1] for r in runs) / rounds,
@@ -1703,6 +1761,11 @@ def phase_profile(torch, card):
   for s0, s1, name in work:
     by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
   top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+  # the chroma scales run inside the chroma residual launches: no device
+  # event of a standalone scales kernel
+  scales = [k for k in by_name if "lmcs_scales" in k]
+  if scales:
+    fail("profile", f"standalone LMCS chroma scales kernels ran: {scales}")
   emit({"phase": "profile", "card": card, "fixture": MAIN, "frames": n,
         "window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
         "device_idle_share": 1 - busy / max(hi - lo, 1e-9),
@@ -1742,8 +1805,9 @@ def _device_window(fn, torch):
   """torch.profiler over fn(): the card's busy ms (the union of its
   kernels' and copies' intervals), the sum of their ms (above the busy
   ms where streams ran at once), their ratio, the idle share of the
-  window, and the caching allocator's new device segments (cudaMalloc
-  calls) during fn."""
+  window, the caching allocator's new device segments (cudaMalloc
+  calls) during fn, and the device events of a standalone LMCS chroma
+  scales kernel (none is left)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
@@ -1765,7 +1829,10 @@ def _device_window(fn, torch):
   return {"window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
           "device_ms_sum": total / 1e3, "allocator_segments_new": segments,
           "concurrency": total / max(busy, 1e-9),
-          "device_idle_share": 1 - busy / max(hi - lo, 1e-9)}
+          "device_idle_share": 1 - busy / max(hi - lo, 1e-9),
+          "lmcs_scales_events": sum(
+              e.device_type == DeviceType.CUDA and "lmcs_scales" in e.name
+              for e in events)}
 
 
 def _tiled_filters(torch):
@@ -1926,11 +1993,13 @@ def phase_parallel(torch, card):
       launches[key] = {k: m.LAUNCHES[k] for k, m in counts.items()}
       launches[key]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
       launches[key]["sao_overlapped"] = counts["sao"].OVERLAPS["sao"]
+      launches[key]["lmcs_scales"] = _lmcs_scales_launches()
       plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
       rec["widths"][width] = {"md5_equal": got == want,
                               "launches": launches[key],
                               "plain_runs": plain}
-      if got != want or any(plain.values()) or not all(
+      if got != want or any(plain.values()) or launches[key][
+          "lmcs_scales"] or not all(
           launches[key][k] > 0 for k in PATH_KERNELS[name]) or \
           2 * launches[key]["alf_overlapped"] != launches[key]["alf"] or \
           2 * launches[key]["sao_overlapped"] != launches[key]["sao"]:
@@ -1958,6 +2027,10 @@ def phase_parallel(torch, card):
     rec["device"] = {w: _device_window(
         lambda w=w: gop._run_waves(frames, inputs, mesh, streams=w), torch)
         for w in (1, max(GOP_WIDTHS))}
+    if any(d["lmcs_scales_events"] for d in rec["device"].values()):
+      emit(out)
+      fail("parallel", f"{name}: standalone LMCS chroma scales kernels ran "
+           "on the wave path")
     print(f"chip_smoke: parallel {name}: fps " + ", ".join(
         f"w{w} {[sc[w]['fps'] for sc in rec['scaling']]} (waves "
         f"{[sc[w]['wave_fps'] for sc in rec['scaling']]})"
@@ -2025,7 +2098,9 @@ KERNEL_INFO = {
     "residual": ("ffmpeg_tpu_torch/csrc/residual.cu",
                  "ffmpeg_tpu/models/vvc/pipeline.py:569,443,332 "
                  "(_residual_from_buckets over _bucket_residuals and "
-                 "_apply_lfnst; XLA, not Pallas)"),
+                 "_apply_lfnst), and in the chroma call 393 "
+                 "(_lmcs_vpdu_scales, called at 1297, folded in: "
+                 "csrc/lmcs_scale.cuh); XLA, not Pallas"),
     "inter_pred": ("ffmpeg_tpu_torch/csrc/inter_pred.cu",
                    "ffmpeg_tpu/models/vvc/pipeline.py:1129 (_pred_blocks "
                    "over _inter_pred_unit; XLA, not Pallas)"),
@@ -2047,9 +2122,6 @@ KERNEL_INFO = {
     "lmcs_inv": ("ffmpeg_tpu_torch/csrc/lmcs.cu",
                  "ffmpeg_tpu/models/vvc/pipeline.py:373 (_lmcs_inv, called "
                  "at 1308; XLA, not Pallas)"),
-    "lmcs_scales": ("ffmpeg_tpu_torch/csrc/lmcs.cu",
-                    "ffmpeg_tpu/models/vvc/pipeline.py:393 "
-                    "(_lmcs_vpdu_scales, called at 1297; XLA, not Pallas)"),
     "dmvr": ("ffmpeg_tpu_torch/csrc/dmvr.cu",
              "ffmpeg_tpu/ops/dmvr.py:48,29 (_unit over _bilin, vmapped by "
              "_refine_jit at 137; XLA, not Pallas)"),

@@ -11,25 +11,31 @@
 // Bound.  The launch: a 1080p DMVR frame has a few hundred to a thousand
 // subblocks, each reading two 21 x 21 windows (3.5 KB) and doing about 20k
 // integer operations, well under a microsecond of the card's bytes or
-// operations.  So the design is simple and keeps everything on chip.
+// operations.  What a launch costs beyond its floor is one subblock's
+// chain of dependent steps, so the design spreads that chain over a block.
 //
-// Design.  One warp per subblock, DMVR_WARPS warps a block.  The warp
-// gathers both lists' 21 x 21 windows into shared memory, each read clamped
-// to the H x W picture (not the padded plane), from the DPB's reference
-// planes in place: their device pointers travel in the parameter block, so
-// nothing is stacked and no index tensor is built.  It computes both 20 x 20
-// predictions into shared memory (rows padded to 24 words, so that the two
-// half-warps' rows fall on disjoint banks in the SAD loop), then the 25
-// SADs: lane (r, c) takes column c and rows r*2, r*2 + 4, ... of the 8
-// subsampled rows, masked by the subblock's w and h, and a warp reduction
-// (__reduce_add_sync) sums each offset.  Lane 0 then biases the centre,
-// takes the argmin of sad * 32 + scan order (the centre first), and runs
-// the parametric step where the best offset is interior.
+// Design.  One block of DMVR_THREADS threads per subblock: a frame's few
+// hundred subblocks are one wave, and a few thousand one or two.  All the
+// block's threads stage both lists' 21 x 21 windows into shared memory
+// with 4-byte cp.async copies, each source clamped to the H x W picture
+// (not the padded plane), from the DPB's reference planes in place (their
+// device pointers travel in the parameter block, so nothing is stacked and
+// no index tensor is built), and wait once.  They compute both 20 x 20
+// predictions into shared memory (rows padded to 24 words, so that the
+// two half-warps' rows fall on disjoint banks in the SAD loop).  The 25
+// SADs are split over the warps, warp w taking offsets w, w + 4, ...: lane
+// (r, c) takes column c and rows r*2, r*2 + 4, ... of the 8 subsampled
+// rows, masked by the subblock's w and h, and a warp reduction
+// (__reduce_add_sync) sums each offset.  Warp 0 then takes the argmin of
+// sad * 32 + scan order (the centre first) by a shuffle reduction, lane k
+// holding offset k's key, and its lanes 0 and 1 run the parametric steps
+// of x and y at once where the best offset is interior.
 //
 // Arithmetic.  The JAX form's int32 arithmetic: products, sums and
 // differences wrap (done in unsigned), right shifts are arithmetic, and a
 // left shift by a negative count (a << (10 - bd) at 12 bits) gives 0, as
-// JAX and torch give it.
+// JAX and torch give it.  The keys sad * 32 + order are distinct (their
+// low 5 bits are the order, 0..24), so the argmin has no ties to break.
 //
 // Build (at first use, ffmpeg_tpu_torch/ops/dmvr.py _get_kernel), as one
 // command:
@@ -37,6 +43,7 @@
 //        -fPIC -DDMVR_MAX_SLOTS=32 -o _build/libdmvr_32.so dmvr.cu
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #ifndef DMVR_MAX_SLOTS
@@ -44,11 +51,13 @@
 #endif
 
 #define DMVR_WARPS 4
+#define DMVR_THREADS (DMVR_WARPS * 32)
 #define SB 16           // subblocks are at most 16 x 16
 #define WIN (SB + 5)    // the bilinear window of a subblock
 #define PRED (WIN - 1)  // the prediction of a subblock and its offsets
 #define PRED_PITCH 24   // words per prediction row in shared memory
 #define N_KEYS 10       // control rows: x y w h mx0 my0 mx1 my1 s0 s1
+#define N_OFFSETS 25
 #define FULL 0xffffffffu
 
 struct Params {
@@ -59,12 +68,6 @@ struct Params {
   const int* ctrl;                    // (N_KEYS, n)
   int* out;                           // (3, n): dmv_x, dmv_y, nobdof
   int n;
-};
-
-struct Warp {
-  int win[2][WIN * WIN];
-  int pred[2][PRED * PRED_PITCH];
-  int sad[25];
 };
 
 // int32 arithmetic that wraps, as torch's and JAX's does
@@ -110,112 +113,128 @@ __device__ int parametric(int sm, int sc, int sp) {
   return denom == 0 ? 0 : q;
 }
 
-__global__ void __launch_bounds__(DMVR_WARPS * 32)
-dmvr_search_kernel(const Params p) {
-  __shared__ Warp warps[DMVR_WARPS];
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * DMVR_WARPS + (threadIdx.x >> 5);
-  if (i >= p.n) return;  // a whole warp leaves together
-  Warp& s = warps[threadIdx.x >> 5];
+// one int from global to shared memory (4 bytes, cp.async); completed by
+// cp.async.wait_all
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__global__ void __launch_bounds__(DMVR_THREADS)
+dmvr_search_kernel(const __grid_constant__ Params p) {
+  __shared__ int win[2][WIN * WIN];
+  __shared__ int pred[2][PRED * PRED_PITCH];
+  __shared__ int sad[N_OFFSETS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = blockIdx.x;
   int c[N_KEYS];
 #pragma unroll
   for (int k = 0; k < N_KEYS; ++k)
     c[k] = __ldg(p.ctrl + (long long)k * p.n + i);
   const int x = c[0], y = c[1], w = c[2], h = c[3];
-  const int s1 = p.bit_depth - 6, o1 = 1 << (s1 - 1);
 
-  // both lists' windows, clamped to the picture; a slot outside the table
-  // (refine_frame checks the rows on the host) is clamped into it
-#pragma unroll
-  for (int l = 0; l < 2; ++l) {
-    const int mvx = c[4 + 2 * l], mvy = c[5 + 2 * l];
-    const int slot = min(max(c[8 + l], 0), p.n_planes - 1);
-    const int* plane = p.planes[slot];
-    const int ox = x + (mvx >> 4) - 2, oy = y + (mvy >> 4) - 2;
-    for (int e = lane; e < WIN * WIN; e += 32) {
-      const int r = e / WIN, q = e - r * WIN;
-      const int yy = min(max(oy + r, 0), p.H - 1);
-      const int xx = min(max(ox + q, 0), p.W - 1);
-      s.win[l][e] = __ldg(plane + yy * p.pitch + xx);
+  // both lists' windows, clamped to the picture, in flight at once; a slot
+  // outside the table (refine_frame checks the rows on the host) is
+  // clamped into it
+  {
+    const int* plane0 = p.planes[min(max(c[8], 0), p.n_planes - 1)];
+    const int* plane1 = p.planes[min(max(c[9], 0), p.n_planes - 1)];
+    const int ox0 = x + (c[4] >> 4) - 2, oy0 = y + (c[5] >> 4) - 2;
+    const int ox1 = x + (c[6] >> 4) - 2, oy1 = y + (c[7] >> 4) - 2;
+    for (int e = tid; e < 2 * WIN * WIN; e += DMVR_THREADS) {
+      const bool l = e >= WIN * WIN;
+      const int f = l ? e - WIN * WIN : e;
+      const int r = f / WIN, q = f - r * WIN;
+      const int yy = min(max((l ? oy1 : oy0) + r, 0), p.H - 1);
+      const int xx = min(max((l ? ox1 : ox0) + q, 0), p.W - 1);
+      cp_async4(&win[l][f], (l ? plane1 : plane0) + yy * p.pitch + xx);
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
-  __syncwarp();
+  __syncthreads();
 
   // the 10-bit bilinear predictions (ops/dmvr.py _bilin)
-#pragma unroll
-  for (int l = 0; l < 2; ++l) {
-    const int mx = c[4 + 2 * l] & 15, my = c[5 + 2 * l] & 15;
-    const int* wn = s.win[l];
-    int* pr = s.pred[l];
-    for (int e = lane; e < PRED * PRED; e += 32) {
-      const int r = e / PRED, q = e - r * PRED;
-      const int* a = wn + r * WIN + q;
-      int v;
-      if (mx == 0 && my == 0) {
-        v = wshl(a[0], 10 - p.bit_depth);
-      } else if (my == 0) {
-        v = tap(a[0], a[1], mx, o1, s1);
-      } else if (mx == 0) {
-        v = tap(a[0], a[WIN], my, o1, s1);
-      } else {
-        const int h0 = tap(a[0], a[1], mx, o1, s1);
-        const int h1 = tap(a[WIN], a[WIN + 1], mx, o1, s1);
-        v = tap(h0, h1, my, 8, 4);
-      }
-      pr[r * PRED_PITCH + q] = v;
+  const int s1 = p.bit_depth - 6, o1 = 1 << (s1 - 1);
+  for (int e = tid; e < 2 * PRED * PRED; e += DMVR_THREADS) {
+    const bool l = e >= PRED * PRED;
+    const int f = l ? e - PRED * PRED : e;
+    const int r = f / PRED, q = f - r * PRED;
+    const int mx = (l ? c[6] : c[4]) & 15, my = (l ? c[7] : c[5]) & 15;
+    const int* a = win[l] + r * WIN + q;
+    int v;
+    if (mx == 0 && my == 0) {
+      v = wshl(a[0], 10 - p.bit_depth);
+    } else if (my == 0) {
+      v = tap(a[0], a[1], mx, o1, s1);
+    } else if (mx == 0) {
+      v = tap(a[0], a[WIN], my, o1, s1);
+    } else {
+      const int h0 = tap(a[0], a[1], mx, o1, s1);
+      const int h1 = tap(a[WIN], a[WIN + 1], mx, o1, s1);
+      v = tap(h0, h1, my, 8, 4);
     }
+    pred[l][r * PRED_PITCH + q] = v;
   }
-  __syncwarp();
+  __syncthreads();
 
-  // the 25 SADs over rows 0, 2, ..., 14 and columns 0..15 of the subblock,
-  // masked by h and w, list 1 at the mirrored offset
+  // the 25 SADs, warp w taking offsets w, w + DMVR_WARPS, ...: over rows
+  // 0, 2, ..., 14 and columns 0..15 of the subblock, masked by h and w,
+  // list 1 at the mirrored offset
   const int col = lane & 15, half = lane >> 4;
   const bool on_col = col < w;
-  for (int dy = 0; dy < 5; ++dy) {
-    for (int dx = 0; dx < 5; ++dx) {
-      const int* a = s.pred[0] + dy * PRED_PITCH + dx + col;
-      const int* b = s.pred[1] + (4 - dy) * PRED_PITCH + (4 - dx) + col;
-      unsigned part = 0;
+  for (int k = warp; k < N_OFFSETS; k += DMVR_WARPS) {
+    const int dy = k / 5, dx = k - 5 * dy;
+    const int* a = pred[0] + dy * PRED_PITCH + dx + col;
+    const int* b = pred[1] + (4 - dy) * PRED_PITCH + (4 - dx) + col;
+    unsigned part = 0;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int row = 2 * half + 4 * k;
-        if (on_col && row < h)
-          part += (unsigned)wabs(wsub(a[row * PRED_PITCH],
-                                      b[row * PRED_PITCH]));
-      }
-      const unsigned total = __reduce_add_sync(FULL, part);
-      if (lane == 0) s.sad[dy * 5 + dx] = (int)total;
+    for (int j = 0; j < 4; ++j) {
+      const int row = 2 * half + 4 * j;
+      if (on_col && row < h)
+        part += (unsigned)wabs(wsub(a[row * PRED_PITCH], b[row * PRED_PITCH]));
+    }
+    const unsigned total = __reduce_add_sync(FULL, part);
+    if (lane == 0) sad[k] = (int)total;
+  }
+  __syncthreads();
+  if (warp) return;
+
+  // warp 0: lane k < 25 holds offset k's SAD (the centre's biased) and
+  // key; the argmin by a shuffle reduction over (key, k)
+  int s = lane < N_OFFSETS ? sad[lane] : 0;
+  if (lane == 12) s = wsub(s, s >> 2);
+  const int order = lane < 12 ? lane + 1 : (lane == 12 ? 0 : lane + 1);
+  int key = lane < N_OFFSETS ? wadd(wmul(s, 32), order) : INT_MAX;
+  int best = lane;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int k2 = __shfl_xor_sync(FULL, key, o);
+    const int b2 = __shfl_xor_sync(FULL, best, o);
+    if (k2 < key || (k2 == key && b2 < best)) {
+      key = k2;
+      best = b2;
     }
   }
-  __syncwarp();
-  if (lane) return;
-
-  int* sad = s.sad;
-  const int center = wsub(sad[12], sad[12] >> 2);
-  sad[12] = center;
+  const int center = __shfl_sync(FULL, s, 12);
   const int area = wmul(w, h);
   const bool run = center >= area;
-  // argmin of sad * 32 + scan order, the centre first (ops/dmvr.py _ORDER)
-  int best = 12, best_key = wmul(center, 32);
-  for (int k = 0; k < 25; ++k) {
-    const int order = k < 12 ? k + 1 : (k == 12 ? 0 : k + 1);
-    const int key = wadd(wmul(sad[k], 32), order);
-    if (key < best_key || (key == best_key && k < best)) {
-      best_key = key;
-      best = k;
-    }
-  }
-  const int min_sad = run ? sad[best] : center;
+  const int min_sad = run ? __shfl_sync(FULL, s, best) : center;
   const int bdy = best / 5, bdx = best - 5 * bdy;
-  int dmv_x = run ? (bdx - 2) * 16 : 0;
-  int dmv_y = run ? (bdy - 2) * 16 : 0;
-  if (run && bdx != 0 && bdx != 4 && bdy != 0 && bdy != 4) {
-    dmv_x += parametric(sad[best - 1], min_sad, sad[best + 1]);
-    dmv_y += parametric(sad[best - 5], min_sad, sad[best + 5]);
+  // lane 0 steps along x, lane 1 along y: the neighbours best -+ step
+  const int step = lane == 0 ? 1 : 5;
+  const int sm = __shfl_sync(FULL, s, max(best - step, 0));
+  const int sp = __shfl_sync(FULL, s, min(best + step, 31));
+  if (lane > 2) return;
+  if (lane == 2) {
+    p.out[2 * p.n + i] = min_sad < wmul(2, area);
+    return;
   }
-  p.out[i] = dmv_x;
-  p.out[p.n + i] = dmv_y;
-  p.out[2 * p.n + i] = min_sad < wmul(2, area);
+  const int whole = ((lane == 0 ? bdx : bdy) - 2) * 16;
+  int dmv = run ? whole : 0;
+  if (run && bdx != 0 && bdx != 4 && bdy != 0 && bdy != 4)
+    dmv += parametric(sm, min_sad, sp);
+  p.out[lane * p.n + i] = dmv;
 }
 
 // The search of n subblocks: planes, n_planes device pointers to
@@ -243,8 +262,7 @@ extern "C" int dmvr_search_launch(const int* const* planes, int n_planes,
   p.ctrl = ctrl;
   p.out = out;
   p.n = n;
-  dmvr_search_kernel<<<(n + DMVR_WARPS - 1) / DMVR_WARPS, DMVR_WARPS * 32, 0,
-                       (cudaStream_t)stream>>>(p);
+  dmvr_search_kernel<<<n, DMVR_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

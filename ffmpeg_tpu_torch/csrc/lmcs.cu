@@ -1,20 +1,19 @@
 // LMCS (luma mapping with chroma scaling) for Hopper: the inverse luma
-// map of a whole plane, and the per-VPDU chroma residual scales.
+// map of a whole plane.  (The per-VPDU chroma residual scales are
+// computed inside the chroma residual launch: lmcs_scale.cuh.)
 //
-// Replaces the JAX package's XLA `_lmcs_inv` and `_lmcs_vpdu_scales`,
-// ffmpeg_tpu/models/vvc/pipeline.py:373,393 (not Pallas), which its
-// frame program runs on the luma plane before the loop filters and on
-// the mapped luma recon before the chroma residuals.  Their oracles are
-// the plain torch versions in ffmpeg_tpu_torch/ops/lmcs.py
-// (lmcs_inv_plain, lmcs_vpdu_scales_plain), bit for bit.
+// Replaces the JAX package's XLA `_lmcs_inv`,
+// ffmpeg_tpu/models/vvc/pipeline.py:373 (not Pallas), which its frame
+// program runs on the luma plane before the loop filters.  Its oracle is
+// the plain torch version in ffmpeg_tpu_torch/ops/lmcs.py
+// (lmcs_inv_plain), bit for bit.
 //
-// Tables.  Both kernels take the frame's tables in their parameter
-// block (the host copy `inv_host` that models/vvc/convert.py keeps:
-// pivot[17], inv_scale[16], min_bin, max_bin, chroma_scale[16]), so a
-// launch reads nothing of the card but its plane.  An inverse-map block
-// copies the (inv_scale[i], pivot[i]) pairs that a sample's bin indexes
-// into shared memory, a pair a thread; a chroma-scales block the pivots
-// and chroma scales (its thread 0).
+// Tables.  The kernel takes the frame's tables in its parameter block
+// (the host copy `inv_host` that models/vvc/convert.py keeps: pivot[17],
+// inv_scale[16], min_bin, max_bin, then chroma_scale[16] where chroma
+// residual scaling is on), so a launch reads nothing of the card but its
+// plane.  A block copies the (inv_scale[i], pivot[i]) pairs that a
+// sample's bin indexes into shared memory, a pair a thread.
 //
 // lmcs_inv.  Bound by bytes: the plane is read once and written once,
 // 16.7 MB for a 1920x1088 luma plane, 0.005 ms at 3.35 TB/s; its
@@ -39,14 +38,6 @@
 // most one wave (the resident blocks the card holds, fewer where the
 // plane is smaller), and its threads stride over the plane.
 //
-// lmcs_scales.  Bound by the launch: 128 samples for each of the 510
-// VPDUs of a 1080p frame.  One warp per VPDU: the lanes sum the left
-// column and the top row (read through the plane's row stride, rows and
-// columns clamped to the picture: the edge replication), a shuffle
-// reduces the sums, and lane 0 scans the pivots and writes the scale.
-// A side in another tile is unavailable: the interior tile boundaries
-// travel in the parameter block, at most LMCS_MAX_BDS a direction.
-//
 // Build (at first use, ffmpeg_tpu_torch/ops/lmcs.py _get_kernel), as one
 // command:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -56,18 +47,14 @@
 #include <limits.h>
 #include <stdint.h>
 
-#define LMCS_MAX_BDS 64  // interior tile boundaries per direction
 #define N_PIVOT 17
 #define N_BINS 16
 #define INV_THREADS 256
 #define INV_LOADS 1  // runs of 4 samples a thread loads a round
-#define SCALE_WARPS 8
-#define FULL 0xffffffffu
 
 struct Tables {
   int pivot[N_PIVOT];
   int inv_scale[N_BINS];
-  int chroma_scale[N_BINS];
   int min_bin, max_bin;
 };
 
@@ -83,42 +70,6 @@ struct InvParams {
   int shift, maxv;  // bit_depth - 4, 2^bit_depth - 1
   bool vec;         // 16-byte loads and stores
 };
-
-struct ScaleParams {
-  Tables t;
-  const int* plane;  // the mapped luma picture, row stride `pitch`
-  long long pitch;
-  int* dst;          // (nvy * nvx,)
-  int W, H, vsz, vsz_log2, nvx, nvy, bit_depth;
-  int n_bx, n_by;
-  int bx[LMCS_MAX_BDS], by[LMCS_MAX_BDS];
-};
-
-// the chroma scales' tables in shared memory: pivot, chroma_scale
-struct Shared {
-  int pivot[N_PIVOT];
-  int chroma_scale[N_BINS];
-};
-
-// constant indices only, so the parameter block is read in place
-__device__ __forceinline__ void load_tables(Shared* s, const Tables& t) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < N_PIVOT; ++j) s->pivot[j] = t.pivot[j];
-#pragma unroll
-    for (int j = 0; j < N_BINS; ++j) s->chroma_scale[j] = t.chroma_scale[j];
-  }
-  __syncthreads();
-}
-
-// min_bin plus the pivots pivot[j + 1], j in [min_bin, max_bin] and in
-// 0..15, that x reaches (ops/lmcs.py _pivot_index)
-__device__ __forceinline__ int pivot_index(int x, const int* pivot, int mb,
-                                           int lo, int hi) {
-  int idx = mb;
-  for (int j = lo; j <= hi; ++j) idx += x >= pivot[j + 1];
-  return idx;
-}
 
 // the inverse map of x, with the pairs (inv_scale[i], pivot[i]) in
 // shared memory
@@ -202,52 +153,11 @@ lmcs_inv_kernel(const InvParams p) {
   }
 }
 
-__global__ void __launch_bounds__(SCALE_WARPS * 32)
-lmcs_scales_kernel(const ScaleParams p) {
-  __shared__ Shared s;
-  load_tables(&s, p.t);
-  const int lane = threadIdx.x & 31;
-  const int v = blockIdx.x * SCALE_WARPS + (threadIdx.x >> 5);
-  if (v >= p.nvx * p.nvy) return;
-  const int vy = (v / p.nvx) * p.vsz, vx = (v % p.nvx) * p.vsz;
-  bool al = vx > 0, at = vy > 0;
-  for (int k = 0; k < p.n_bx; ++k) al = al && vx != p.bx[k];
-  for (int k = 0; k < p.n_by; ++k) at = at && vy != p.by[k];
-  // int32 sums wrap, as torch's do
-  unsigned lsum = 0, tsum = 0;
-  if (al) {
-    const int* col = p.plane + (vx - 1);
-    for (int i = lane; i < p.vsz; i += 32)
-      lsum += (unsigned)__ldg(col + min(vy + i, p.H - 1) * p.pitch);
-  }
-  if (at) {
-    const int* row = p.plane + (long long)(vy - 1) * p.pitch;
-    for (int i = lane; i < p.vsz; i += 32)
-      tsum += (unsigned)__ldg(row + min(vx + i, p.W - 1));
-  }
-  unsigned total = (al ? lsum : 0u) + (at ? tsum : 0u);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
-  if (lane) return;
-  const int cnt = ((int)al + (int)at) * p.vsz;
-  const int cnt_log2 = p.vsz_log2 + (int)(al && at);
-  const int luma = cnt > 0 ? (int)(total + (unsigned)(cnt >> 1)) >> cnt_log2
-                           : 1 << (p.bit_depth - 1);
-  const int mb = p.t.min_bin;
-  const int idx = min(pivot_index(luma, s.pivot, mb, max(mb, 0),
-                                  min(p.t.max_bin, N_BINS - 1)),
-                      N_BINS - 1);
-  p.dst[v] = s.chroma_scale[idx];
-}
-
 static bool set_tables(Tables* t, const int* tab, int n) {
   // pivot[17], inv_scale[16], min_bin, max_bin[, chroma_scale[16]]
   if (!tab || (n != 35 && n != 51)) return false;
   for (int j = 0; j < N_PIVOT; ++j) t->pivot[j] = tab[j];
-  for (int j = 0; j < N_BINS; ++j) {
-    t->inv_scale[j] = tab[N_PIVOT + j];
-    t->chroma_scale[j] = n == 51 ? tab[35 + j] : 0;
-  }
+  for (int j = 0; j < N_BINS; ++j) t->inv_scale[j] = tab[N_PIVOT + j];
   t->min_bin = tab[33];
   t->max_bin = tab[34];
   return true;
@@ -307,41 +217,6 @@ extern "C" int lmcs_inv_launch(const int* src, int* dst, long long n,
       ((n >> 2) + INV_THREADS * INV_LOADS - 1) / (INV_THREADS * INV_LOADS);
   const int blocks = (int)(want < 1 ? 1 : (want > wave ? wave : want));
   lmcs_inv_kernel<<<blocks, INV_THREADS, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The per-VPDU chroma scales of the (H, W) picture at `plane` (row
-// stride `pitch` samples) into dst (nvy * nvx,); bx, by: the interior
-// tile boundaries in luma samples.
-extern "C" int lmcs_scales_launch(const int* plane, long long pitch, int W,
-                                  int H, int vsz, int bit_depth,
-                                  const int* tab, int n_tab, const int* bx,
-                                  int n_bx, const int* by, int n_by, int* dst,
-                                  void* stream) {
-  ScaleParams p{};
-  if (!plane || !dst || W < 1 || H < 1 || pitch < W || vsz < 1
-      || (vsz & (vsz - 1)) || bit_depth < 8 || bit_depth > 16 || n_tab != 51
-      || !set_tables(&p.t, tab, n_tab) || n_bx < 0 || n_by < 0
-      || n_bx > LMCS_MAX_BDS || n_by > LMCS_MAX_BDS || (n_bx && !bx)
-      || (n_by && !by))
-    return (int)cudaErrorInvalidValue;
-  p.plane = plane;
-  p.pitch = pitch;
-  p.dst = dst;
-  p.W = W;
-  p.H = H;
-  p.vsz = vsz;
-  p.vsz_log2 = 31 - __builtin_clz((unsigned)vsz);
-  p.nvx = (W + vsz - 1) / vsz;
-  p.nvy = (H + vsz - 1) / vsz;
-  p.bit_depth = bit_depth;
-  p.n_bx = n_bx;
-  p.n_by = n_by;
-  for (int k = 0; k < n_bx; ++k) p.bx[k] = bx[k];
-  for (int k = 0; k < n_by; ++k) p.by[k] = by[k];
-  const int nv = p.nvx * p.nvy;
-  lmcs_scales_kernel<<<(nv + SCALE_WARPS - 1) / SCALE_WARPS, SCALE_WARPS * 32,
-                       0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

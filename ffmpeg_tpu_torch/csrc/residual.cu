@@ -10,6 +10,9 @@
 // residual_plane, bucket_residuals and apply_lfnst): the same dequant
 // (spec 8.7.3, vvc_intra.c:277-417), LFNST (vvc_intra.c:419-480), passes
 // (vvcdsp.c:94-138), joint-CbCr and LMCS chroma scaling, bit for bit.
+// Since the chroma scales are folded in, the chroma call also replaces
+// the XLA `_lmcs_vpdu_scales` (pipeline.py:393) that fed it: its plain
+// version applies ops/lmcs.py lmcs_vpdu_scales_plain first.
 //
 // Input.  TUs arrive grouped by (w, h) size class, each class a (14, ld)
 // int32 row matrix (ops/transform.py BUCKET_ROWS order, ld >= n columns)
@@ -41,6 +44,23 @@
 // dependent launch).  The passes sum 2 x 2 output tiles per lane, so that
 // each value loaded from shared memory feeds two products.
 //
+// LMCS chroma scaling.  A scaled TU (a chroma call with a scale source, a
+// 2-D TU of more than 4 samples) derives its VPDU's scale in its own lanes
+// (lmcs_scale.cuh): its VPDU index is loaded first, each lane loads its
+// share of the VPDU's left column and top row of mapped luma right after
+// the block's cp.async staging is issued, so that their latency hides
+// under it, and the team sums them by shuffles (the large group: the
+// block, through shared memory).  In the packed groups a run of a block's
+// consecutive TUs in one VPDU (a class's TUs come in decode order, so
+// neighbours often share one) derives the scale once, in its first TU's
+// lanes, and the others read it from shared memory after the barrier.
+// The chroma residual call is the scales' only consumer, so no table of
+// scales is built and no launch of its own runs; the runs that share a
+// VPDU across blocks each read its 64 or 128 samples again from L2.  A
+// TU that is not scaled reads no luma, and each kernel is built twice,
+// with and without the scales' code (SCALED), so that a call without a
+// scale source (luma) runs none of it.
+//
 // Bound.  Every sum is exact in int32: a basis value is at most 91, an
 // input below 2^15, and a pass sums at most 32 coded terms, so
 // |sum| < 32 * 91 * 2^15 < 2^27 (the LFNST's 16 terms of at most 127 stay
@@ -63,7 +83,7 @@
 //
 // Rows out of range.  Torch raises where a row indexes out of range; the
 // kernel checks those rows (a transform kind outside 0..2 where the class
-// uses it, `vpdu` outside the chroma scales, `slid` past the 28 scaling
+// uses it, `vpdu` outside the VPDU grid, `slid` past the 28 scaling
 // lists, a block that leaves the plane, and a dequant shift outside
 // 0..31, whose C shift would be undefined), writes nothing for such a TU,
 // and ORs the failed checks into the frame's error word, which the caller
@@ -83,6 +103,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lmcs_scale.cuh"
 
 #define THREADS 128
 #define MAX_CLASSES 64
@@ -127,13 +149,17 @@ enum {
 #define E_PLACE 8
 #define E_SHIFT 16
 
+// A class in the parameter block.  Its small fields are 16-bit, so that
+// the block (64 classes, the chroma scales' source) stays within the 4 KB
+// that a launch carries inline.
 struct Class {
   const int* mat;  // (14, ld) rows
   const int* lv;   // (ld, zh, zw) levels
-  int w, h, n, ld, plane;
+  int n, ld;
   int first;       // the class's first item (block) in its launch
-  int per;         // TUs per item: 8 (small), 4 (medium) or 1 (large)
-  int band;        // output rows per item: h, or a large class's band
+  short w, h, plane;
+  short per;       // TUs per item: 8 (small), 4 (medium) or 1 (large)
+  short band;      // output rows per item: h, or a large class's band
 };
 
 struct Params {
@@ -142,13 +168,13 @@ struct Params {
   int* out;        // (nch, Hp, Wp), zero-filled
   int* err;        // the error word
   int Hp, Wp, bd, chroma;
-  const int* chroma_scale;  // per-VPDU LMCS scales, or null
-  int n_scale;
+  LmcsScales lm;            // the chroma scales' source (plane null: none)
   const int* sl_rec;        // (28, 8, 8) scaling lists, or null (flat)
   const int* sl_dc;         // (14,)
   const int* tab;
   int toff[NUM_TOFF];
 };
+static_assert(sizeof(Params) <= 4096, "the parameter block outgrew 4 KB");
 
 __host__ __device__ __forceinline__ int ilog2i(int v) {
 #ifdef __CUDA_ARCH__
@@ -296,15 +322,22 @@ __device__ __forceinline__ int find_class(const Params& p, int item) {
   return lo;
 }
 
+// a class's TUs take the LMCS chroma scaling: chroma, a scale source, 2-D
+// and more than 4 samples
+__device__ __forceinline__ bool scaled_class(const Params& p, const Shape& s) {
+  return p.chroma && p.lm.plane && !s.one_d && s.w * s.h > 4;
+}
+
 // the failed checks of one TU's rows (the error word's bits)
 __device__ __forceinline__ int check_rows(const Params& p, const Shape& s,
                                           const int* row) {
-  const bool scaled = p.chroma && p.chroma_scale && !s.one_d && s.w * s.h > 4;
+  const bool scaled = scaled_class(p, s);
   int bad = 0;
   if ((s.uses_v && (unsigned)row[R_TRV] > 2u) ||
       (s.uses_h && (unsigned)row[R_TRH] > 2u))
     bad |= E_KIND;
-  if (scaled && (unsigned)row[R_VPDU] >= (unsigned)p.n_scale) bad |= E_VPDU;
+  if (scaled && (unsigned)row[R_VPDU] >= (unsigned)(p.lm.nvx * p.lm.nvy))
+    bad |= E_VPDU;
   if (p.sl_rec && row[R_SLID] > 27) bad |= E_SLID;
   const int x0 = row[R_X0], y0 = row[R_Y0];
   if (x0 < 0 || y0 < 0 || x0 > p.Wp - s.w || y0 > p.Hp - s.h) bad |= E_PLACE;
@@ -342,6 +375,12 @@ struct Team {
     else
       __syncwarp(mask);
   }
+  // the sum of v over the team's lanes (G < THREADS), in every lane
+  __device__ __forceinline__ unsigned sum(unsigned v) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+    return v;
+  }
 };
 
 // One TU's output rows [r0, r1), by its team: dequant of the coded corner
@@ -349,13 +388,14 @@ struct Team {
 // chroma epilogue, the samples written into the plane.  bv: the vertical
 // basis of the TU's kind, output row y's row at (y - r0) * pv, pv = zh + 1;
 // bh: the horizontal basis of its kind, output column x's row at x * ph,
-// ph = zw + 1; tmp: (r1 - r0) x zw.
-template <int G>
+// ph = zw + 1; tmp: (r1 - r0) x zw; sc: the TU's LMCS chroma scale, where
+// its class is scaled (SCALED: the call has a scale source).
+template <int G, bool SCALED>
 __device__ __forceinline__ void tu_rows(const Params& p, const Team<G>& tm,
                                         const Shape& s, const int* row,
                                         int plane, int* coef, int* tmp,
                                         const int* bv, const int* bh, int r0,
-                                        int r1) {
+                                        int r1, int sc) {
   const int lane = tm.lane, area = s.zh * s.zw;
   const int pv = s.zh + 1, ph = s.zw + 1;
 
@@ -456,8 +496,7 @@ __device__ __forceinline__ void tu_rows(const Params& p, const Team<G>& tm,
   // are bound by shared-memory loads, not by the integer multiply-adds.
   const int band = r1 - r0;
   const int shift2 = 5 + 15 - p.bd;
-  const bool scaled = p.chroma && p.chroma_scale && s.w * s.h > 4;
-  const int sc = scaled ? __ldg(p.chroma_scale + row[R_VPDU]) : 0;
+  const bool scaled = SCALED && scaled_class(p, s);
   int* orow = out + (size_t)r0 * p.Wp;
   if (ts) {
     for (int e = lane; e < band * s.w; e += G) {
@@ -519,9 +558,14 @@ __device__ __forceinline__ void tu_rows(const Params& p, const Team<G>& tm,
 }
 
 // The packed groups: block `item` of a class runs its TUs [i0, i0 + cnt),
-// G lanes each.
-template <int G>
-__global__ void __launch_bounds__(THREADS)
+// G lanes each.  SCALED: the call has a chroma scales' source (the other
+// instance holds no code of the scales).  The scaled instances leave
+// ptxas free to use more registers (a block per SM is all they ask), which
+// ran the chroma call faster on the card than a cap that keeps 10 blocks
+// an SM; the others keep the cap (48 registers), which luma ran fastest
+// with (PERF.md).
+template <int G, bool SCALED>
+__global__ void __launch_bounds__(THREADS, SCALED ? 1 : 10)
     packed_kernel(const __grid_constant__ Params p) {
   constexpr int T = THREADS / G;
   extern __shared__ __align__(16) int sm[];
@@ -538,6 +582,15 @@ __global__ void __launch_bounds__(THREADS)
   int* bv = rows + T * NUM_ROWS;                  // kinds x h x (zh + 1)
   const int kv = kinds_v(s), kh = kinds_h(s);
   int* bh = bv + kv * s.h * (s.zh + 1);           // kinds x w x (zw + 1)
+  // a scaled TU's VPDU index first, so that it is in by the time the
+  // copies below are issued and its luma loads follow at once: lane k < T
+  // of each TU's team loads TU k's
+  const int t = tid / G, lane = tid % G;
+  const unsigned mask = G == 32 ? 0xffffffffu : 0xffffu << (tid & 16);
+  const bool scaled = SCALED && scaled_class(p, s);
+  const int vk = scaled && t < cnt && lane < cnt
+                     ? __ldg(C.mat + (size_t)R_VPDU * C.ld + i0 + lane)
+                     : -1;
 
   // the TUs' rows, their levels (one span) and the DCT2 bases in flight
   // at once; the DST7 and DCT8 bases then only if one of the block's TUs
@@ -549,6 +602,21 @@ __global__ void __launch_bounds__(THREADS)
   copy_span(coef, C.lv + (size_t)i0 * area, cnt * area, tid);
   if (kv) stage(bv, basis(p, 0, s.h), s.h, 0, s.h, s.lzh, tid);
   if (kh) stage(bh, basis(p, 0, s.w), s.w, 0, s.w, s.lzw, tid);
+  // a run of the block's TUs in one VPDU (consecutive TUs of a class are
+  // often neighbours) derives its scale once, in its first TU's lanes,
+  // while the copies fly; every TU of the run reads it after the barrier
+  __shared__ int luma_scale[T];
+  int first = t;
+  if (scaled && t < cnt) {
+    const int vpdu = __shfl_sync(mask, vk, t, G);
+    while (first > 0 && __shfl_sync(mask, vk, first - 1, G) == vpdu) --first;
+    if (first == t) {
+      const Vpdu u = vpdu_at(p.lm, vpdu);
+      const unsigned total =
+          Team<G>{lane, mask}.sum(vpdu_partial<G>(p.lm, u, lane));
+      if (lane == 0) luma_scale[t] = vpdu_scale(p.lm, u, total, p.bd);
+    }
+  }
   cp_async_wait();
   __syncthreads();
   bool mts = false;
@@ -568,27 +636,30 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // from here on each TU's lanes alone: no block barrier
-  const int t = tid / G;
   if (t >= cnt) return;
   const int* row = rows + t * NUM_ROWS;
   const int bad = check_rows(p, s, row);
   if (bad) {
-    if (tid % G == 0) atomicOr(p.err, bad);
+    if (lane == 0) atomicOr(p.err, bad);
     return;
   }
-  const Team<G> tm{tid % G, G == 32 ? 0xffffffffu : 0xffffu << (tid & 16)};
+  const Team<G> tm{lane, mask};
   const int* bvk = bv + (s.uses_v ? row[R_TRV] : 0) * s.h * (s.zh + 1);
   const int* bhk = bh + (s.uses_h ? row[R_TRH] : 0) * s.w * (s.zw + 1);
-  tu_rows<G>(p, tm, s, row, C.plane, coef + t * area,
-             tmp + t * s.h * s.zw, bvk, bhk, 0, s.h);
+  const int sc = scaled ? luma_scale[first] : 0;
+  tu_rows<G, SCALED>(p, tm, s, row, C.plane, coef + t * area,
+                     tmp + t * s.h * s.zw, bvk, bhk, 0, s.h, sc);
 }
 
 // The large group: block `item` runs one band of output rows of one TU,
 // recomputing the TU's dequant (and LFNST) from its coded corner.
+// SCALED: as in packed_kernel.
+template <bool SCALED>
 __global__ void __launch_bounds__(THREADS)
     band_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) int sm[];
   __shared__ int row[NUM_ROWS];
+  __shared__ unsigned luma_sum[THREADS / 32];
   const Overlap overlap;
   const int item = blockIdx.x, tid = threadIdx.x;
   const Class& C = p.cls[find_class(p, item)];
@@ -601,12 +672,24 @@ __global__ void __launch_bounds__(THREADS)
   int* bv = tmp + C.band * s.zw;       // band x (zh + 1)
   int* bh = bv + C.band * (s.zh + 1);  // w x (zw + 1)
 
+  // a scaled TU's VPDU index first (as in packed_kernel)
+  const bool scaled = SCALED && scaled_class(p, s);
+  const int vpdu = scaled ? __ldg(C.mat + (size_t)R_VPDU * C.ld + i) : -1;
+
   // the levels and the DCT2 bases in flight while the rows load; a TU of
   // another kind then restages its bases
   copy_span(coef, C.lv + (size_t)i * area, area, tid);
   stage(bv, basis(p, 0, s.h), s.h, r0, C.band, s.lzh, tid);
   stage(bh, basis(p, 0, s.w), s.w, 0, s.w, s.lzw, tid);
   if (tid < NUM_ROWS) row[tid] = __ldg(C.mat + (size_t)tid * C.ld + i);
+  // a scaled TU's VPDU luma, a sample a thread, summed by warp
+  Vpdu u{0, 0, false, false};
+  if (scaled) {
+    u = vpdu_at(p.lm, vpdu);
+    const unsigned part = __reduce_add_sync(
+        0xffffffffu, vpdu_partial<THREADS>(p.lm, u, tid));
+    if ((tid & 31) == 0) luma_sum[tid >> 5] = part;
+  }
   __syncthreads();
   const int bad = check_rows(p, s, row);
   if (bad) {
@@ -623,9 +706,27 @@ __global__ void __launch_bounds__(THREADS)
   }
   cp_async_wait();
   __syncthreads();
+  int sc = 0;
+  if (scaled) {
+    unsigned total = 0;
+#pragma unroll
+    for (int k = 0; k < THREADS / 32; ++k) total += luma_sum[k];
+    sc = vpdu_scale(p.lm, u, total, p.bd);
+  }
   const Team<THREADS> tm{tid, 0u};
-  tu_rows<THREADS>(p, tm, s, row, C.plane, coef, tmp, bv, bh, r0,
-                   r0 + C.band);
+  tu_rows<THREADS, SCALED>(p, tm, s, row, C.plane, coef, tmp, bv, bh, r0,
+                           r0 + C.band, sc);
+}
+
+// the kernel of a work group, with or without the chroma scales' code
+static const void* kernel_of(int group, bool scaled) {
+  static const void* const fns[3][2] = {
+      {(const void*)packed_kernel<SMALL_LANES, false>,
+       (const void*)packed_kernel<SMALL_LANES, true>},
+      {(const void*)packed_kernel<MEDIUM_LANES, false>,
+       (const void*)packed_kernel<MEDIUM_LANES, true>},
+      {(const void*)band_kernel<false>, (const void*)band_kernel<true>}};
+  return fns[group][scaled];
 }
 
 // One launch of one work group of a call; after: another group of the
@@ -636,14 +737,21 @@ __global__ void __launch_bounds__(THREADS)
 // their items numbered in order from 0 to items - 1; smem: the launch's
 // dynamic shared memory in bytes, at least every class's need and at most
 // the group's budget; out: the zero-filled (nch, Hp, Wp) planes; err: the
-// error word; chroma_scale / sl_rec + sl_dc: device arrays or null; tab +
-// toff: the tables and their offsets.  Returns a cudaError_t, without
-// launching anything when the table is malformed.
+// error word; the chroma scales' source (a chroma call's, or a null
+// lm_plane): the (lm_h, lm_w) mapped luma picture at lm_plane, row stride
+// lm_pitch, the VPDU edge vsz, the host table inv_host (lm_tab, n_tab)
+// and the interior tile boundaries bx, by (set_lmcs_scales); sl_rec +
+// sl_dc: device arrays or null; tab + toff: the tables and their offsets.
+// Returns a cudaError_t, without launching anything when the table or the
+// scale source is malformed.
 extern "C" int residual_launch(int group, int after, const long long* cls,
                                int n_cls, int items, int smem, int* out,
                                int* err,
                                int nch, int Hp, int Wp, int bd, int chroma,
-                               const int* chroma_scale, int n_scale,
+                               const int* lm_plane, long long lm_pitch,
+                               int lm_w, int lm_h, int vsz, const int* lm_tab,
+                               int n_tab, const int* bx, int n_bx,
+                               const int* by, int n_by,
                                const int* sl_rec, const int* sl_dc,
                                const int* tab, const int* toff, int n_toff,
                                void* stream) {
@@ -651,10 +759,13 @@ extern "C" int residual_launch(int group, int after, const long long* cls,
   if (group < G_SMALL || group > G_LARGE || n_cls < 1 ||
       n_cls > MAX_CLASSES || items < 1 || smem < 0 || smem > budget[group] ||
       n_toff != NUM_TOFF || nch < 1 || Hp < 1 || Wp < 1 || bd < 8 ||
-      bd > 12 || !out || !err || !tab || (chroma_scale && n_scale < 1) ||
+      bd > 12 || !out || !err || !tab || (lm_plane && !chroma) ||
       (!sl_rec != !sl_dc))
     return (int)cudaErrorInvalidValue;
   Params p{};
+  if (!set_lmcs_scales(&p.lm, lm_plane, lm_pitch, lm_w, lm_h, vsz, lm_tab,
+                       n_tab, bx, n_bx, by, n_by))
+    return (int)cudaErrorInvalidValue;
   long long total = 0;
   const int per = group == G_LARGE
                       ? 1
@@ -665,14 +776,19 @@ extern "C" int residual_launch(int group, int after, const long long* cls,
     Class& k = p.cls[c];
     k.mat = (const int*)v[0];
     k.lv = (const int*)v[1];
-    k.w = (int)v[2];
-    k.h = (int)v[3];
+    // the 16-bit fields: sides, plane, TUs and rows per item up to 64
+    const int narrow[5] = {2, 3, 6, 8, 9};
+    for (int j = 0; j < 5; ++j)
+      if (v[narrow[j]] < 0 || v[narrow[j]] > 64)
+        return (int)cudaErrorInvalidValue;
+    k.w = (short)v[2];
+    k.h = (short)v[3];
     k.n = (int)v[4];
     k.ld = (int)v[5];
-    k.plane = (int)v[6];
+    k.plane = (short)v[6];
     k.first = (int)v[7];
-    k.per = (int)v[8];
-    k.band = (int)v[9];
+    k.per = (short)v[8];
+    k.band = (short)v[9];
     const bool pow2 = k.w > 0 && k.h > 0 && !(k.w & (k.w - 1)) &&
                       !(k.h & (k.h - 1));
     if (!pow2 || k.w > 64 || k.h > 64 || k.w * k.h < 2 || k.n < 1 ||
@@ -694,8 +810,6 @@ extern "C" int residual_launch(int group, int after, const long long* cls,
   p.Wp = Wp;
   p.bd = bd;
   p.chroma = chroma;
-  p.chroma_scale = chroma_scale;
-  p.n_scale = n_scale;
   p.sl_rec = sl_rec;
   p.sl_dc = sl_dc;
   p.tab = tab;
@@ -710,31 +824,19 @@ extern "C" int residual_launch(int group, int after, const long long* cls,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = after ? 1 : 0;
-  cudaError_t e;
-  if (group == G_SMALL)
-    e = cudaLaunchKernelEx(&cfg, packed_kernel<SMALL_LANES>, p);
-  else if (group == G_MEDIUM)
-    e = cudaLaunchKernelEx(&cfg, packed_kernel<MEDIUM_LANES>, p);
-  else
-    e = cudaLaunchKernelEx(&cfg, band_kernel, p);
+  void* args[] = {&p};
+  const cudaError_t e =
+      cudaLaunchKernelExC(&cfg, kernel_of(group, lm_plane != nullptr), args);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// The resident blocks per SM of a group's kernel at `smem` bytes of
-// dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// or -1 on an error.
-extern "C" int residual_occupancy(int group, int smem) {
+// The resident blocks per SM of a group's kernel (with the chroma scales
+// where scaled) at `smem` bytes of dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+extern "C" int residual_occupancy(int group, int scaled, int smem) {
   int n = -1;
-  cudaError_t e;
-  if (group == G_SMALL)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, packed_kernel<SMALL_LANES>, THREADS, smem);
-  else if (group == G_MEDIUM)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, packed_kernel<MEDIUM_LANES>, THREADS, smem);
-  else
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, band_kernel,
-                                                      THREADS, smem);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernel_of(group, scaled), THREADS, smem);
   return e == cudaSuccess ? n : -1;
 }
 

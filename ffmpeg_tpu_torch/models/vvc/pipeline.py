@@ -9,9 +9,9 @@ form), stage by stage on one device:
   MC batch + DPB refs ──inter kernel──> prediction tiles (P/B frames; the
                                         luma mapped forward under LMCS)
   tiles + intra layout ──recon kernel──> luma (in the LMCS-mapped domain)
-  mapped luma ──LMCS scales kernel──> per-VPDU chroma residual scales
-  chroma buckets ──residual kernel, scaled──> Cb+Cr residual planes (one
-                                             launch for both)
+  chroma buckets + mapped luma ──residual kernel, scaled──> Cb+Cr residual
+       planes (one call for both; each scaled TU derives its VPDU's LMCS
+       chroma scale from the mapped luma around it)
   tiles + intra layout ──recon kernel──> Cb+Cr (CCLM reads the
                                          reconstructed luma)
   luma ──LMCS inverse kernel──> edge grids ──deblock kernel──> V, then H
@@ -37,8 +37,7 @@ from ...ops.deblock import deblock_planes, deblock_planes_plain
 from ...ops.dmvr import (refine_frame, refine_subblocks,
                         refine_subblocks_plain)
 from ...ops.inter import inter_pred, inter_pred_plain_kind
-from ...ops.lmcs import (lmcs_inv, lmcs_inv_plain, lmcs_vpdu_scales,
-                        lmcs_vpdu_scales_plain)
+from ...ops.lmcs import lmcs_inv, lmcs_inv_plain
 from ...ops.recon import recon_plane, recon_plane_plain_kind
 from ...ops.sao import sao_planes, sao_planes_plain
 from ...ops.transform import (error_word, raise_on_error, residual_planes,
@@ -61,7 +60,6 @@ def _sync_for(device):
 KERNELS = {"residual": (residual_planes, residual_planes_plain),
            "inter_pred": (inter_pred, inter_pred_plain_kind),
            "recon": (recon_plane, recon_plane_plain_kind),
-           "lmcs_scales": (lmcs_vpdu_scales, lmcs_vpdu_scales_plain),
            "lmcs_inv": (lmcs_inv, lmcs_inv_plain),
            "deblock": (deblock_planes, deblock_planes_plain),
            "sao": (sao_planes, sao_planes_plain),
@@ -98,10 +96,10 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   dbo/dto: effective deblock beta/tc offsets per component.
   call(kernel name, plane kind, kwargs) -> result runs each kernel call
   of KERNELS, in order: residual of luma, inter_pred of luma then
-  chroma (P/B frames), recon of luma, lmcs_scales of luma (the chroma
-  residual scales, which read the mapped luma recon; frames with chroma
-  residual scaling on), residual of chroma (Cb and Cr together), recon
-  of chroma, lmcs_inv of luma (frames with LMCS on), deblock of luma
+  chroma (P/B frames), recon of luma, residual of chroma (Cb and Cr
+  together; on frames with chroma residual scaling on it reads the
+  mapped luma recon for the scales), recon of chroma, lmcs_inv of luma
+  (frames with LMCS on), deblock of luma
   then chroma (frames with deblock on), sao of luma then chroma (frames
   with SAO on), alf of luma then chroma (frames with ALF on; the chroma
   call reads the pre-ALF luma); a 4:0:0 frame makes only the luma
@@ -129,7 +127,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   call = call or _launch
   err = error_word(device)
 
-  def residual(label, chroma_scale=None):
+  def residual(label, scale_src=None):
     # one call per plane kind; luma's size classes vary with its tools
     # (inputs.py)
     cs = (1, 2) if label == "chroma" else (0,)
@@ -138,7 +136,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
           buckets=[inp["planes"][c]["buckets"] for c in cs],
           sizes=CHROMA_SIZES if cs[0] else list(inp["planes"][0]["buckets"]),
           Hp=Hp_c if cs[0] else Hp_y, Wp=Wp_c if cs[0] else Wp_y,
-          bit_depth=bd, chroma=bool(cs[0]), chroma_scale=chroma_scale,
+          bit_depth=bd, chroma=bool(cs[0]), scale_src=scale_src,
           sl=inp.get("sl"), err=err))
 
   res_y = residual("luma")
@@ -165,15 +163,13 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   # luma first, in the LMCS-mapped domain when LMCS is on
   planes = recon("luma", 0, inp["ctrl"]["y"], res_y)
   if not mono:
-    scale = None
+    src = None
     if lm is not None and "chroma_scale" in lm:
       # chroma residual scaling reads the mapped luma recon around each
       # VPDU, so the chroma residuals wait for it
-      with trace.span("lmcs_scales", sync):
-        scale = call("lmcs_scales", "luma", dict(
-            plane_y=planes[0][:H, :W], lm=lm, W=W, H=H,
-            vsz=min(maxs_y, 64), bit_depth=bd, tile_bds=tile_bds))
-    res_c = residual("chroma", scale)
+      src = dict(luma=planes[0][:H, :W], lm=lm, vsz=min(maxs_y, 64),
+                 tile_bds=tile_bds)
+    res_c = residual("chroma", src)
     cclm = None
     if "cclm_vc" in inp:
       # chroma CCLM reads the reconstructed (mapped) luma: the whole-plane

@@ -14,12 +14,15 @@ inter units reconstruct in the mapped domain, chroma residuals are scaled
 per VPDU from the mapped luma around it, and the whole luma plane is
 mapped back before the loop filters.
 
-`lmcs_inv` and `lmcs_vpdu_scales` are the frame program's entry points:
-on a CUDA tensor each launches its kernel (csrc/lmcs.cu, the tables in
-the parameter block from `inv_host`, so neither wrapper reads the
-card), on a CPU tensor it runs its plain version (`lmcs_inv_plain`,
-`lmcs_vpdu_scales_plain`: int32 torch ops, the kernels' oracles);
-nothing falls back from one to the other.
+`lmcs_inv` is the frame program's entry point for the inverse map: on
+a CUDA tensor it launches its kernel (csrc/lmcs.cu, the tables in the
+parameter block from `inv_host`, so the wrapper reads nothing of the
+card), on a CPU tensor it runs its plain version (`lmcs_inv_plain`:
+int32 torch ops, the kernel's oracle); nothing falls back from one to
+the other.  The chroma residual scales have no entry point of their
+own: the chroma residual call computes each scaled TU's scale
+(ops/transform.py residual_planes, csrc/lmcs_scale.cuh), and
+`lmcs_vpdu_scales_plain` is their plain version.
 """
 from __future__ import annotations
 
@@ -33,11 +36,11 @@ _I32 = torch.int32
 
 # launches of the CUDA kernels and runs of the plain versions: plain
 # integer counters a caller may reset to 0 and read back
-LAUNCHES = {"lmcs_inv": 0, "lmcs_scales": 0}
-PLAIN_RUNS = {"lmcs_inv": 0, "lmcs_scales": 0}
+LAUNCHES = {"lmcs_inv": 0}
+PLAIN_RUNS = {"lmcs_inv": 0}
 
-# interior tile boundaries per direction that the chroma scales kernel
-# takes in its parameter block (csrc/lmcs.cu LMCS_MAX_BDS)
+# interior tile boundaries per direction that the chroma residual kernel
+# takes in its parameter block (csrc/lmcs_scale.cuh LMCS_MAX_BDS)
 MAX_TILE_BDS = 64
 # inv_host: pivot (17), inv_scale (16), min_bin, max_bin, then
 # chroma_scale (16) when chroma residual scaling is on
@@ -97,36 +100,19 @@ def lmcs_inv_plain(x: torch.Tensor, lm: dict, bit_depth: int) -> torch.Tensor:
   return seg.clamp(0, (1 << bit_depth) - 1)
 
 
-def lmcs_vpdu_scales(plane_y: torch.Tensor, lm: dict, W: int, H: int,
-                     vsz: int, bit_depth: int,
-                     tile_bds=((), ())) -> torch.Tensor:
+def lmcs_vpdu_scales_plain(plane_y: torch.Tensor, lm: dict, W: int, H: int,
+                           vsz: int, bit_depth: int,
+                           tile_bds=((), ())) -> torch.Tensor:
   """Per-VPDU chroma residual scale factors from the mapped luma recon
   (lmcs_derive_chroma_scale, vvc_intra_template.c:390-428): the mean of
   the VPDU's outside-left column and outside-top row (edge-replicated to
   vsz samples within the picture), mapped through the pivot scan.  A
   neighbour in another tile is unavailable (ff_vvc_get_top/left_available).
   plane_y: the (H, W) picture of mapped luma, which may be a view of the
-  padded plane (its rows are read through its row stride).  tile_bds:
-  the interior tile boundaries (columns, rows) in luma samples, at most
-  MAX_TILE_BDS each (more raise ValueError).  Returns the flat
-  (nvy * nvx,) int32 scales, indexed by a TU's `vpdu` row.  A CUDA
-  tensor launches the kernel; a CPU tensor runs lmcs_vpdu_scales_plain."""
-  if any(len(b) > MAX_TILE_BDS for b in tile_bds):
-    raise ValueError(f"lmcs_vpdu_scales: {[len(b) for b in tile_bds]} "
-                     f"tile boundaries, at most {MAX_TILE_BDS} a direction")
-  dev = plane_y.device
-  if dev.type == "cuda":
-    return _scales_cuda(plane_y, lm, W, H, vsz, bit_depth, tile_bds)
-  if dev.type != "cpu":
-    raise ValueError(f"lmcs_vpdu_scales: unsupported device {dev}")
-  return lmcs_vpdu_scales_plain(plane_y, lm, W, H, vsz, bit_depth, tile_bds)
-
-
-def lmcs_vpdu_scales_plain(plane_y: torch.Tensor, lm: dict, W: int, H: int,
-                           vsz: int, bit_depth: int,
-                           tile_bds=((), ())) -> torch.Tensor:
-  """lmcs_vpdu_scales's plain version, with its arguments and result."""
-  PLAIN_RUNS["lmcs_scales"] += 1
+  padded plane; tile_bds: the interior tile boundaries (columns, rows) in
+  luma samples.  Returns the flat (nvy * nvx,) int32 scales, indexed by a
+  TU's `vpdu` row: the plain version of the scales that the chroma
+  residual kernel derives per TU (csrc/lmcs_scale.cuh)."""
   dev = plane_y.device
   nvx, nvy = -(-W // vsz), -(-H // vsz)
   vy = torch.arange(nvy, dtype=torch.long, device=dev) * vsz
@@ -170,22 +156,17 @@ def _get_kernel():
     lib.lmcs_inv_launch.argtypes = [
         p, p, ll,           # src, dst, samples
         p, i, i, p]         # tables, their length, bit_depth, stream
-    lib.lmcs_scales_launch.restype = ctypes.c_int
-    lib.lmcs_scales_launch.argtypes = [
-        p, ll, i, i, i, i,  # plane, row stride, W, H, vsz, bit_depth
-        p, i,               # tables, their length
-        p, i, p, i,         # tile columns, their count, tile rows, count
-        p, p]               # dst, stream
     lib.lmcs_error_string.restype = ctypes.c_char_p
     lib.lmcs_error_string.argtypes = [ctypes.c_int]
     _lib = lib
   return _lib
 
 
-def _table(lm: dict, name: str, crs: bool):
+def host_table(lm: dict, name: str, crs: bool):
   """lm's `inv_host` as a ctypes array and its length; raises
-  ValueError when it is missing or malformed (the kernels read nothing
-  else of the tree)."""
+  ValueError when it is missing or malformed, or (crs: for the chroma
+  scales) lacks the chroma scales or has a negative min_bin (the kernels
+  read nothing else of the tree)."""
   if "inv_host" not in lm:
     raise ValueError(f"{name}: the LMCS tree has no inv_host table "
                      "(models/vvc/convert.py _lmcs)")
@@ -210,7 +191,7 @@ def _inv_cuda(x, lm, bit_depth):
   if x.dtype != _I32 or not x.is_contiguous():
     raise ValueError(f"lmcs_inv: expected a contiguous int32 tensor, got "
                      f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
-  tab, n_tab = _table(lm, "lmcs_inv", False)
+  tab, n_tab = host_table(lm, "lmcs_inv", False)
   lib = _get_kernel()
   dst = torch.empty_like(x)
   with torch.cuda.device(x.device):
@@ -221,29 +202,3 @@ def _inv_cuda(x, lm, bit_depth):
   LAUNCHES["lmcs_inv"] += 1
   return dst
 
-
-def _scales_cuda(plane_y, lm, W, H, vsz, bit_depth, tile_bds):
-  """One launch on the plane's device's current stream into a new
-  (nvy * nvx,) tensor; the plane is read through its row stride."""
-  if plane_y.dtype != _I32 or plane_y.dim() != 2 \
-      or plane_y.stride(1) != 1 or plane_y.shape[0] < H \
-      or plane_y.shape[1] < W:
-    raise ValueError("lmcs_vpdu_scales: expected an int32 (H, W) plane "
-                     "with unit column stride, got "
-                     f"{plane_y.dtype} {tuple(plane_y.shape)} strides "
-                     f"{plane_y.stride()}")
-  if vsz < 1 or vsz & (vsz - 1):
-    raise ValueError(f"lmcs_vpdu_scales: vsz {vsz} is not a power of 2")
-  tab, n_tab = _table(lm, "lmcs_vpdu_scales", True)
-  bx, by = ((ctypes.c_int * max(len(b), 1))(*b) for b in tile_bds)
-  lib = _get_kernel()
-  dev = plane_y.device
-  dst = torch.empty(-(-W // vsz) * -(-H // vsz), dtype=_I32, device=dev)
-  with torch.cuda.device(dev):
-    rc = lib.lmcs_scales_launch(
-        plane_y.data_ptr(), plane_y.stride(0), W, H, vsz, bit_depth, tab,
-        n_tab, bx, len(tile_bds[0]), by, len(tile_bds[1]), dst.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-  _raise_on(rc, lib, "lmcs_vpdu_scales")
-  LAUNCHES["lmcs_scales"] += 1
-  return dst

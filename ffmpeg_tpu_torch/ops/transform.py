@@ -16,14 +16,19 @@ columns are sliced to it), and both at once.  Explicit scaling lists
 replace the flat dequant factor 16 with a per-coefficient factor.
 
 `residual_planes` is the frame program's entry point: one call for the
-luma plane, one for the Cb and Cr planes together.  A CUDA tensor
-launches the kernel (csrc/residual.cu: up to three launches per call,
-one per work group of `work_split`, int32 sums, each TU written once
-into a zero-filled plane; rows out of range set the frame's error word,
-which the caller reads, `raise_on_error`, before it hands the frame
-out); a CPU tensor runs the plain version, `residual_planes_plain`,
-composed of `residual_plane` per component (the ports of the JAX
-functions below, and the kernel's oracle).
+luma plane, one for the Cb and Cr planes together.  A chroma call under
+LMCS chroma residual scaling takes the scales' source (the mapped luma
+picture, the LMCS tree, the VPDU edge and the tile boundaries), and
+each scaled TU's scale is derived from it inside the call.  A CUDA
+tensor launches the kernel (csrc/residual.cu: up to three launches per
+call, one per work group of `work_split`, int32 sums, each TU written
+once into a zero-filled plane, each scaled TU computing its VPDU's scale
+in its own lanes; rows out of range set the frame's error word, which
+the caller reads, `raise_on_error`, before it hands the frame out); a
+CPU tensor runs the plain version, `residual_planes_plain`: the scales
+by ops/lmcs.py lmcs_vpdu_scales_plain, then `residual_plane` per
+component (the ports of the JAX functions below, and the kernel's
+oracle).
 
 CUDA torch has no integer matrix product, so the plain version's
 products run in float64.  That is exact: every basis value is at most
@@ -42,6 +47,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .lmcs import MAX_TILE_BDS, host_table, lmcs_vpdu_scales_plain
 from .tables import VVC_TABLES as _TABLES
 from .tables import on_device
 
@@ -227,7 +233,7 @@ def bucket_residuals(b: dict, w: int, h: int, bit_depth: int,
   int32 residual blocks (bucket_view rows in, live rows only; the level
   blocks are the coded (min(h, 32), min(w, 32)) corner).
   chroma_scale, when given, is the flat per-VPDU LMCS scale array
-  (ops/lmcs.py lmcs_vpdu_scales), applied to chroma TBs of more than 4
+  (ops/lmcs.py lmcs_vpdu_scales_plain), applied to chroma TBs of more than 4
   samples by their `vpdu` row (itransform, vvc_intra.c:449-475).
   sl: the frame's explicit scaling lists {"rec": (28, 8, 8), "dc": (14,)}
   int32, or None (flat)."""
@@ -321,7 +327,7 @@ def residual_plane(buckets: dict, Hp: int, Wp: int, bit_depth: int, sizes,
 
 # the kernel's error word: the rows it found out of range, by bit
 ERRORS = {1: "a transform kind outside 0..2",
-          2: "a vpdu outside the chroma scales",
+          2: "a vpdu outside the VPDU grid",
           4: "a scaling-list id past 27",
           8: "a block that leaves the plane",
           16: "a dequant shift outside 0..31"}
@@ -417,17 +423,21 @@ def work_split(counts) -> list:
   return out
 
 
-def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl,
+# the largest VPDU edge (csrc/lmcs_scale.cuh LMCS_MAX_VSZ)
+MAX_VSZ = 64
+
+
+def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, scale_src, sl,
              err=None):
   """Check a call's inputs, on every device, and list its non-empty
   classes for the kernel: (component, w, h, bucket).  Per component a
   bucket per size, whose (14, ld) row matrix and (ld, zh, zw) levels are
   contiguous int32 tensors of at least n columns and blocks on one
-  device; one component for luma, two for chroma; the chroma scales (a
-  chroma call's only) and the scaling lists ({"rec": (28, 8, 8), "dc":
-  (14,)}) contiguous int32 on that device; 8 to 12 bits; the error word,
-  where given, one int32 on that device.  Raises ValueError on anything
-  else: nothing is copied or converted."""
+  device; one component for luma, two for chroma; the chroma scales'
+  source (a chroma call's only; _check_scale_src) and the scaling lists
+  ({"rec": (28, 8, 8), "dc": (14,)}) contiguous int32 on that device; 8
+  to 12 bits; the error word, where given, one int32 on that device.
+  Raises ValueError on anything else: nothing is copied or converted."""
   def bad(msg):
     raise ValueError(f"residual: {msg}")
 
@@ -459,35 +469,58 @@ def _classes(buckets, sizes, Hp, Wp, bit_depth, chroma, chroma_scale, sl,
             f"{lv.dtype} {tuple(lv.shape)} on {mat.device}, {lv.device}")
       if n:
         out.append((c, w, h, b))
-  extra = {}
-  if chroma_scale is not None:
+  if scale_src is not None:
     if not chroma:
-      bad("chroma scales go with a chroma call")
-    extra["chroma_scale"] = (chroma_scale, None)
+      bad("a chroma scales' source goes with a chroma call")
+    _check_scale_src(scale_src, dev, bad)
+  extra = {}
   if sl is not None:
     extra.update(rec=(sl["rec"], (28, 8, 8)), dc=(sl["dc"], (14,)))
   if err is not None:
     extra["err"] = (err, (1,))
   for k, (t, shape) in extra.items():
     if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev \
-        or (shape is None and (t.dim() != 1 or not t.numel())) \
-        or (shape is not None and tuple(t.shape) != shape):
-      bad(f"{k}: expected contiguous int32 {shape or '1-D'} on {dev}, got "
+        or tuple(t.shape) != shape:
+      bad(f"{k}: expected contiguous int32 {shape} on {dev}, got "
           f"{t.dtype} {tuple(t.shape)} on {t.device}")
   return dev, out
 
 
+def _check_scale_src(src, dev, bad):
+  """The chroma scales' source {"luma": the (H, W) mapped luma picture,
+  int32 with unit column stride (a view of its padded plane), "lm": the
+  LMCS tree with its host table inv_host and chroma scales, "vsz": the
+  VPDU edge, a power of 2 up to MAX_VSZ, "tile_bds": the interior tile
+  boundaries (columns, rows) in luma samples, at most MAX_TILE_BDS a
+  direction}; bad(msg) raises, and so does host_table."""
+  luma, vsz, bds = src["luma"], src["vsz"], src["tile_bds"]
+  if luma.dtype != torch.int32 or luma.dim() != 2 or not luma.numel() \
+      or luma.stride(1) != 1 or luma.device != dev:
+    bad(f"luma: expected an int32 (H, W) picture with unit column stride "
+        f"on {dev}, got {luma.dtype} {tuple(luma.shape)} strides "
+        f"{luma.stride()} on {luma.device}")
+  if not 1 <= vsz <= MAX_VSZ or vsz & (vsz - 1):
+    bad(f"vsz {vsz} is not a power of 2 up to {MAX_VSZ}")
+  if len(bds) != 2 or any(len(b) > MAX_TILE_BDS for b in bds):
+    bad(f"{[len(b) for b in bds]} tile boundaries, at most {MAX_TILE_BDS} "
+        "a direction")
+  host_table(src["lm"], "residual", True)
+
+
 def residual_planes(*, buckets, sizes, Hp: int, Wp: int, bit_depth: int,
-                    chroma: bool, chroma_scale=None, sl=None, err=None):
+                    chroma: bool, scale_src=None, sl=None, err=None):
   """The residual planes of one call of the frame program: luma, or Cb
   and Cr together.
 
   buckets: per component (one for luma, Cb and Cr for chroma) the
   converted size classes {(w, h): {"mat": (14, ld) int32 rows in
   BUCKET_ROWS order, "lv": (ld, min(h, 32), min(w, 32)) int32 levels,
-  "n": live TUs}}; sizes: the classes to run, in order.  chroma_scale:
-  the per-VPDU LMCS scales (chroma only), sl: the explicit scaling lists,
-  as in bucket_residuals.  err: the frame's error word (`error_word`),
+  "n": live TUs}}; sizes: the classes to run, in order.  scale_src: the
+  LMCS chroma scales' source (chroma only: {"luma", "lm", "vsz",
+  "tile_bds"}, _check_scale_src), from which each chroma TB of more than
+  4 samples takes its VPDU's scale (its `vpdu` row indexes the VPDU grid
+  of the luma picture); sl: the explicit scaling lists, as in
+  bucket_residuals.  err: the frame's error word (`error_word`),
   required on the card.  Returns (nch, Hp, Wp) int32, zero outside the
   TUs.  A CUDA tensor launches the kernel and returns at once, without
   reading anything back: a TU whose rows are out of range writes nothing
@@ -496,29 +529,36 @@ def residual_planes(*, buckets, sizes, Hp: int, Wp: int, bit_depth: int,
   which raises at once on such rows (`err` stays 0); nothing falls back
   from one to the other."""
   dev, classes = _classes(buckets, sizes, Hp, Wp, bit_depth, chroma,
-                          chroma_scale, sl, err)
+                          scale_src, sl, err)
   if dev.type == "cuda":
     if err is None:
       raise ValueError("residual: a call on the card needs the frame's "
                        "error word (err)")
     return _residual_launch(dev, classes, nch=len(buckets), Hp=Hp, Wp=Wp,
                             bit_depth=bit_depth, chroma=chroma,
-                            chroma_scale=chroma_scale, sl=sl, err=err)
+                            scale_src=scale_src, sl=sl, err=err)
   if dev.type != "cpu":
     raise ValueError(f"residual: unsupported device {dev}")
   return residual_planes_plain(buckets=buckets, sizes=sizes, Hp=Hp, Wp=Wp,
                                bit_depth=bit_depth, chroma=chroma,
-                               chroma_scale=chroma_scale, sl=sl)
+                               scale_src=scale_src, sl=sl)
 
 
 def residual_planes_plain(*, buckets, sizes, Hp: int, Wp: int,
-                          bit_depth: int, chroma: bool, chroma_scale=None,
+                          bit_depth: int, chroma: bool, scale_src=None,
                           sl=None, err=None):
-  """residual_planes's plain version, with its arguments and result:
-  residual_plane per component.  Rows out of range raise at once (torch's
-  indexing); `err` is not written."""
+  """residual_planes's plain version, with its arguments and result: the
+  chroma scales from their source (lmcs_vpdu_scales_plain), then
+  residual_plane per component.  Rows out of range raise at once
+  (torch's indexing); `err` is not written."""
   PLAIN_RUNS["residual"] += 1
   dev = buckets[0][sizes[0]]["mat"].device
+  chroma_scale = None
+  if scale_src is not None:
+    luma = scale_src["luma"]
+    chroma_scale = lmcs_vpdu_scales_plain(
+        luma, scale_src["lm"], luma.shape[1], luma.shape[0],
+        scale_src["vsz"], bit_depth, scale_src["tile_bds"])
   return torch.stack([residual_plane(b, Hp, Wp, bit_depth, sizes, chroma,
                                      dev, chroma_scale, sl)
                       for b in buckets])
@@ -553,8 +593,10 @@ def _table_blob():
   return np.concatenate(parts), np.asarray(toff, np.int32)
 
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "residual.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_SRC = os.path.join(_CSRC, "residual.cu")
+_HEADERS = (os.path.join(_CSRC, "lmcs_scale.cuh"),)
 _lib = None
 
 
@@ -563,7 +605,7 @@ def _get_kernel():
   if _lib is None:
     from ..utils.build import build_cuda
 
-    lib = ctypes.CDLL(build_cuda("residual", [_SRC]))
+    lib = ctypes.CDLL(build_cuda("residual", [_SRC], headers=_HEADERS))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.residual_launch.restype = ctypes.c_int
     lib.residual_launch.argtypes = [
@@ -571,30 +613,49 @@ def _get_kernel():
                             # items, smem
         p, p,               # planes, error word
         i, i, i, i, i,      # nch, Hp, Wp, bit_depth, chroma
-        p, i, p, p,         # chroma scales, their count, sl rec, sl dc
+        p, ctypes.c_longlong,  # the scales' luma picture, its row stride
+        i, i, i, p, i,      # its W, H, vsz, inv_host and its length
+        p, i, p, i,         # tile columns, their count, tile rows, count
+        p, p,               # sl rec, sl dc
         p, p, i, p]         # tables, their offsets, offset count, stream
     lib.residual_occupancy.restype = ctypes.c_int
-    lib.residual_occupancy.argtypes = [i, i]
+    lib.residual_occupancy.argtypes = [i, i, i]
     lib.residual_error_string.restype = ctypes.c_char_p
     lib.residual_error_string.argtypes = [ctypes.c_int]
     _lib = lib
   return _lib
 
 
-def launch_plan(classes) -> list:
-  """The launches of a call (_classes's list), without launching: per
-  group of GROUPS its work_split entry with its TUs, and on the card the
-  kernel's resident blocks per SM at its shared memory."""
+def launch_plan(classes, scaled=False) -> list:
+  """The launches of a call (_classes's list; scaled: a chroma call with
+  the scales' source), without launching: per group of GROUPS its
+  work_split entry with its TUs, and on the card the kernel's resident
+  blocks per SM at its shared memory."""
   split = work_split([(w, h, int(b["n"])) for _, w, h, b in classes])
   for g, grp in enumerate(split):
     grp["tus"] = sum(int(classes[k][3]["n"]) for k, *_ in grp["classes"])
     if grp["items"] and _lib is not None:
-      grp["blocks_per_sm"] = _lib.residual_occupancy(g, grp["smem"])
+      grp["blocks_per_sm"] = _lib.residual_occupancy(g, int(scaled),
+                                                     grp["smem"])
   return split
 
 
+def _scale_args(src):
+  """The kernel's arguments for a chroma scales' source (None: no
+  scaling): the luma picture's pointer and row stride, W, H, vsz, the
+  table inv_host and its length, the tile columns and rows and their
+  counts."""
+  if src is None:
+    return (None, 0, 0, 0, 0, None, 0, None, 0, None, 0)
+  luma, bds = src["luma"], src["tile_bds"]
+  tab, n_tab = host_table(src["lm"], "residual", True)
+  bx, by = ((ctypes.c_int * max(len(b), 1))(*b) for b in bds)
+  return (luma.data_ptr(), luma.stride(0), luma.shape[1], luma.shape[0],
+          src["vsz"], tab, n_tab, bx, len(bds[0]), by, len(bds[1]))
+
+
 def _residual_launch(dev, classes, *, nch, Hp, Wp, bit_depth, chroma,
-                     chroma_scale, sl, err, mark=None):
+                     scale_src, sl, err, mark=None):
   """The kernel's launches over `classes` (_classes) on the device's
   current stream, one per non-empty work group (work_split), into a new
   zero-filled (nch, Hp, Wp) tensor, which every item writes its TUs' rows
@@ -609,8 +670,7 @@ def _residual_launch(dev, classes, *, nch, Hp, Wp, bit_depth, chroma,
   tab = on_device(("residual_tables",), dev,
                   lambda: torch.from_numpy(blob))
   planes = torch.zeros((nch, Hp, Wp), dtype=torch.int32, device=dev)
-  scale = (None, 0) if chroma_scale is None else (chroma_scale.data_ptr(),
-                                                  chroma_scale.numel())
+  scale = _scale_args(scale_src)
   lists = (None, None) if sl is None else (sl["rec"].data_ptr(),
                                            sl["dc"].data_ptr())
   CALLS["residual"] += 1

@@ -50,17 +50,18 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def build_cuda(name: str, sources, defines=()) -> str:
-    """nvcc `sources` into _build/lib<name>.so (sm_90a) unless a newer
-    library exists; returns the library path.  defines: (macro, value)
-    pairs passed as -D, whose values also name the library, so that
-    other values build another one.  A failed build raises with the
-    compiler's output."""
+def build_cuda(name: str, sources, defines=(), headers=()) -> str:
+    """nvcc `sources` into _build/lib<name>.so (sm_90a) unless a library
+    newer than them and the `headers` they include exists; returns the
+    library path.  defines: (macro, value) pairs passed as -D, whose
+    values also name the library, so that other values build another
+    one.  A failed build raises with the compiler's output."""
     tag = name + "".join(f"_{v}" for _, v in defines)
     out = os.path.join(BUILD_DIR, f"lib{tag}.so")
     with _lock(tag):
         if os.path.exists(out) and all(
-                os.path.getmtime(s) <= os.path.getmtime(out) for s in sources):
+                os.path.getmtime(s) <= os.path.getmtime(out)
+                for s in (*sources, *headers)):
             return out
         tmp = f"{out}.tmp.{os.getpid()}"
         t0 = time.perf_counter()

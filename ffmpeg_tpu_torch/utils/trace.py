@@ -3,9 +3,9 @@ analog, reference vvc_thread.c:568-603).
 
 Enable with FFMPEG_TPU_TRACE=1 (or `enable()`): the decoder records
 wall-clock spans for each stage (host_parse, inputs, dmvr, h2d,
-residual, inter, recon, lmcs_scales, lmcs, deblock, sao, alf, pack,
-fetch) and `summary()` aggregates them.  The dmvr span (a DMVR frame's
-round trip) holds two: dmvr_search (the control rows, the search's
+residual, inter, recon, lmcs, deblock, sao, alf, pack, fetch) and
+`summary()` aggregates them.  The dmvr span (a DMVR frame's round trip)
+holds two: dmvr_search (the control rows, the search's
 launch, the fetch of its rows and the host scatter) and dmvr_apply (the
 native apply and the controls reread).  A span given a `sync`
 callable (torch.cuda.synchronize for a CUDA device) calls it at both

@@ -551,8 +551,9 @@ def test_frame_program_kernel_calls_full_toolset():
   """The main path's first two frames (I, then B; full1080: LMCS with
   chroma residual scaling, deblock, SAO, ALF): every kernel call
   through the hook, in order: residual of luma, inter_pred of luma and
-  chroma (B), recon of luma, lmcs_scales, residual and recon of chroma,
-  lmcs_inv, deblock, sao and alf of luma then chroma."""
+  chroma (B), recon of luma, residual of chroma (with the scales'
+  source: the mapped luma recon) and recon of chroma, lmcs_inv,
+  deblock, sao and alf of luma then chroma."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.pipeline import KERNELS, walk_frames
 
@@ -560,6 +561,8 @@ def test_frame_program_kernel_calls_full_toolset():
 
   def record(name, label, kw):
     seen.append((name, label))
+    if name == "residual":
+      assert (kw["scale_src"] is not None) == (label == "chroma")
     return KERNELS[name][0](**kw)
 
   aus = VVCDecoder(device="cpu")._split_aus(_read("full1080"))[:2]
@@ -573,8 +576,7 @@ def test_frame_program_kernel_calls_full_toolset():
   inter = [("inter_pred",) + k for k in pair]
   for slice_type, calls in frames:
     want = [("residual", "luma"), *(inter if slice_type != 2 else []),
-            ("recon", "luma"), ("lmcs_scales", "luma"),
-            ("residual", "chroma"), ("recon", "chroma"),
+            ("recon", "luma"), ("residual", "chroma"), ("recon", "chroma"),
             ("lmcs_inv", "luma")]
     want += [(k,) + p for k in ("deblock", "sao", "alf") for p in pair]
     assert calls == want
@@ -628,17 +630,17 @@ def test_frame_planes_layout():
 # ---- on the card ---------------------------------------------------------
 
 # the SAO and LMCS kernels, which a frame calls as its inputs ask
-FILTER_KERNELS = ("sao", "lmcs_inv", "lmcs_scales")
-# per fixture, its frames with SAO, with LMCS and with chroma residual
-# scaling on (the traced sao, lmcs and lmcs_scales spans)
+FILTER_KERNELS = ("sao", "lmcs_inv")
+# per fixture, its frames with SAO and with LMCS on (the traced sao and
+# lmcs spans)
 FIXTURE_FILTER_FRAMES = {
-    "full1080": {"sao": 5, "lmcs": 5, "lmcs_scales": 5},
-    "gop720": {"sao": 9, "lmcs": 9, "lmcs_scales": 9},
-    "ctu128_1080": {"sao": 5, "lmcs": 5, "lmcs_scales": 0},
-    "ra1080": {"sao": 5, "lmcs": 0, "lmcs_scales": 0},
-    "ai720": {"sao": 4, "lmcs": 0, "lmcs_scales": 0},
-    "ai256x128_10b": {"sao": 2, "lmcs": 0, "lmcs_scales": 0},
-    "ciip64": {"sao": 0, "lmcs": 0, "lmcs_scales": 0}}
+    "full1080": {"sao": 5, "lmcs": 5},
+    "gop720": {"sao": 9, "lmcs": 9},
+    "ctu128_1080": {"sao": 5, "lmcs": 5},
+    "ra1080": {"sao": 5, "lmcs": 0},
+    "ai720": {"sao": 4, "lmcs": 0},
+    "ai256x128_10b": {"sao": 2, "lmcs": 0},
+    "ciip64": {"sao": 0, "lmcs": 0}}
 
 @pytest.fixture
 def cuda():
@@ -709,8 +711,7 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
   launches = {"inter_pred": P.LAUNCHES, "recon": R.LAUNCHES,
               "deblock": D.LAUNCHES, "alf": A.LAUNCHES,
               "residual": T.LAUNCHES, "sao": S.LAUNCHES,
-              "lmcs_inv": L.LAUNCHES, "lmcs_scales": L.LAUNCHES,
-              "dmvr": DM.LAUNCHES}
+              "lmcs_inv": L.LAUNCHES, "dmvr": DM.LAUNCHES}
   called, frame = set(), []
 
   def per_call(name, kw):
@@ -743,8 +744,6 @@ def _kernels_vs_plain(data, device, n_frames=None, repeats=1, kinds=None):
     mono = fs.chroma_format_idc == 0
     assert frame.count("sao") == ("sao" in h) * (1 if mono else 2)
     assert frame.count("lmcs_inv") == ("lmcs" in h)
-    assert frame.count("lmcs_scales") == (
-        not mono and "chroma_scale" in h.get("lmcs", {}))
     frame.clear()
   return called
 
@@ -1107,10 +1106,10 @@ def test_fixture_decodes_on_card(cuda, name):
   """Each fixture to its MD5s through the kernels: the residual wrapper
   twice a frame (luma; Cb and Cr; one to three launches each), the ALF
   and SAO kernels twice on each frame with ALF or SAO on, the LMCS
-  inverse map once on each frame with LMCS on and the chroma scales
-  once on each frame with chroma residual scaling on (the traced alf,
-  sao, lmcs and lmcs_scales spans count those frames), no plain
-  version run."""
+  inverse map once on each frame with LMCS on (the traced alf, sao and
+  lmcs spans count those frames), no LMCS kernel launch of the chroma
+  scales (the chroma residual call derives them), no plain version
+  run."""
   from ffmpeg_tpu_torch.ops import alf as A
   from ffmpeg_tpu_torch.ops import deblock as D
   from ffmpeg_tpu_torch.ops import lmcs as L
@@ -1137,12 +1136,10 @@ def test_fixture_decodes_on_card(cuda, name):
   assert T.PLAIN_RUNS["residual"] == 0
   assert (alf_frames > 0) == (name in ("full1080", "ctu128_1080", "gop720"))
   assert A.LAUNCHES["alf"] == 2 * alf_frames
-  frames = {k: spans.get(k, {}).get("n", 0)
-            for k in ("sao", "lmcs", "lmcs_scales")}
+  frames = {k: spans.get(k, {}).get("n", 0) for k in ("sao", "lmcs")}
   assert frames == FIXTURE_FILTER_FRAMES[name]
   assert S.LAUNCHES["sao"] == 2 * frames["sao"]
-  assert L.LAUNCHES["lmcs_inv"] == frames["lmcs"]
-  assert L.LAUNCHES["lmcs_scales"] == frames["lmcs_scales"]
+  assert L.LAUNCHES == {"lmcs_inv": frames["lmcs"]}
   assert S.PLAIN_RUNS["sao"] == 0 and not any(L.PLAIN_RUNS.values())
 
 

@@ -37,7 +37,8 @@ torch.set_num_threads(2)
 CALLS = ([("branches", bd, s) for bd in (8, 10, 12) for s in (0, 1)]
          + [("edges", bd, 0) for bd in (8, 10, 12)]
          + [("cases", 10, s) for s in (4, 5, 6)]
-         + [("parabolas", 10, 0), ("slots30", 10, 0), ("slots30", 12, 3)])
+         + [("parabolas", 10, 0), ("slots30", 10, 0), ("slots30", 12, 3)]
+         + [("flat", 10, 0), ("flat", 8, 1)])
 
 
 def _id(call):
@@ -125,7 +126,9 @@ def test_draw_covers_its_cases(call):
   bilinear branches on both lists (branches); windows across each edge
   and wholly outside (edges); centre stops, border offsets, ties and
   interior steps (cases, over the three seeds); the three parametric
-  special cases (parabolas); slots up to 29 (slots30)."""
+  special cases (parabolas); slots up to 29 (slots30); all 25 SADs tied,
+  the search stopping at the centre or the biased centre winning
+  (flat)."""
   kind, bd, seed = call
   c = draw(kind, bd, seed)
   r = dict(zip(TD.CTRL_KEYS, c["ctrl"]))
@@ -158,6 +161,10 @@ def test_draw_covers_its_cases(call):
     assert len(c["planes"]) == 30 and c["n_l0"] == 15
     assert r["s0"].max() == 14 and r["s1"].min() == 15 \
         and r["s1"].max() == 29
+  elif kind == "flat" and bd == 10:
+    got = classify(c)
+    assert got["all_tie"] == got["no_search"] + got["interior"] > 0
+    assert got["no_search"] and got["all_tie_search"] == got["interior"]
 
 
 def test_parabola_steps():
@@ -313,13 +320,28 @@ def test_search_kernel_matches_plain(cuda, call):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 193, 4099])
+def test_search_kernel_subblock_counts(cuda, n):
+  """One subblock, counts that are no multiple of a warp or of a block's
+  warps, and a few thousand (beyond one wave of blocks): one launch,
+  equal to the plain version."""
+  c = draw("branches", 10, n, n=n)
+  planes, ctrl = _tensors(c, cuda)
+  launches = TD.LAUNCHES["dmvr"]
+  got = TD.refine_subblocks(planes, ctrl, H=c["H"], W=c["W"], bit_depth=10)
+  torch.cuda.synchronize()
+  assert TD.LAUNCHES["dmvr"] == launches + 1 and got.shape == (3, n)
+  assert torch.equal(got, _plain(c, cuda))
+
+
+@pytest.mark.gpu
 def test_search_kernel_1080p_planes(cuda):
-  """1,024 subblocks over 1920x1080 pictures in 1920x1088 planes, two
+  """3,072 subblocks over 1920x1080 pictures in 1920x1088 planes, two
   slots a list, at 8 bits."""
   rng = np.random.default_rng(1080)
   planes = [torch.from_numpy(rng.integers(0, 256, (1088, 1920)).astype(
       np.int32)).to(cuda) for _ in range(4)]
-  n = 1024
+  n = 3072
   shape = np.array(SHAPES)[rng.integers(0, 3, n)]
   ctrl = np.stack([rng.integers(0, 1904 // 8, n) * 8,
                    rng.integers(0, 1064 // 8, n) * 8, shape[:, 0],

@@ -1,28 +1,37 @@
-"""LMCS kernels' entry points: lmcs_inv and lmcs_vpdu_scales (their plain
-versions on the CPU) against the JAX frame program's `_lmcs_inv` and
-`_lmcs_vpdu_scales`, bit for bit (tolerance 0: integer arithmetic), on
-LMCS tables drawn from a seed the way the parser derives them (bin
-codewords, the pivots, the inverse and chroma scales) at 8, 10 and 12
-bits; the chroma scales read through the padded plane's row stride
-(W < Wp) with tile boundaries at VPDU sizes 32 and 64; a tile list over
-the kernel's cap raising; the host table `inv_host` equal to the
-device tables; and (on the card) the CUDA kernels csrc/lmcs.cu against
-the plain versions, the inverse map on every value from -64 to
-2^bd + 64 and on int32 values far outside that range, on a 1088x1920
-plane and on lengths around the kernel's per-thread and per-block
-chunks.
+"""LMCS: the inverse map's entry point lmcs_inv (its plain version on the
+CPU) and the chroma scales' plain version lmcs_vpdu_scales_plain against
+the JAX frame program's `_lmcs_inv` and `_lmcs_vpdu_scales`, bit for bit
+(tolerance 0: integer arithmetic), on LMCS tables drawn from a seed the
+way the parser derives them (bin codewords, the pivots, the inverse and
+chroma scales) at 8, 10 and 12 bits; the chroma scales read through the
+padded plane's row stride (W < Wp) with tile boundaries at VPDU sizes 32
+and 64; a tile list over the chroma residual kernel's cap raising in the
+residual call that takes the scales' source; the host table `inv_host`
+equal to the device tables; and (on the card) the CUDA kernel
+csrc/lmcs.cu against the plain version, the inverse map on every value
+from -64 to 2^bd + 64 and on int32 values far outside that range, on a
+1088x1920 plane and on lengths around the kernel's per-thread and
+per-block chunks, and the chroma residual kernel (csrc/residual.cu,
+which derives the scales per TU, csrc/lmcs_scale.cuh) against the plain
+pair, lmcs_vpdu_scales_plain then the plain chroma residual, on the same
+planes and tables.
 
 JAX is imported inside the tests that need it, so that the card, which
 has no JAX, collects the `gpu` tests:
 
   python -m pytest --noconftest -m gpu tests/test_torch_lmcs.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from ffmpeg_tpu_torch.models.vvc.convert import _lmcs
-from ffmpeg_tpu_torch.ops import lmcs as TL
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from ffmpeg_tpu_torch.models.vvc.convert import _lmcs  # noqa: E402
+from ffmpeg_tpu_torch.ops import lmcs as TL  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -121,9 +130,7 @@ def test_lmcs_vpdu_scales_strided_matches_jax(bd, tiles, vsz):
   plane = padded_plane(bd, H, W, seed=bd + vsz)
   view = torch.from_numpy(plane)[:H, :W]
   assert not view.is_contiguous()
-  runs = TL.PLAIN_RUNS["lmcs_scales"]
-  got = TL.lmcs_vpdu_scales(view, lm, W, H, vsz, bd, tiles).numpy()
-  assert TL.PLAIN_RUNS["lmcs_scales"] == runs + 1
+  got = TL.lmcs_vpdu_scales_plain(view, lm, W, H, vsz, bd, tiles).numpy()
   want = np.asarray(JP._lmcs_vpdu_scales(
       jnp.asarray(plane[:H, :W]), _jax_lm(host), W, H, vsz, bd, tiles))
   np.testing.assert_array_equal(got, want)
@@ -131,19 +138,36 @@ def test_lmcs_vpdu_scales_strided_matches_jax(bd, tiles, vsz):
   assert len(np.unique(want)) > 1
 
 
+def _chroma_call(plane, lm, vsz, bd, tiles, device="cpu"):
+  """A seeded chroma residual call (tests/torch_residual_draws.py) whose
+  scales' source is the (H, W) picture `plane` with lm, vsz and tiles,
+  its TUs pointed at every VPDU of that picture in turn."""
+  from torch_residual_draws import draw_call, spread_vpdus
+
+  kw = draw_call("chroma", bd, n=24, seed=bd + vsz, device=device)
+  H, W = plane.shape
+  kw["scale_src"] = {"luma": plane, "lm": lm, "vsz": vsz,
+                     "tile_bds": tiles}
+  spread_vpdus(kw, -(-W // vsz) * -(-H // vsz))
+  return kw
+
+
 def test_lmcs_vpdu_scales_tile_cap():
-  """More tile boundaries than the kernel's parameter block holds raise
-  (on any device: the call is refused, not cut short)."""
+  """More tile boundaries than the chroma residual kernel's parameter
+  block holds raise in the call that takes the scales' source (on any
+  device: the call is refused, not cut short); at the cap it runs."""
+  from ffmpeg_tpu_torch.ops.transform import residual_planes
+
   host = draw_lmcs(8, BINS[0], seed=1)
   lm = _lmcs(host, "cpu")
   plane = torch.zeros((64, 64), dtype=torch.int32)
   over = tuple(range(1, TL.MAX_TILE_BDS + 2))
   for bds in ((over, ()), ((), over)):
     with pytest.raises(ValueError, match="tile boundaries"):
-      TL.lmcs_vpdu_scales(plane, lm, 64, 64, 32, 8, bds)
+      residual_planes(**_chroma_call(plane, lm, 32, 8, bds))
   at_cap = tuple(range(1, TL.MAX_TILE_BDS + 1))
-  assert TL.lmcs_vpdu_scales(plane, lm, 64, 64, 32, 8,
-                             (at_cap, at_cap)).shape == (4,)
+  kw = _chroma_call(plane, lm, 32, 8, (at_cap, at_cap))
+  assert residual_planes(**kw).shape == (2, kw["Hp"], kw["Wp"])
 
 
 @pytest.mark.parametrize("crs", [True, False])
@@ -160,19 +184,22 @@ def test_inv_host_equals_device_tables(bd, crs):
 
 
 def test_lmcs_refuses_other_devices():
+  """The inverse map, and a chroma residual call with the scales' source,
+  on a device that is neither CUDA nor the CPU raise."""
+  from ffmpeg_tpu_torch.ops.transform import residual_planes
+
   lm = _lmcs(draw_lmcs(8, BINS[0], seed=2), "cpu")
   x = torch.zeros((8, 8), dtype=torch.int32, device="meta")
   with pytest.raises(ValueError, match="device"):
     TL.lmcs_inv(x, lm, 8)
+  kw = _chroma_call(x, lm, 32, 8, ((), ()), device="meta")
   with pytest.raises(ValueError, match="device"):
-    TL.lmcs_vpdu_scales(x, lm, 8, 8, 32, 8)
+    residual_planes(**kw)
 
 
 def test_frame_program_lmcs_tables_on_host():
   """The frame program's LMCS trees carry inv_host: the full1080 frame
   0's converted tree."""
-  import os
-
   from ffmpeg_tpu_torch.models.vvc.convert import inputs_from_numpy
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.models.vvc.host import HostDecoder
@@ -270,40 +297,65 @@ def test_lmcs_inv_kernel_lengths(cuda, n):
     assert torch.equal(got, TL.lmcs_inv_plain(x, lm, 10))
 
 
+def _fused_vs_pair(kw, device):
+  """The chroma residual call on the card (each scaled TU deriving its
+  scale) against the plain pair, lmcs_vpdu_scales_plain then the plain
+  chroma residual: equal, the error word 0, the residual kernel
+  launched (one launch per work group) and no LMCS kernel."""
+  from ffmpeg_tpu_torch.ops import transform as TT
+
+  src = kw["scale_src"]
+  luma = src["luma"]
+  scales = TL.lmcs_vpdu_scales_plain(luma, src["lm"], luma.shape[1],
+                                     luma.shape[0], src["vsz"],
+                                     kw["bit_depth"], src["tile_bds"])
+  want = torch.stack([TT.residual_plane(
+      b, kw["Hp"], kw["Wp"], kw["bit_depth"], kw["sizes"], True, device,
+      scales) for b in kw["buckets"]])
+  err = TT.error_word(device)
+  lmcs, res = dict(TL.LAUNCHES), TT.LAUNCHES["residual"]
+  got = TT.residual_planes(**kw, err=err)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
+  assert err.item() == 0 and TL.LAUNCHES == lmcs
+  assert TT.LAUNCHES["residual"] == res + 3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("vsz", [32, 64])
 @pytest.mark.parametrize("tiles", TILES)
 @pytest.mark.parametrize("bd", BDS)
 def test_lmcs_scales_kernel_matches_plain(cuda, bd, tiles, vsz):
+  """The chroma residual kernel's scales, derived per TU from a picture
+  read through its padded plane's stride, against the plain pair."""
   H, W = 152, 200
   lm = _lmcs(draw_lmcs(bd, BINS[len(tiles[0]) % 3], seed=bd * 7 + vsz),
              cuda)
   view = torch.from_numpy(padded_plane(bd, H, W, seed=bd + vsz)).to(
       cuda)[:H, :W]
-  got = _launched("lmcs_scales", lambda: TL.lmcs_vpdu_scales(
-      view, lm, W, H, vsz, bd, tiles))
-  assert torch.equal(got, TL.lmcs_vpdu_scales_plain(view, lm, W, H, vsz, bd,
-                                                    tiles))
+  _fused_vs_pair(_chroma_call(view, lm, vsz, bd, tiles, cuda), cuda)
 
 
 @pytest.mark.gpu
 def test_lmcs_scales_kernel_1080p(cuda):
   """A 1920x1080 picture in its 1920x1088 plane, VPDU 64, with a tile
-  boundary at every VPDU edge."""
+  boundary at every VPDU edge: the chroma residual kernel's scales of
+  all 510 VPDUs against the plain pair."""
   lm = _lmcs(draw_lmcs(8, BINS[0], seed=5), cuda)
   plane = torch.from_numpy(padded_plane(8, 1088, 1920, seed=5)).to(cuda)
   view = plane[:1080, :1920]
   tiles = (tuple(range(64, 1920, 64)), tuple(range(64, 1080, 64)))
-  got = _launched("lmcs_scales", lambda: TL.lmcs_vpdu_scales(
-      view, lm, 1920, 1080, 64, 8, tiles))
-  assert torch.equal(got, TL.lmcs_vpdu_scales_plain(view, lm, 1920, 1080,
-                                                    64, 8, tiles))
+  _fused_vs_pair(_chroma_call(view, lm, 64, 8, tiles, cuda), cuda)
 
 
 @pytest.mark.gpu
 def test_lmcs_kernels_refuse(cuda):
-  """A strided tensor for the inverse map, a tree without its host table
-  and a plane with a column stride raise; nothing is launched."""
+  """A strided tensor for the inverse map, a tree without its host table,
+  and a chroma residual call whose scales' source is a plane with a
+  column stride or a tree without chroma scales raise; nothing is
+  launched."""
+  from ffmpeg_tpu_torch.ops import transform as TT
+
   host = draw_lmcs(8, BINS[0], seed=3)
   lm = _lmcs(host, cuda)
   x = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
@@ -312,10 +364,13 @@ def test_lmcs_kernels_refuse(cuda):
     TL.lmcs_inv(x[:, :32], lm, 8)
   with pytest.raises(ValueError, match="inv_host"):
     TL.lmcs_inv(x, {k: v for k, v in lm.items() if k != "inv_host"}, 8)
+  res = TT.LAUNCHES["residual"]
   with pytest.raises(ValueError):
-    TL.lmcs_vpdu_scales(x.T, lm, 64, 64, 32, 8)
+    TT.residual_planes(**_chroma_call(x.T, lm, 32, 8, ((), ()), cuda),
+                       err=TT.error_word(cuda))
   no_crs = _lmcs({k: v for k, v in host.items() if k != "chroma_scale"},
                  cuda)
   with pytest.raises(ValueError):
-    TL.lmcs_vpdu_scales(x, no_crs, 64, 64, 32, 8)
-  assert TL.LAUNCHES == before
+    TT.residual_planes(**_chroma_call(x, no_crs, 32, 8, ((), ()), cuda),
+                       err=TT.error_word(cuda))
+  assert TL.LAUNCHES == before and TT.LAUNCHES["residual"] == res

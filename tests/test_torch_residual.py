@@ -5,7 +5,11 @@ are exact), on seeded draws of whole calls at 8, 10 and 12 bits (every
 luma class: 2-D with MTS, LFNST in both layouts and transform skip,
 1-D ISP, TB-64 and ISP-64; the Cb+Cr classes with joint CbCr in every
 mode and LMCS chroma scaling; with and without scaling lists; levels at
-the 16-bit limits) and on a 4:0:0 frame; the wrapper's checks; the rows
+the 16-bit limits) and on a 4:0:0 frame; the chroma call's scales from
+their source (the mapped luma picture) against JAX `_lmcs_vpdu_scales`
+then `_residual_from_buckets`, at VPDU sizes 32 and 64, with tile
+boundaries on VPDU edges, TBs of 4 samples and 1-D TBs unscaled; the
+wrapper's checks; the rows
 the plain version refuses; the kernel's work split (each TU and each
 output row of a banded TU covered once, every item within its group's
 shared memory); the frame's error word, read by the session and the wave
@@ -29,7 +33,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_alf import ALF_MONO  # noqa: E402
 from test_torch_decode import (CODING_CASES, _read,  # noqa: E402
                                _stream)
-from torch_residual_draws import LUMA_ALL, draw_call  # noqa: E402
+from torch_residual_draws import (LUMA_ALL, draw_call,  # noqa: E402
+                                  scale_source)
 
 from ffmpeg_tpu_torch.models.vvc.inputs import CHROMA_SIZES  # noqa: E402
 from ffmpeg_tpu_torch.ops import transform as TT  # noqa: E402
@@ -61,10 +66,11 @@ def _call(draw, device="cpu"):
 
 
 def _jax_residual(*, buckets, sizes, Hp, Wp, bit_depth, chroma,
-                  chroma_scale=None, sl=None, err=None):
+                  scale_src=None, sl=None, err=None):
   """JAX _residual_from_buckets on the same inputs (numpy), for each
-  component of the call (a frame program call's error word aside).
-  Returns (nch, Hp, Wp) numpy."""
+  component of the call (a frame program call's error word aside), the
+  chroma scales, where the call has their source, from JAX
+  _lmcs_vpdu_scales on its luma picture.  Returns (nch, Hp, Wp) numpy."""
   import jax.numpy as jnp
 
   from ffmpeg_tpu.models.vvc import pipeline as JP
@@ -72,7 +78,14 @@ def _jax_residual(*, buckets, sizes, Hp, Wp, bit_depth, chroma,
   def j(t):
     return jnp.asarray(t.cpu().numpy())
 
-  cs = None if chroma_scale is None else j(chroma_scale)
+  cs = None
+  if scale_src is not None:
+    luma, lm = scale_src["luma"], scale_src["lm"]
+    jlm = {k: j(lm[k]) for k in ("pivot", "bins", "chroma_scale")}
+    cs = JP._lmcs_vpdu_scales(
+        jnp.asarray(np.ascontiguousarray(luma.cpu().numpy())), jlm,
+        luma.shape[1], luma.shape[0], scale_src["vsz"], bit_depth,
+        scale_src["tile_bds"])
   jsl = None if sl is None else {k: j(v) for k, v in sl.items()}
   out = []
   for comp in buckets:
@@ -161,12 +174,64 @@ def test_residual_plain_matches_jax_on_mono_frame():
       for calls in frames)
 
 
+# ---- the chroma scales from their source -----------------------------------
+
+# (bit depth, VPDU edge, tile boundaries on VPDU edges)
+SCALE_CASES = [(bd, vsz, tiles) for bd in (8, 10) for vsz in (32, 64)
+               for tiles in (((), ()), ((2 * vsz,), (vsz,)))]
+# 1-D classes, which a chroma call does not carry, added so that the
+# calls hold their exclusion from the scaling too
+ONE_D = ((1, 16), (16, 1))
+
+
+def _scale_id(case):
+  bd, vsz, tiles = case
+  return f"{bd}bit-vsz{vsz}-" + ("tiles" if tiles[0] else "one-tile")
+
+
+def _scale_call(case, device="cpu"):
+  bd, vsz, tiles = case
+  return draw_call("chroma", bd, scaled=True, seed=100 + bd + vsz
+                   + len(tiles[0]), device=device, vsz=vsz, tile_bds=tiles,
+                   extra=ONE_D)
+
+
+def _unscaled_classes_kept(kw, got, unscaled):
+  """The classes that take no scaling (4 samples, 1-D) are the unscaled
+  call's samples, the others (as a whole) are not."""
+  k = BUCKET_ROWS.index
+  for wh in kw["sizes"]:
+    b = kw["buckets"][0][wh]
+    if b["n"] and (wh[0] * wh[1] <= 4 or 1 in wh):
+      y0 = int(b["mat"][k("y0"), 0])
+      assert torch.equal(got[:, y0:y0 + wh[1]], unscaled[:, y0:y0 + wh[1]])
+  assert not torch.equal(got, unscaled)
+
+
+@pytest.mark.parametrize("case", SCALE_CASES, ids=_scale_id)
+def test_chroma_scale_source_matches_jax(case):
+  """The chroma call's plain route, given the scales' source (the mapped
+  luma picture as a view of its padded plane, 4 x 3 VPDUs cut short at
+  the edges, tile boundaries on VPDU edges), against JAX
+  _lmcs_vpdu_scales on that picture followed by JAX
+  _residual_from_buckets, tolerance 0; the 2x2 and 1-D TBs unscaled."""
+  kw = _scale_call(case)
+  runs = TT.PLAIN_RUNS["residual"]
+  got = TT.residual_planes(**kw)
+  assert TT.PLAIN_RUNS["residual"] == runs + 1
+  np.testing.assert_array_equal(got.numpy(), _jax_residual(**kw))
+  _unscaled_classes_kept(kw, got, TT.residual_planes(**dict(
+      kw, scale_src=None)))
+
+
 # ---- the wrapper's checks and the rows the plain version refuses -------------
 
 BAD = ("one-component-chroma", "two-component-luma", "int16-levels",
        "rows-strided", "levels-wrong-shape", "missing-class", "bit-depth-7",
-       "scale-with-luma", "int64-scale", "sl-wrong-shape", "meta-device",
-       "err-int64", "err-two-words")
+       "scale-with-luma", "int64-scale", "scale-luma-transposed",
+       "scale-vsz-128", "scale-vsz-48", "scale-tile-cap",
+       "scale-no-inv-host", "scale-no-chroma-scale", "sl-wrong-shape",
+       "meta-device", "err-int64", "err-two-words")
 
 
 def _meta(t):
@@ -178,9 +243,11 @@ def test_residual_planes_refuses(bad):
   """residual_planes checks its inputs on every device and raises
   ValueError on what the kernel does not take, and on a device that is
   neither CUDA nor the CPU (nothing is converted, nothing falls back)."""
-  chroma = bad in ("one-component-chroma", "int64-scale")
+  chroma = bad in ("one-component-chroma", "int64-scale") or (
+      bad.startswith("scale-") and bad != "scale-with-luma")
   kw = draw_call("chroma" if chroma else "luma", 10, with_sl=True,
                  scaled=chroma, n=2)
+  src = kw["scale_src"]
   comp = kw["buckets"][0]
   wh = kw["sizes"][0]
   if bad == "one-component-chroma":
@@ -198,9 +265,19 @@ def test_residual_planes_refuses(bad):
   elif bad == "bit-depth-7":
     kw["bit_depth"] = 7
   elif bad == "scale-with-luma":
-    kw["chroma_scale"] = torch.ones(4, dtype=torch.int32)
+    kw["scale_src"] = scale_source(10, 32, ((), ()), seed=1)
   elif bad == "int64-scale":
-    kw["chroma_scale"] = kw["chroma_scale"].long()
+    src["luma"] = src["luma"].long()
+  elif bad == "scale-luma-transposed":
+    src["luma"] = src["luma"].T
+  elif bad in ("scale-vsz-128", "scale-vsz-48"):
+    src["vsz"] = {"scale-vsz-128": 128, "scale-vsz-48": 48}[bad]
+  elif bad == "scale-tile-cap":
+    src["tile_bds"] = (tuple(range(1, 66)), ())
+  elif bad == "scale-no-inv-host":
+    del src["lm"]["inv_host"]
+  elif bad == "scale-no-chroma-scale":
+    src["lm"]["inv_host"] = src["lm"]["inv_host"][:35]
   elif bad == "sl-wrong-shape":
     kw["sl"]["rec"] = kw["sl"]["rec"][:27].contiguous()
   elif bad == "err-int64":
@@ -486,6 +563,25 @@ def test_residual_kernel_matches_plain_on_card(cuda, draw):
   assert TT.LAUNCHES["residual"] == launches + 9
   assert all(TT.GROUP_LAUNCHES[g] == groups[g] + 3 for g in TT.GROUPS)
   assert TT.PLAIN_RUNS["residual"] == plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCALE_CASES, ids=_scale_id)
+def test_residual_kernel_scale_source_on_card(cuda, case):
+  """The chroma call with the scales' source (each scaled TU computing
+  its VPDU's scale) against the plain version, tolerance 0, 3 calls;
+  the error word 0; no other kernel launched."""
+  from ffmpeg_tpu_torch.ops import lmcs as TL
+
+  kw = _scale_call(case, cuda)
+  want = TT.residual_planes_plain(**kw)
+  err = TT.error_word(cuda)
+  lmcs = dict(TL.LAUNCHES)
+  for i in range(3):
+    assert torch.equal(TT.residual_planes(**kw, err=err), want), f"call {i}"
+  assert err.item() == 0 and TL.LAUNCHES == lmcs
+  _unscaled_classes_kept(kw, want, TT.residual_planes_plain(**dict(
+      kw, scale_src=None)))
 
 
 @pytest.mark.gpu

@@ -12,7 +12,11 @@ KINDS = {"branches": ((96, 64), (128, 80), 2, 2),
          "edges": ((80, 48), (128, 80), 2, 1),
          "cases": ((128, 96), (128, 96), 1, 1),
          "parabolas": ((96, 24), (96, 24), 1, 1),
-         "slots30": ((64, 48), (64, 48), 15, 15)}
+         "slots30": ((64, 48), (64, 48), 15, 15),
+         "flat": ((64, 48), (64, 48), 2, 3)}
+# the flat draws' levels, one a picture: L0's, then L1's, so that a
+# subblock's lists differ by 0, 1, 3, 37, 39 or 40 at every sample
+FLAT_LEVELS = (100, 140, 101, 100, 103)
 # rows of list 0's and list 1's pictures (one level per column, every row
 # alike) under a 16x16 subblock and its window (columns x - 2 .. x + 17):
 # their SADs at horizontal offsets -2..2 are 92, 72, 96, 72, 76 (flat
@@ -67,14 +71,19 @@ def draw(kind: str, bit_depth: int, seed: int, n: int = 192):
   on one picture (the SADs' corner cases, see classify).  parabolas: the
   three PARABOLAS subblocks, each centre's parametric step a special case
   (10 bits; seed and n unused).  slots30: 15 L0 and 15 L1 planes of one
-  picture each."""
+  picture each.  flat: pictures of one level each (FLAT_LEVELS), so that
+  all 25 SADs of a subblock tie (the centre's bias then decides, or the
+  search stops at it), half the subblocks with whole MVs."""
   rng = np.random.default_rng(seed)
   (W, H), (Wp, Hp), n_l0, n_l1 = KINDS[kind]
   if kind == "parabolas":
     return _parabolas(W, H)
   slots = n_l0 + n_l1
-  make = _levels if kind == "cases" else _noise
-  pics = [make(rng, Hp, Wp, H, W, bit_depth) for _ in range(slots)]
+  if kind == "flat":
+    pics = [np.full((Hp, Wp), v, np.int32) for v in FLAT_LEVELS]
+  else:
+    make = _levels if kind == "cases" else _noise
+    pics = [make(rng, Hp, Wp, H, W, bit_depth) for _ in range(slots)]
   shape = np.array(SHAPES)[rng.integers(0, 3, n)]
   w, h = shape[:, 0], shape[:, 1]
   x = rng.integers(0, (W - w) // 8 + 1) * 8
@@ -92,6 +101,8 @@ def draw(kind: str, bit_depth: int, seed: int, n: int = 192):
     mv = np.concatenate([out[:2] + push * 40 * 16, out[2:] + push * 24 * 16])
   else:
     mv = rng.integers(-6 * 16, 6 * 16, (4, n))
+  if kind == "flat":
+    mv[:, ::2] &= ~15
   if kind == "branches":
     # each list: whole, horizontal, vertical or diagonal sub-pel
     for lx in range(2):
@@ -130,13 +141,14 @@ def classify(call) -> dict:
   at 10 bits (the prediction is the window itself), read with numpy:
   no_search (biased centre below w * h), border (best offset on the
   5 x 5 border), interior (the parametric step runs), ties (the minimum
-  taken more than once), and among interior ones denom0 (a direction's
-  parabola flat), minus_eq and plus_eq (a neighbour equal to the
-  minimum, the -8 and +8 cases)."""
+  taken more than once), all_tie and all_tie_search (all 25 SADs equal
+  before the centre's bias, and among those the searches that run), and
+  among interior ones denom0 (a direction's parabola flat), minus_eq and
+  plus_eq (a neighbour equal to the minimum, the -8 and +8 cases)."""
   c = dict(zip(TD.CTRL_KEYS, call["ctrl"].astype(np.int64)))
   H, W = call["H"], call["W"]
-  out = dict.fromkeys(("no_search", "border", "interior", "ties", "denom0",
-                       "minus_eq", "plus_eq"), 0)
+  out = dict.fromkeys(("no_search", "border", "interior", "ties", "all_tie",
+                       "all_tie_search", "denom0", "minus_eq", "plus_eq"), 0)
   if call["bit_depth"] != 10:
     return out
   idx = np.arange(TD._WIN)
@@ -154,7 +166,10 @@ def classify(call) -> dict:
                            - t[1][4 - dy:20 - dy:2, 4 - dx:20 - dx])
                     [:h // 2, :w].sum()
                     for dy in range(5) for dx in range(5)])
+    tie = bool((sad == sad[0]).all())
+    out["all_tie"] += tie
     sad[12] -= sad[12] >> 2
+    out["all_tie_search"] += tie and sad[12] >= w * h
     if sad[12] < w * h:
       out["no_search"] += 1
       continue

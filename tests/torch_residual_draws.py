@@ -1,20 +1,25 @@
 """Seeded draws of the residual stage's inputs, without JAX (the card has
 none): a size class's bucket rows and level blocks, explicit scaling
-lists, and whole calls of the frame program's residual entry point
-(ops/transform.py residual_planes) with their TUs placed in the plane.
+lists, LMCS chroma scales' sources, and whole calls of the frame
+program's residual entry point (ops/transform.py residual_planes) with
+their TUs placed in the plane.
 """
 import numpy as np
 import torch
+from test_torch_lmcs import BINS, draw_lmcs, padded_plane
 
 from ffmpeg_tpu_torch.models.vvc import inputs as TI
+from ffmpeg_tpu_torch.models.vvc.convert import _lmcs
 from ffmpeg_tpu_torch.ops.transform import BUCKET_ROWS
 
 # every luma class a frame may carry: the 2-D classes, then those of ISP,
 # TB-64 and ISP-64 (inputs.luma_sizes with every tool)
 LUMA_ALL = (TI.LUMA_SIZES + TI.ISP_EXTRA_SIZES + TI.TB64_EXTRA_SIZES
             + TI.ISP64_EXTRA_SIZES)
-# LMCS chroma scales per draw
-N_VPDU = 12
+# the VPDU grid of a drawn scale source: 4 x 3 VPDUs, the last column and
+# row cut short by the picture's edge
+VPDU_GRID = (4, 3)
+N_VPDU = VPDU_GRID[0] * VPDU_GRID[1]
 
 
 def _random_bucket(rng, w, h, bd, is_chroma, n=24, clamp=False):
@@ -62,18 +67,33 @@ def _scaling_lists(rng):
           "dc": rng.integers(1, 256, 14).astype(np.int32)}
 
 
+def scale_source(bd, vsz, tile_bds, seed, device="cpu"):
+  """A chroma scales' source (residual_planes scale_src): LMCS tables
+  drawn as the parser derives them (test_torch_lmcs.draw_lmcs, chroma
+  scaling on), and a mapped luma picture of VPDU_GRID VPDUs of vsz, its
+  right column 8 and bottom row 4 samples short, as a view of a padded
+  plane whose padding no picture sample takes; tile_bds: the interior
+  tile boundaries."""
+  W, H = VPDU_GRID[0] * vsz - 8, VPDU_GRID[1] * vsz - 4
+  lm = _lmcs(draw_lmcs(bd, BINS[seed % len(BINS)], seed=seed), device)
+  plane = torch.from_numpy(padded_plane(bd, H, W, seed=seed)).to(device)
+  return {"luma": plane[:H, :W], "lm": lm, "vsz": vsz,
+          "tile_bds": tile_bds}
+
+
 def draw_call(kind, bd, with_sl=False, scaled=False, clamp=False, n=6,
-              seed=0, device="cpu"):
+              seed=0, device="cpu", vsz=32, tile_bds=((), ()), extra=()):
   """residual_planes kwargs of one seeded call: "luma" (every class of
   LUMA_ALL, one component) or "chroma" (the 25 chroma classes, Cb and
-  Cr), n TUs a class, each class's TUs side by side in a band of its own
-  height so that none overlap (the last ends at the plane's right edge);
-  a per-VPDU LMCS scale for each of N_VPDU VPDUs (chroma, `scaled`);
-  explicit scaling lists (`with_sl`).  An empty class is kept between
-  the others."""
+  Cr, then the `extra` classes), n TUs a class, each class's TUs side by
+  side in a band of its own height so that none overlap (the last ends
+  at the plane's right edge); a chroma scales' source (chroma,
+  `scaled`: scale_source at vsz with tile_bds), each TU's `vpdu` row one
+  of its N_VPDU VPDUs; explicit scaling lists (`with_sl`).  An empty
+  class is kept between the others."""
   rng = np.random.default_rng(seed)
   chroma = kind == "chroma"
-  sizes = list(TI.CHROMA_SIZES if chroma else LUMA_ALL)
+  sizes = list(TI.CHROMA_SIZES if chroma else LUMA_ALL) + list(extra)
   Wp = n * 64
   Hp = sum(h for _, h in sizes)
   k = BUCKET_ROWS.index
@@ -95,9 +115,21 @@ def draw_call(kind, bd, with_sl=False, scaled=False, clamp=False, n=6,
   if with_sl:
     sl = {key: torch.from_numpy(v).to(device)
           for key, v in _scaling_lists(rng).items()}
-  scale = None
+  src = None
   if scaled:
-    scale = torch.from_numpy(
-        rng.integers(1, 1 << 13, N_VPDU).astype(np.int32)).to(device)
+    src = scale_source(bd, vsz, tile_bds, seed, device)
   return dict(buckets=comps, sizes=sizes, Hp=Hp, Wp=Wp, bit_depth=bd,
-              chroma=chroma, chroma_scale=scale, sl=sl)
+              chroma=chroma, scale_src=src, sl=sl)
+
+
+def spread_vpdus(kw, nv):
+  """Point a chroma call's TUs at VPDUs 0 .. nv - 1 in turn (TU j of the
+  call, counted over its classes in order, at VPDU j % nv), so that a
+  grid of up to the call's TUs is covered; in place."""
+  k = BUCKET_ROWS.index("vpdu")
+  j = 0
+  for comp in kw["buckets"]:
+    for wh in kw["sizes"]:
+      mat, n = comp[wh]["mat"], comp[wh]["n"]
+      mat[k, :n] = (torch.arange(n, device=mat.device) + j) % nv
+      j += n
