@@ -79,6 +79,20 @@ Phases, one JSON line each:
               LMCS on, the dmvr kernel once on each DMVR frame (the sao,
               lmcs and dmvr spans; 3 on full1080 and on ctu128_1080), no
               LMCS chroma scales launch (the counts' lmcs_scales, 0)
+  4b. generate  the port's stream generator on the card's host (3 worker
+              processes started before the build, overlapping it): each
+              of the 7 fixtures regenerated from its committed config
+              equals its .vvc (a mismatch names the config and the first
+              differing byte); 160 committed JAX-MD5 cases (every case of
+              GEN_CASE_FILES, and ROBUST_PLAIN's whole-stream decodes;
+              GEN_LEFT_OUT names the rest and why) generated and decoded
+              on the card, a fresh session each, to their MD5s, as one
+              path ("generated": counts zeroed before the first decode,
+              read after the last; every kernel launched, no plain
+              version); full1080_17, bench.py FULL_KW at its 17 frames
+              (too large to commit), equal to full1080_17.json's size
+              and sha256, decoded with fetch=False (its own path) and
+              then with the fetch to its JAX MD5s, fps of each
   5. timing   full1080, ai720 and ctu128_1080 fps with frames left on
               the card and
               with the fetch, full1080 fps at host_threads 1, 4 and 8,
@@ -144,7 +158,9 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -190,6 +206,40 @@ FRAME_SPANS = {"alf": ("alf", 2), "sao": ("sao", 2), "lmcs_inv": ("lmcs", 1),
 # the wave path (parallel/gop.py): its fixtures and stream widths
 GOP_FIXTURES = ("ra1080", "gop720")
 GOP_WIDTHS = (1, 2, 4)
+# the generate phase: the committed JAX-MD5 files whose every case is a
+# generator config that its test decodes with a plain session decode
+GEN_CASE_FILES = ("conformance_cases", "intra_cases", "inter_cases",
+                  "tools_cases", "coding_cases", "deblock_cases",
+                  "alf_mono_case", "parallel_cases")
+# tests/test_torch_robustness.py's scenarios that decode whole generated
+# streams on a fresh session (its P3 configs): back-to-back twice on one
+# session, truncated-* the whole stream before its cut one
+ROBUST_P3 = dict(width=64, height=64, qp=30, inter=True, n_frames=3)
+ROBUST_PLAIN = {
+    "back-to-back": (dict(ROBUST_P3, seed=47, b_slices=True, tmvp=True), 2),
+    **{f"truncated-{f}": (dict(ROBUST_P3, seed=59), 1)
+       for f in ("0.25", "0.5", "0.85", "0.97")}}
+# the committed cases the generate phase leaves out, and why
+GEN_LEFT_OUT = {
+    "inter_cases/missing-ref": "inter-p with an access unit dropped, "
+                               "decoded under errors='contain'",
+    "robustness_cases/flush-seek-restart": "a flush between two streams "
+                                           "on one session",
+    "robustness_cases/missing-idr-contain": "the stream without its IDR",
+    "robustness_cases/missing-idr-raise": "the stream without its IDR, "
+                                          "which must raise",
+    "robustness_cases/truncated-*": "the cut stream's decode; the whole "
+                                    "stream's decode is in",
+    "robustness_cases/garbage-*": "no generated stream: random bytes, an "
+                                  "empty input, a random slice payload",
+    "robustness_cases/seek-cra": "the stream cut at a CRA",
+    "robustness_cases/seek-gdr": "the stream cut at a GDR",
+}
+# BASELINE's 17-frame main path (bench.py FULL_KW), made on the card's
+# host: its config, size, sha256 and JAX MD5s
+FULL17 = "full1080_17"
+# generator worker processes, started before the build
+GEN_WORKERS = 3
 
 # NVIDIA H100 SXM data sheet (dense): the HBM rate, and the int32 rate
 # outside the tensor cores, used for the kernels' least-time bounds (all
@@ -245,6 +295,14 @@ def _zero_counts():
             _counts()["residual"].CALLS):
     for k in d:
       d[k] = 0
+
+
+def _path_counts():
+  """(launches, plain runs) of every kernel since the counts were last
+  zeroed."""
+  counts = _counts()
+  return ({k: m.LAUNCHES[k] for k, m in counts.items()},
+          {k: m.PLAIN_RUNS[k] for k, m in counts.items()})
 
 
 def phase_device(torch):
@@ -1039,7 +1097,7 @@ def phase_decode(torch):
               for k, (span, _) in FRAME_SPANS.items()}
     alf_frames = frames["alf"]
     counts = _counts()
-    launches[name] = {k: m.LAUNCHES[k] for k, m in counts.items()}
+    launches[name], plain = _path_counts()
     launches[name]["inter_pred_by_class"] = dict(
         counts["inter_pred"].CLASS_LAUNCHES)
     launches[name]["recon_by_edge"] = dict(counts["recon"].EDGE_LAUNCHES)
@@ -1049,7 +1107,6 @@ def phase_decode(torch):
     launches[name]["alf_overlapped"] = counts["alf"].OVERLAPS["alf"]
     launches[name]["sao_overlapped"] = counts["sao"].OVERLAPS["sao"]
     launches[name]["lmcs_scales"] = _lmcs_scales_launches()
-    plain = {k: m.PLAIN_RUNS[k] for k, m in counts.items()}
     res["fixtures"][name] = {
         "frames": len(got), "md5_equal": got == want,
         "launches": launches[name], "plain_runs": plain,
@@ -1108,6 +1165,175 @@ def phase_decode(torch):
            f"{DMVR_LAUNCHES.get(name, 0)}), {launches[name]['lmcs_scales']} "
            "standalone LMCS chroma scales launches (want 0)")
   emit(res)
+  return launches
+
+
+def _load(name):
+  with open(os.path.join(TESTDATA, name)) as f:
+    return json.load(f)
+
+
+def _gen_cases():
+  """{"<file>/<case>": (config, committed MD5s, decodes on one session)}
+  for every committed case the generate phase decodes: each case of
+  GEN_CASE_FILES but GEN_LEFT_OUT's, and ROBUST_PLAIN's whole-stream
+  decodes."""
+  out = {}
+  for stem in GEN_CASE_FILES:
+    for case, entry in _load(f"{stem}.md5.json").items():
+      if f"{stem}/{case}" not in GEN_LEFT_OUT:
+        out[f"{stem}/{case}"] = (entry["config"], [entry["md5"]], 1)
+  robust = _load("robustness_cases.md5.json")
+  for case, (kw, n) in ROBUST_PLAIN.items():
+    out[f"robustness_cases/{case}"] = (kw, robust[case]["md5"][:n], n)
+  return out
+
+
+def _generate(kw):
+  """One stream from the port's generator, in a worker process: (its
+  bytes, the seconds it took)."""
+  from ffmpeg_tpu_torch.encoder import config_from_json, encode_stream
+
+  t0 = time.perf_counter()
+  data = encode_stream(config_from_json(kw))[0]
+  return data, time.perf_counter() - t0
+
+
+class Generation:
+  """The generate phase's streams, made by the port's generator in
+  GEN_WORKERS spawned worker processes from the start of the run, so
+  that they overlap the build and the earlier phases: FULL17 first (the
+  longest), then the fixtures, largest first, then the cases.  The
+  streams come back as bytes and are never written to disk."""
+
+  def __init__(self):
+    self.full17 = _load(f"{FULL17}.json")
+    self.pool = multiprocessing.get_context("spawn").Pool(GEN_WORKERS)
+    configs = {FULL17: self.full17["config"]}
+    fixtures = {name: _load(f"{name}.md5.json")["config"]
+                for name in FIXTURES}
+    for name in sorted(fixtures, key=lambda n: -fixtures[n]["width"]
+                       * fixtures[n]["height"] * fixtures[n]["n_frames"]):
+      configs[name] = fixtures[name]
+    configs.update({k: kw for k, (kw, _, _) in _gen_cases().items()})
+    self.jobs = {k: self.pool.apply_async(_generate, (kw,))
+                 for k, kw in configs.items()}
+
+  def get(self, key):
+    """(bytes, seconds) of one stream, waiting for it; a worker's
+    exception is raised here."""
+    return self.jobs[key].get(timeout=900)
+
+  def close(self):
+    self.pool.terminate()
+    self.pool.join()
+
+
+def _first_difference(a: bytes, b: bytes) -> int:
+  return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+              min(len(a), len(b)))
+
+
+def phase_generate(torch, card, gen):
+  """The port's generator on the card's host, its streams through the
+  kernels: (1) each committed fixture regenerated from its config equals
+  the committed .vvc; (2) every committed case of _gen_cases, generated
+  and decoded on the card (a fresh session each, counts zeroed just
+  before the first and read just after the last: the "generated" path),
+  equals its committed JAX MD5s, every kernel launched on the path and no
+  plain version run; (3) FULL17, 17 frames of bench.py FULL_KW, equals
+  full1080_17.json's size and sha256 and decodes with fetch=False (its
+  own path) and then with the fetch to its committed JAX MD5s, fps of
+  each.  Returns the launches of both paths."""
+  from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
+
+  t_phase = time.perf_counter()
+  out = {"phase": "generate", "card": card, "workers": GEN_WORKERS,
+         "fixtures": {}, "left_out": GEN_LEFT_OUT}
+  for name in FIXTURES:
+    data, secs = gen.get(name)
+    want = _read(name)
+    out["fixtures"][name] = {"bytes": len(data), "generate_s": secs,
+                             "equal": data == want}
+    if data != want:
+      emit(out)
+      fail("generate", f"{name}: the config "
+           f"{_load(f'{name}.md5.json')['config']} gives {len(data)} bytes "
+           f"unlike the committed {len(want)}; first differing byte at "
+           f"offset {_first_difference(data, want)}")
+
+  cases = _gen_cases()
+  bad, frames, gen_s = [], 0, 0.0
+  _zero_counts()
+  t0 = time.perf_counter()
+  for key, (_, want, n) in cases.items():
+    data, secs = gen.get(key)
+    gen_s += secs
+    dec = VVCDecoder(device="cuda")
+    got = [[fr.md5() for fr in dec.decode(data)] for _ in range(n)]
+    frames += sum(map(len, got))
+    if got != want:
+      bad.append(key)
+  torch.cuda.synchronize()
+  decode_s = time.perf_counter() - t0
+  launches, plain = {}, {}
+  launches["generated"], plain["generated"] = _path_counts()
+  out["cases"] = {"n": len(cases), "frames": frames, "generate_s": gen_s,
+                  "decode_s": decode_s, "mismatched": bad,
+                  "launches": launches["generated"],
+                  "plain_runs": plain["generated"]}
+  print(f"chip_smoke: generate: {len(cases)} committed cases, {frames} "
+        f"frames, generated in {gen_s:.1f} s (worker seconds) and decoded "
+        f"on the card in {decode_s:.1f} s; launches on the generated path "
+        f"{launches['generated']}; left out: " + "; ".join(
+            f"{k} ({why})" for k, why in GEN_LEFT_OUT.items()), flush=True)
+  if bad:
+    emit(out)
+    fail("generate", f"frame MD5s differ from the committed ones: {bad}")
+
+  ref = gen.full17
+  data, secs = gen.get(FULL17)
+  sha = hashlib.sha256(data).hexdigest()
+  out[FULL17] = {"bytes": len(data), "sha256": sha, "generate_s": secs}
+  if (len(data), sha) != (ref["bytes"], ref["sha256"]):
+    emit(out)
+    fail("generate", f"{FULL17}: the config {ref['config']} gives "
+         f"{len(data)} bytes, sha256 {sha}, not the committed "
+         f"{ref['bytes']}, {ref['sha256']}")
+  dec = VVCDecoder(device="cuda")
+  _zero_counts()
+  t0 = time.perf_counter()
+  on_card = list(dec.decode(data, fetch=False))
+  torch.cuda.synchronize()
+  t_card = time.perf_counter() - t0
+  launches[FULL17], plain[FULL17] = _path_counts()
+  md5_card = [fr.md5() for fr in on_card]
+  del on_card
+  t0 = time.perf_counter()
+  fetched = list(dec.decode(data))
+  t_fetch = time.perf_counter() - t0
+  md5_fetch = [fr.md5() for fr in fetched]
+  out[FULL17].update({
+      "frames": len(md5_card), "fps_on_device": len(md5_card) / t_card,
+      "fps_with_fetch": len(fetched) / t_fetch,
+      "md5_equal_on_device": md5_card == ref["md5"],
+      "md5_equal_with_fetch": md5_fetch == ref["md5"],
+      "launches": launches[FULL17], "plain_runs": plain[FULL17]})
+  out["seconds"] = time.perf_counter() - t_phase
+  emit(out)
+  print(f"chip_smoke: generate {FULL17}: {len(md5_card)} frames, "
+        f"{out[FULL17]['fps_on_device']:.3f} fps left on the card, "
+        f"{out[FULL17]['fps_with_fetch']:.3f} fps with the fetch; generated "
+        f"in {secs:.1f} s; on {card}", flush=True)
+  for path in ("generated", FULL17):
+    if any(plain[path].values()):
+      fail("generate", f"{path}: a plain version ran: {plain[path]}")
+    never = [k for k in KERNELS if launches[path][k] <= 0]
+    if never:
+      fail("generate", f"{path}: never launched: {never}")
+  if md5_card != ref["md5"] or md5_fetch != ref["md5"]:
+    fail("generate", f"{FULL17}: frame MD5s differ from the committed "
+         f"ones: on the card {md5_card}, fetched {md5_fetch}")
   return launches
 
 
@@ -2137,14 +2363,25 @@ def main() -> int:
   if not os.path.isdir(os.path.join(ROOT, "ffmpeg_tpu_torch")):
     fail("build", f"no ffmpeg_tpu_torch package beside {__file__}: run "
          "from a checkout of the repository")
+  gen = Generation()
+  try:
+    return _run(torch, card, gen)
+  finally:
+    gen.close()
+
+
+def _run(torch, card, gen) -> int:
   phase_build()
   worst, calls, levels = phase_kernels(torch)
   launches = phase_decode(torch)
+  launches.update(phase_generate(torch, card, gen))
+  gen.close()
   (kern, plain, recon, inter, deblock, alf, alf_pair, residual, filt,
    sao_pair, dmvr, tools) = phase_timing(torch, card, calls, levels)
   phase_profile(torch, card)
   launches.update(phase_parallel(torch, card))
-  paths = FIXTURES + tuple(k for k in launches if k.startswith("gop:"))
+  paths = FIXTURES + ("generated", FULL17) + tuple(
+      k for k in launches if k.startswith("gop:"))
   rows = []
   for name in KERNELS:
     src, replaces = KERNEL_INFO[name]

@@ -2,8 +2,9 @@
 
 Everything is compiled at first use from the sources in the checkout
 into the git-ignored `ffmpeg_tpu_torch/_build/`: the host parser with
-make (models/vvc/host.py) and each CUDA kernel with nvcc into a shared
-library with a plain C interface, bound with ctypes.  A file lock
+make (models/vvc/host.py), the stream generator's CABAC encoder with the
+C++ compiler (encoder/native_cabac.py) and each CUDA kernel with nvcc,
+each into a shared library with a plain C interface, bound with ctypes.  A file lock
 serialises concurrent builders (test workers, parse threads); a library
 that is newer than all of its sources is reused.
 """
@@ -18,6 +19,8 @@ from contextlib import contextmanager
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra",
+             "-Wno-unused-parameter"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,6 +53,33 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
+def _fresh(out: str, deps) -> bool:
+    return os.path.exists(out) and all(
+        os.path.getmtime(s) <= os.path.getmtime(out) for s in deps)
+
+
+def build_cxx(name: str, sources, headers=()) -> str:
+    """Compile `sources` with the host's C++ compiler ($CXX, else g++)
+    into _build/lib<name>.so unless a library newer than them and the
+    `headers` they include exists; returns the library path.  A failed
+    build raises with the compiler's output."""
+    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    with _lock(name):
+        if _fresh(out, (*sources, *headers)):
+            return out
+        cxx = os.environ.get("CXX", "g++")
+        tmp = f"{out}.tmp.{os.getpid()}"
+        try:
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *sources],
+                                  capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cxx} failed for {name}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed for {name}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def build_cuda(name: str, sources, defines=(), headers=()) -> str:
     """nvcc `sources` into _build/lib<name>.so (sm_90a) unless a library
     newer than them and the `headers` they include exists; returns the
@@ -59,9 +89,7 @@ def build_cuda(name: str, sources, defines=(), headers=()) -> str:
     tag = name + "".join(f"_{v}" for _, v in defines)
     out = os.path.join(BUILD_DIR, f"lib{tag}.so")
     with _lock(tag):
-        if os.path.exists(out) and all(
-                os.path.getmtime(s) <= os.path.getmtime(out)
-                for s in (*sources, *headers)):
+        if _fresh(out, (*sources, *headers)):
             return out
         tmp = f"{out}.tmp.{os.getpid()}"
         t0 = time.perf_counter()
