@@ -1360,7 +1360,8 @@ def _events_ms(fn, torch, reps):
 def _fps(name, torch, traced=False, host_threads=None):
   """fps with frames left on the card and with the fetch, after a
   warm-up decode, on a session of `host_threads` parse lanes (default
-  DecoderConfig's); with traced, also the traced stage ms per frame."""
+  DecoderConfig's); with traced, also the DMVR round trip and its halves
+  per DMVR frame (their trace spans, which hold the search's fetch)."""
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
   from ffmpeg_tpu_torch.utils import trace
 
@@ -1384,9 +1385,6 @@ def _fps(name, torch, traced=False, host_threads=None):
     list(dec.decode(data))
     trace.enable(False)
     summary = trace.summary()
-    out["stage_ms_per_frame_traced"] = {
-        k: v["total_ms"] / n_frames for k, v in summary.items()
-        if "total_ms" in v}
     if "dmvr" in summary:
       # the search, its fetch and the host's dmvr_apply, per DMVR frame,
       # and its halves: the search with its fetch, and the apply

@@ -15,11 +15,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils import trace
 from .inputs import INTER_KEYS, INTRA_KEYS
 
 
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+  """t on `device`, counted as one copy of the open trace span's
+  (pipeline.submit_frame's h2d)."""
+  trace.count("copies")
+  return t.to(device)
+
+
 def _t(a, device) -> torch.Tensor:
-  return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+  return _to(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)),
+             device)
 
 
 def _rows(layout: dict, keys, device) -> dict:
@@ -94,7 +103,7 @@ def inputs_from_numpy(inp: dict, device) -> dict:
   if "alf" in inp:
     # in its host dtypes (int8 CTB grid, int16 tables), as the ALF kernel
     # reads them
-    out["alf"] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    out["alf"] = {k: _to(torch.from_numpy(np.ascontiguousarray(v)), device)
                   for k, v in inp["alf"].items()}
   if "lmcs" in inp:
     out["lmcs"] = _lmcs(inp["lmcs"], device)

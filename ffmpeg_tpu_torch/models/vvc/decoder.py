@@ -22,6 +22,7 @@ a CUDA session without a CUDA device raises, it never falls back.
 from __future__ import annotations
 
 import hashlib
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +39,8 @@ log = get_logger("vvc.decoder")
 
 # frames fetched per device->host transfer; also the dispatch-ahead depth
 FETCH_BATCH = 8
+# numbers the sessions of the process, for the trace's frame identifiers
+_SESSIONS = itertools.count()
 
 
 @dataclass
@@ -211,6 +214,10 @@ class VVCDecoder:
             self._hosts.put(HostDecoder(self._colstore))
         self._exec = ThreadPoolExecutor(max_workers=cfg.host_threads)
         self._parse_ahead = 2 * cfg.host_threads
+        # a frame's trace identifier: (session, access units handed to the
+        # lanes before it), shared by its spans on every thread
+        self._trace_session = next(_SESSIONS)
+        self._n_aus = 0
         self._dpb: dict[int, list] = {}  # poc -> [Y, Cb, Cr] device planes
         self._epoch_base = 0  # monotone across decode() calls (TMVP keys)
         # open-GOP / gradual-recovery output state (decode_recovery_flag
@@ -249,25 +256,27 @@ class VVCDecoder:
         return [torch.full(s, gray, dtype=torch.int32, device=self.device)
                 for s in shapes]
 
-    def _parse_au(self, au: bytes, epoch: int):
+    def _parse_au(self, au: bytes, epoch: int, fid):
         """Worker-thread frame stage: native CABAC parse (releases the
         GIL) + the numpy host inputs (pipeline.prepare_frame, which
         refuses streams outside the port's slices).  A frame with DMVR
         units returns (fs, None): its unit controls need the refined
         MVs, which need the reference planes, so the main thread runs
-        the refinement and builds its inputs afterwards."""
-        hd = self._hosts.get()
-        try:
-            with trace.span("host_parse"):
-                fs = hd.decode_au(au, epoch)
-        finally:
-            self._hosts.put(hd)
-        if fs is None:
-            return None
-        if has_dmvr(fs):
-            check_supported(fs)  # refuse before any device work
-            return fs, None
-        return fs, prepare_frame(fs)
+        the refinement and builds its inputs afterwards.  fid: the
+        frame's trace identifier."""
+        with trace.frame(fid):
+            hd = self._hosts.get()
+            try:
+                with trace.span("host_parse"):
+                    fs = hd.decode_au(au, epoch)
+            finally:
+                self._hosts.put(hd)
+            if fs is None:
+                return None
+            if has_dmvr(fs):
+                check_supported(fs)  # refuse before any device work
+                return fs, None
+            return fs, prepare_frame(fs)
 
     def _split_aus(self, data: bytes):
         """[(nal_type, epoch, au_bytes)] where each AU is self-contained:
@@ -320,6 +329,10 @@ class VVCDecoder:
         With fetch=False, frames are yielded as soon as their frame
         program is queued, with device-resident pixel buffers (fetched
         lazily on access) — the `-f null` mode.
+
+        The main thread's trace spans: parse_wait (on a lane's parse),
+        submit (queuing the frame program), and out_wait (on a frame's
+        error word before it is handed out, fetch=False) or fetch.
         """
         from collections import deque
 
@@ -338,7 +351,8 @@ class VVCDecoder:
             window.clear()
             return out
 
-        inflight: deque = deque()  # (nal_type, epoch, future), decode order
+        # (nal_type, epoch, trace frame id, future), decode order
+        inflight: deque = deque()
         next_submit = 0
         pending_out: list = []
         reorder_depth = 0
@@ -348,13 +362,16 @@ class VVCDecoder:
             while (next_submit < len(aus)
                    and len(inflight) < self._parse_ahead):
                 nal_type, epoch, au = aus[next_submit]
-                inflight.append((nal_type, epoch,
-                                 self._exec.submit(self._parse_au, au, epoch)))
+                fid = (self._trace_session, self._n_aus)
+                inflight.append((nal_type, epoch, fid, self._exec.submit(
+                    self._parse_au, au, epoch, fid)))
                 next_submit += 1
+                self._n_aus += 1
 
         def emit(frame):
             if not fetch:
-                words.check(frame._decode_idx)
+                with trace.frame(frame._trace_id), trace.span("out_wait"):
+                    words.check(frame._decode_idx)
                 return [frame]
             window.append(frame)
             if len(window) >= self.config.fetch_batch:
@@ -373,10 +390,11 @@ class VVCDecoder:
         top_up()
         first = True
         while inflight:
-            nal_type, epoch, fut = inflight.popleft()
+            nal_type, epoch, fid, fut = inflight.popleft()
             is_idr = nal_type in (7, 8)
             try:
-                parsed = fut.result()
+                with trace.frame(fid), trace.span("parse_wait"):
+                    parsed = fut.result()
             except NotImplementedError:
                 raise  # outside the port: never contained, never guessed
             except Exception as e:
@@ -407,18 +425,20 @@ class VVCDecoder:
                 # then the refined motion to the native side, which
                 # publishes the frame's collocated motion and rebuilds its
                 # unit controls
-                refine_dmvr(fs, self._colstore, epoch, self._dpb,
-                            self.device)
-                host_inp = prepare_frame(fs)
+                with trace.frame(fid):
+                    refine_dmvr(fs, self._colstore, epoch, self._dpb,
+                                self.device)
+                    host_inp = prepare_frame(fs)
             if is_idr:
                 if not first:
                     yield from bump(all_of_them=True)
                 self._dpb.clear()
             first = False
             reorder_depth = fs.max_num_reorder
-            packed, planes, err = submit_frame(host_inp, fs, self.device,
-                                               self._dpb)
-            words.add(n_submitted, fs.poc, err, copy=not fetch)
+            with trace.frame(fid), trace.span("submit"):
+                packed, planes, err = submit_frame(host_inp, fs,
+                                                   self.device, self._dpb)
+                words.add(n_submitted, fs.poc, err, copy=not fetch)
             n_submitted += 1
             self._dpb[fs.poc] = planes
             # RPS-driven DPB lifetime (spec 8.3.2 / vvc_refs.c:196-294)
@@ -453,6 +473,7 @@ class VVCDecoder:
                               height=fs.height - ct - cb2,
                               bit_depth=fs.bit_depth)
                 frame._decode_idx = n_submitted - 1
+                frame._trace_id = fid
                 pending_out.append(frame)
             yield from bump()
         yield from bump(all_of_them=True)

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ...utils import trace
 from ...utils.build import BUILD_DIR, build_locked
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -255,7 +256,8 @@ class HostDecoder:
 
     def decode_au(self, data: bytes, epoch: int = 0) -> FrameSyntax | None:
         self._lib.vvch_set_epoch(self._h, epoch)
-        ret = self._lib.vvch_decode_au(self._h, data, len(data))
+        with trace.span("cabac"):
+            ret = self._lib.vvch_decode_au(self._h, data, len(data))
         if ret != 0:
             err = self._lib.vvch_last_error().decode()
             self._renew()

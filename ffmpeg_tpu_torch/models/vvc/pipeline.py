@@ -49,12 +49,6 @@ from .inputs import (CHROMA_SIZES, _padded_plane_shapes, build_host_inputs,
                      has_dmvr)
 
 
-def _sync_for(device):
-  if torch.device(device).type == "cuda":
-    return lambda: torch.cuda.synchronize(device)
-  return None
-
-
 # each kernel of the frame program: (wrapper, its plain version, which
 # takes the same arguments and returns the same result)
 KERNELS = {"residual": (residual_planes, residual_planes_plain),
@@ -114,9 +108,10 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   the frame's residual error word, a one-element int32 tensor on
   `device` that both residual calls write and nothing reads: the caller
   reads it (ops/transform.py raise_on_error) before it hands the frame
-  out}."""
+  out}.
+  Each stage is a trace span (utils/trace.py) around its calls: it times
+  their launches on the host, not the device's work."""
   bd = bit_depth
-  sync = _sync_for(device)
   maxs_y = 1 << ctb_log2
   (Hp_y, Wp_y), (Hp_c, Wp_c) = _padded_plane_shapes(W, H, ctb_log2)
   n_comp = 1 if mono else 3
@@ -131,7 +126,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     # one call per plane kind; luma's size classes vary with its tools
     # (inputs.py)
     cs = (1, 2) if label == "chroma" else (0,)
-    with trace.span("residual", sync):
+    with trace.span("residual"):
       return call("residual", label, dict(
           buckets=[inp["planes"][c]["buckets"] for c in cs],
           sizes=CHROMA_SIZES if cs[0] else list(inp["planes"][0]["buckets"]),
@@ -144,7 +139,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
   kinds = [("luma", 0, inp["ctrl"]["y"], refs[:1])]
   if not mono:
     kinds.append(("chroma", 1, inp["ctrl"]["c"], refs[1:]))
-  with trace.span("inter", sync):
+  with trace.span("inter"):
     tiles = {label: call("inter_pred", label, dict(
         refs=chans, inter=ct["inter"], H=H >> ss, W=W >> ss,
         is_chroma=bool(ss), bit_depth=bd, wrap=wrap >> ss,
@@ -154,7 +149,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
 
   def recon(label, ss, ct, res, cclm=None):
     maxs = min(64 if tb64 and not ss else 32, maxs_y >> ss)
-    with trace.span("recon", sync):
+    with trace.span("recon"):
       return list(call("recon", label, dict(
           res=res, intra=ct["intra"], n_chunks=ct["n_chunks"],
           inter=ct["inter"], tiles=tiles[label], maxs=maxs,
@@ -174,14 +169,14 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     if "cclm_vc" in inp:
       # chroma CCLM reads the reconstructed (mapped) luma: the whole-plane
       # collocated downsample + the plane itself
-      with trace.span("recon", sync):
+      with trace.span("recon"):
         cclm = (planes[0], I.cclm_dsy_plane(planes[0], inp["cclm_vc"],
                                             tile_bds[0], tile_bds[1]))
     planes += recon("chroma", 1, inp["ctrl"]["c"], res_c, cclm)
   if lm is not None:
     # the whole luma plane back to the original domain before the loop
     # filters (ff_vvc_lmcs_filter, vvc_filter.c:1322-1331)
-    with trace.span("lmcs", sync):
+    with trace.span("lmcs"):
       planes[0] = call("lmcs_inv", "luma", dict(x=planes[0], lm=lm,
                                                 bit_depth=bd))
 
@@ -191,7 +186,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     d = inp["deblock"]
     # vertical edges, then horizontal edges on the result, in one call;
     # the horizontal pass's grids are laid out for the transposed plane
-    with trace.span("deblock", sync):
+    with trace.span("deblock"):
       for label, cs in comps:
         out = call("deblock", label, dict(
             planes=[planes[c] for c in cs],
@@ -210,7 +205,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     # sao_planes, overlap), so `deblocked` keeps the luma call's input
     # referenced until both calls are queued: the Cb+Cr call's fresh
     # output must not take memory the luma launch still reads.
-    with trace.span("sao", sync):
+    with trace.span("sao"):
       deblocked = planes[0]
       for label, cs in comps:
         ss = int(label == "chroma")
@@ -231,7 +226,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
     # until both calls are queued: the chroma call's fresh output must
     # not take memory the luma launch still reads.
     geo = dict(alf=inp["alf"], W=W, H=H, ctb_log2=ctb_log2, bit_depth=bd)
-    with trace.span("alf", sync):
+    with trace.span("alf"):
       pre = planes[0]
       planes[0] = call("alf", "luma", dict(planes=[pre], chroma=False,
                                            **geo))[0]
@@ -240,7 +235,7 @@ def frame_program(inp, refs, *, W, H, ctb_log2, bit_depth, mono=False,
         planes[1], planes[2] = call("alf", "chroma", dict(
             kw, overlap=True) if pair else kw)
 
-  with trace.span("pack", sync):
+  with trace.span("pack"):
     # the cropped planes in planar YCbCr order: the exact byte layout of
     # a rawvideo frame, fetched with one copy.  The conformance window
     # crops the output only; the planes keep the full coded area.
@@ -307,16 +302,16 @@ def resolve_refs(fs: FrameSyntax, dpb: dict, device, missing=None) -> list:
 def refine_dmvr(fs: FrameSyntax, colstore: ColStore, epoch: int, dpb: dict,
                 device, call=None) -> None:
   """A DMVR frame's refinement: the subblock search on `device` against
-  the DPB's planes, its rows fetched (span dmvr_search), then
+  the DPB's planes, its rows fetched (span dmvr_search, which holds the
+  fetch's wait on the device: the only span here that does), then
   host.dmvr_apply, which publishes the frame's collocated motion and
   rereads its unit controls with the refined MVs (span dmvr_apply).  Runs
   on the main thread in decode order, before the session waits on a
   later frame's parse (which may need that motion).  call: as in
   frame_program; it runs the search as kernel "dmvr", plane kind
   "luma"."""
-  sync = _sync_for(device)
-  with trace.span("dmvr", sync):
-    with trace.span("dmvr_search", sync):
+  with trace.span("dmvr"):
+    with trace.span("dmvr_search"):
       planes6 = refine_frame(fs, dpb, device, call=call)
     with trace.span("dmvr_apply"):
       dmvr_apply(fs, colstore, epoch, planes6)
@@ -334,8 +329,10 @@ def submit_frame(host_inp, fs: FrameSyntax, device, dpb: dict, call=None,
   program against the DPB's planes (poc -> per-component planes), on
   the device's current stream.  call: as in frame_program; missing: as
   in resolve_refs.  Returns (packed, planes, err), all on `device`: err
-  is the frame's residual error word (frame_program), unread."""
-  with trace.span("h2d", _sync_for(device)):
+  is the frame's residual error word (frame_program), unread.  The
+  h2d span's attribute `copies` counts the host-to-device transfers of
+  the inputs (convert.py)."""
+  with trace.span("h2d", copies=0):
     inp = inputs_from_numpy(host_inp, device)
   out = frame_program(inp, resolve_refs(fs, dpb, device, missing),
                       device=device, call=call, **frame_geometry(fs))
