@@ -14,24 +14,12 @@ from .host import FrameSyntax
 
 def _tu_grids_cbf(fs: FrameSyntax, c_idx: int, g: int):
   """Per-g-sample grids (pos_x, pos_y, w, h, qp, cbf) for one
-  component, filled by one native pass over the TU list
-  (vvch_fo_tu_grids); numpy fallback for synthetic FrameSyntax
-  objects without a native FrameOut handle."""
+  component, filled TU by TU (the native pass, vvch_fo_deblock_grids,
+  fills its own)."""
   ss = 0 if c_idx == 0 else 1
   W, H = fs.width >> ss, fs.height >> ss
   gw, gh = W // g, H // g
   qp_bd_offset = 6 * (fs.bit_depth - 8)
-  if getattr(fs, "fo", None) is not None:
-    import ctypes
-
-    from .host import _get_lib
-
-    grids = [np.empty((gh, gw), np.int32) for _ in range(6)]
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    _get_lib().vvch_fo_tu_grids(
-        fs.fo.ptr, c_idx, g, qp_bd_offset,
-        *[a.ctypes.data_as(i32p) for a in grids])
-    return tuple(grids)
   pos_x = np.zeros((gh, gw), np.int32)
   pos_y = np.zeros((gh, gw), np.int32)
   tw = np.zeros((gh, gw), np.int32)

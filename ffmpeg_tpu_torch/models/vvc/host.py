@@ -117,10 +117,9 @@ def _get_lib():
         lib.vvch_detach.argtypes = [ctypes.c_void_p]
         lib.vvch_fo_free.restype = None
         lib.vvch_fo_free.argtypes = [ctypes.c_void_p]
-        lib.vvch_fo_tu_grids.restype = None
-        lib.vvch_fo_tu_grids.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int] + \
-            [ctypes.POINTER(ctypes.c_int32)] * 6
+        lib.vvch_fo_deblock_grids.restype = ctypes.c_int
+        lib.vvch_fo_deblock_grids.argtypes = [ctypes.c_void_p] + \
+            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_void_p)]
         lib.vvch_fo_bucket_counts.restype = None
         lib.vvch_fo_bucket_counts.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -20,6 +20,7 @@ import numpy as np
 
 from ...ops.tables import VVC_TABLES
 from ...ops.transform import BUCKET_ROWS, LEVEL_SCALE, dequant_scale_shift
+from ...utils import trace
 from .host import CHUNK_CAP, FrameSyntax, _get_lib
 from .mc_tiles import MC_TILE, offsets, split_rows
 from .recon import CTRL_KEYS, _round_up
@@ -193,7 +194,49 @@ def _bucket_inputs(fs: FrameSyntax, c_idx: int, sizes):
           for k, (w, h) in enumerate(sizes)}
 
 
+def _deblock_grid_shapes(Hp_y, Wp_y, Hp_c, Wp_c, mono: bool) -> list:
+  """The deblock grids' (key, shape) pairs in their dict's order: luma
+  at 4 samples a cell, vertical edges (Hp_y/4, Wp_y/4) and horizontal
+  ones transposed, then each chroma component's, segments of 2 samples
+  and edges every 8 (vvch_fo_deblock_grids' out order)."""
+  yv, yh = (Hp_y // 4, Wp_y // 4), (Wp_y // 4, Hp_y // 4)
+  four = ("bs", "qp", "mp", "mq")
+  keys = ([(f"y{k}_v", yv) for k in four] + [("yhor0", yv)]
+          + [(f"y{k}_h", yh) for k in four] + [("yhor", yh)])
+  cv, ch = (Hp_c // 2, Wp_c // 8), (Wp_c // 2, Hp_c // 8)
+  for c_idx in () if mono else (1, 2):
+    keys += ([(f"c{c_idx}{k}_v", cv) for k in four]
+             + [(f"c{c_idx}{k}_h", ch) for k in four])
+  return keys
+
+
 def _deblock_grids(fs: FrameSyntax, Hp_y, Wp_y, Hp_c, Wp_c, ctb_log2):
+  """The frame's deblock edge grids, int8, zero-padded to the planes'
+  (S, E) (ops/deblock.py): one native pass over the detached FrameOut
+  (vvch_fo_deblock_grids), which releases the interpreter lock, or
+  _deblock_grids_plain for a FrameSyntax without a native handle.  Span
+  deblock_grids, attribute native 1 or 0."""
+  native = getattr(fs, "fo", None) is not None
+  with trace.span("deblock_grids", native=int(native)):
+    if not native:
+      return _deblock_grids_plain(fs, Hp_y, Wp_y, Hp_c, Wp_c, ctb_log2)
+    d = {k: np.empty(shape, np.int8) for k, shape in _deblock_grid_shapes(
+        Hp_y, Wp_y, Hp_c, Wp_c, fs.chroma_format_idc == 0)}
+    out = (ctypes.c_void_p * len(d))(*[a.ctypes.data for a in d.values()])
+    rc = _get_lib().vvch_fo_deblock_grids(
+        fs.fo.ptr, Hp_y, Wp_y, Hp_c, Wp_c, ctb_log2,
+        6 * (fs.bit_depth - 8), len(d), out)
+    if rc:
+      raise RuntimeError(
+          f"poc {fs.poc}: the deblock grids ({Hp_y}x{Wp_y} luma, "
+          f"{len(d)} grids) cannot hold the {fs.width}x{fs.height} frame")
+    return d
+
+
+def _deblock_grids_plain(fs: FrameSyntax, Hp_y, Wp_y, Hp_c, Wp_c, ctb_log2):
+  """_deblock_grids in numpy (deblock_ctrl.py): the fallback for a
+  FrameSyntax without a native handle, and the native pass's oracle in
+  the tests."""
   from . import deblock_ctrl as D
 
   ctb = 1 << ctb_log2

@@ -29,7 +29,9 @@ summary() aggregates the store by name.
 
 The session's spans (models/vvc): on a parse lane `host_parse` (holding
 `cabac`, the native parse; the rest is the Python gather of its arrays)
-and then `inputs`; on the main thread `parse_wait` (the wait on a lane's
+and then `inputs` (holding `deblock_grids`, the deblock edge grids, with
+its attribute `native`: 1 for the native pass, 0 for the numpy
+fallback); on the main thread `parse_wait` (the wait on a lane's
 parse), `submit` (holding `h2d`, with its attribute `copies`, and the
 frame program's stages: residual, inter, recon, lmcs, deblock, sao, alf,
 pack), `out_wait` (the wait on a frame's error word before it is handed

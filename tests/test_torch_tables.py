@@ -150,9 +150,15 @@ def test_native_sources_copied(name):
 
 
 def test_native_makefile_decode_only():
+  """The host library is the parser alone: headers.cc, and host.cc,
+  which compiles the copied decode.cc with the port's own entry points
+  and includes nothing else of the package's sources (no encode.cc)."""
   with open(os.path.join(PORT, "native", "Makefile")) as f:
     srcs = re.search(r"^SRCS\s*=\s*(.*)$", f.read(), re.M).group(1).split()
-  assert srcs == ["headers.cc", "decode.cc"]
+  assert srcs == ["headers.cc", "host.cc"]
+  with open(os.path.join(PORT, "native", "host.cc")) as f:
+    assert re.findall(r'^#include "([^"]+)"', f.read(), re.M) == [
+        "decode.cc"]
 
 
 def test_kernel_control_rows_match_layout():

@@ -225,6 +225,25 @@ def test_session_spans_of_each_frame(monkeypatch):
   assert 0 < _reader("lane_cpu_share.single")({}, recs) <= 100
 
 
+def test_deblock_grids_span_in_inputs(monkeypatch):
+  """On each parsed frame the deblock grids' span nests in `inputs` on
+  the same thread and carries native 1: the native pass, never the numpy
+  fallback."""
+  frames, _, recs = _decode_traced(monkeypatch)
+  by_frame: dict = {}
+  for r in recs:
+    by_frame.setdefault(r["frame"], []).append(r)
+  assert len(by_frame) == len(frames) == 2
+  for fid, rs in by_frame.items():
+    (grids,) = [r for r in rs if r["name"] == "deblock_grids"]
+    (inputs,) = [r for r in rs if r["name"] == "inputs"]
+    assert grids["parent"] == "inputs", fid
+    assert grids["thread"] == inputs["thread"] != threading.get_ident()
+    assert (inputs["start_ns"] <= grids["start_ns"] <= grids["end_ns"]
+            <= inputs["end_ns"])
+    assert grids["attrs"] == {"native": 1}
+
+
 def test_tracing_off_leaves_the_decode_unrecorded():
   from ffmpeg_tpu_torch.models.vvc.decoder import VVCDecoder
 
@@ -245,7 +264,8 @@ def _reader(name):
 
 @pytest.mark.parametrize("metric, stage", [
     ("parse_wait_ms.single", "parse_wait"), ("submit_ms.single", "submit"),
-    ("out_wait_ms.single", "out_wait"), ("cabac_ms.single", "cabac")])
+    ("out_wait_ms.single", "out_wait"), ("cabac_ms.single", "cabac"),
+    ("deblock_grids_ms.single", "deblock_grids")])
 def test_span_readers(metric, stage):
   read = _reader(metric)
   spans = {stage: [0.050, 0.070], "other": [1.0]}
